@@ -1,0 +1,412 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card and a checkout of this repository (it imports the
+port from ``src/``); imports nothing of JAX or of the JAX package.
+Phases, in order; any failed check raises, so the exit code is not 0:
+
+1. Card: the name and power limit as nvidia-smi reports them.
+2. Kernels: builds ``src/repro_torch/kernels/csrc/*.cu`` with nvcc for
+   sm_90a, runs each kernel at the main path's shapes on inputs where
+   every level and tile shows (tril(randn) + n0 I to invert, a dense
+   tril(randn) to multiply), holds it against its plain PyTorch version
+   and prints one JSON line per case: errors (an inverse's strictly
+   lower part also against its own scale), the kernel's, the plain
+   version's and one PyTorch library call's time (CUDA events, median
+   over runs, L2 flushed before each run), and the least time the card
+   could take (bytes over 3.35 TB/s or flops over the dtype's peak, the
+   larger).
+3. The slice at full size: a factor of order n = 8192 (the Kronecker
+   factor of an 8192-wide layer, the hidden width of 70B-class models),
+   L = tril(randn) + n I from seed 0, served through
+   ``api.Solver.from_factor`` and ``api.SolveServer(panel_k=16)``: 64
+   requests of widths 1..16 per configuration (bf16_refine at the
+   default n0 = 4096, fp32, bf16_refine at n0 = 256).  Every request's
+   relative residual ||L X - B|| / ||B|| is computed in fp64 on the card
+   and held to the bound the reference asserts for the preset
+   (tests/test_api_solver.py: 1e-5 for fp32 and bf16_refine).  The
+   launch counters are set to 0 before each configuration and read
+   after it; both kernels must have run, trmm exactly m * (refine
+   passes + 1) times per solve.
+4. Steady state: after warmup, ``solve`` on a placed RHS under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), with no
+   program built and a cache hit.
+5. Where the time goes: 10 steady-state solves of each configuration
+   under torch.profiler — device time by kernel and the device's busy
+   share of the host-clock window.
+6. The card line, the kernels' JSON summary, then the last line
+   ``{"ok": true, "device": {...}}``.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
+
+HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, NVIDIA data sheet
+PEAK_FLOPS = {torch.float32: 67e12,            # IEEE fp32, CUDA cores
+              torch.bfloat16: 989e12}          # bf16 tensor cores, dense
+N = 8192
+PANEL_K = 16
+REQUESTS = 64
+RELRES_BOUND = {"fp32": 1e-5, "bf16_refine": 1e-5}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise SmokeFailure(what)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+class Timer:
+    """Median CUDA-event time of a call, each run after an L2 flush."""
+
+    def __init__(self, device):
+        self.flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8,
+                                     device=device)          # > 50 MB L2
+
+    def ms(self, fn, reps: int, warm: int = 2) -> float:
+        for _ in range(warm):
+            fn()
+        pairs = []
+        for _ in range(reps):
+            self.flush_buf.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            pairs.append((s, e))
+        torch.cuda.synchronize()
+        return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def errors(got, want) -> tuple:
+    diff = (got.double() - want.double()).abs().max().item()
+    return diff, diff / max(want.double().abs().max().item(), 1e-300)
+
+
+def lower_rel_error(got, want) -> float:
+    """max |tril(got - want, -1)| over max |tril(want, -1)|: an
+    inverse's strictly lower entries are ~1/n0^2 against ~1/n0 on its
+    diagonal, so an error relative to the whole matrix cannot see them."""
+    diff = torch.tril(got.double() - want.double(), -1).abs().max().item()
+    return diff / max(torch.tril(want.double(), -1).abs().max().item(),
+                      1e-300)
+
+
+def kernel_phase(device, timer):
+    """Each kernel against its plain version at the main path's shapes.
+    Returns {kernel: the main-path case's record}.
+
+    The inputs are chosen so that every level and every tile shows in
+    the comparison: tri_inv_blocks inverts tril(randn) + n0 I (the
+    reference kernel tests' input), whose strictly lower part is held
+    against its own scale; trmm multiplies a dense tril(randn), so each
+    of the L tiles left of the diagonal adds as much to C as the
+    diagonal tile does.  Neither kernel's work depends on the data."""
+    from repro_torch.kernels import tri_inv_block, trmm
+    g = torch.Generator(device=device).manual_seed(1)
+    records = {}
+    # tri_inv_blocks: n0 = 4096 (bf16_refine and fp32 admissions invert
+    # in fp32), n0 = 256, and bf16 operands at both
+    for m, n0, dtype in ((2, 4096, torch.float32), (2, 4096, torch.bfloat16),
+                         (32, 256, torch.float32),
+                         (32, 256, torch.bfloat16)):
+        Ls = (torch.randn((m, n0, n0), generator=g, device=device).tril_()
+              + n0 * torch.eye(n0, device=device)).to(dtype)
+        got = tri_inv_block.tri_inv_blocks(Ls)
+        want = tri_inv_block.tri_inv_blocks_plain(Ls)
+        abs_err, rel_err = errors(got, want)
+        low_err = lower_rel_error(got, want)
+        eye = torch.eye(n0, device=device, dtype=torch.float64)
+        ident = (torch.tril(Ls).double() @ got.double() - eye).abs().max()
+        # bf16: one rounding flip of t or N21 is 2^-8 of an entry; fp32:
+        # reordered fp32 sums over n0/2 terms stay near 1e-6
+        tol, ident_tol = (2e-2, 5e-2) if dtype == torch.bfloat16 \
+            else (1e-4, 1e-4)
+        check(rel_err <= tol, f"tri_inv_blocks {tuple(Ls.shape)} {dtype}: "
+                              f"max_rel_err {rel_err} > {tol}")
+        check(low_err <= tol, f"tri_inv_blocks {tuple(Ls.shape)} {dtype}: "
+                              f"strictly lower part off by {low_err} of "
+                              f"its max > {tol}")
+        check(ident.item() <= ident_tol,
+              f"tri_inv_blocks {tuple(Ls.shape)} {dtype}: |L Linv - I| "
+              f"{ident.item()} > {ident_tol}")
+        reps = 5 if n0 >= 4096 else 20
+        k_ms = timer.ms(lambda: tri_inv_block.tri_inv_blocks(Ls), reps)
+        p_ms = timer.ms(lambda: tri_inv_block.tri_inv_blocks_plain(Ls), reps)
+        lib_ms = None          # solve_triangular has no bf16 CUDA kernel
+        if dtype == torch.float32:
+            I = torch.eye(n0, device=device, dtype=dtype).expand(m, n0, n0)
+            lib_ms = timer.ms(lambda: torch.linalg.solve_triangular(
+                Ls, I, upper=False), reps)
+        tri = m * n0 * (n0 + 1) // 2
+        b_ms, b_by = bound(2 * tri * Ls.element_size(), m * n0**3 / 3,
+                           dtype)
+        rec = dict(kernel="tri_inv_blocks", data="tril(randn) + n0 I",
+                   shape=list(Ls.shape),
+                   dtype=str(dtype).removeprefix("torch."),
+                   max_abs_err=abs_err, max_rel_err=rel_err,
+                   lower_rel_err=low_err, tol=tol,
+                   identity_err=ident.item(), kernel_ms=k_ms, plain_ms=p_ms,
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        print(json.dumps(rec), flush=True)
+        if (m, n0, dtype) == (2, 4096, torch.float32):
+            records["tri_inv_blocks"] = rec
+    # trmm: the solve step X_i = Dt_i @ B_i at the sweep's shapes
+    for n0, dtype in ((4096, torch.bfloat16), (4096, torch.float32),
+                      (256, torch.bfloat16)):
+        Dt = torch.randn((1, n0, n0), generator=g,
+                         device=device).tril_().to(dtype)
+        X = torch.randn((1, n0, PANEL_K), generator=g, device=device,
+                        dtype=torch.float32).to(dtype)
+        got, want = trmm.trmm(Dt, X), trmm.trmm_plain(Dt, X)
+        abs_err, rel_err = errors(got, want)
+        # bf16: exact products, fp32 sums, one output rounding (2^-8)
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+        check(rel_err <= tol, f"trmm {tuple(Dt.shape)} @ {tuple(X.shape)} "
+                              f"{dtype}: max_rel_err {rel_err} > {tol}")
+        k_ms = timer.ms(lambda: trmm.trmm(Dt, X), 50)
+        p_ms = timer.ms(lambda: trmm.trmm_plain(Dt, X), 50)
+        lib_ms = timer.ms(lambda: torch.matmul(Dt, X), 50)
+        nbytes = (n0 * (n0 + 1) // 2 + 2 * n0 * PANEL_K) * Dt.element_size()
+        b_ms, b_by = bound(nbytes, n0 * (n0 + 1) * PANEL_K, dtype)
+        rec = dict(kernel="trmm", data="tril(randn) @ randn",
+                   shape=[list(Dt.shape), list(X.shape)],
+                   dtype=str(dtype).removeprefix("torch."),
+                   max_abs_err=abs_err, max_rel_err=rel_err, tol=tol,
+                   kernel_ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                   bound_ms=b_ms, bound_by=b_by)
+        print(json.dumps(rec), flush=True)
+        if (n0, dtype) == (4096, torch.bfloat16):
+            records["trmm"] = rec
+    return records
+
+
+def serve(api, L, L64, precision, n0, seed):
+    """One configuration of the slice: admission, warmup, 64 requests.
+    Returns (solver, launches, stats)."""
+    from repro_torch.core import session
+    from repro_torch.kernels import tri_inv_block, trmm
+    device = L.device
+    widths = np.random.default_rng(seed).integers(1, PANEL_K + 1, REQUESTS)
+    g = torch.Generator(device=device).manual_seed(seed)
+    torch.cuda.synchronize()
+    trmm.trmm.launches = tri_inv_block.tri_inv_blocks.launches = 0
+    t0 = time.perf_counter()
+    solver = api.Solver.from_factor(L, api.make_trsm_mesh(1, 1),
+                                    method="inv", n0=n0,
+                                    precision=precision)
+    server = api.SolveServer(solver, panel_k=PANEL_K).warmup()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    reqs = [torch.randn((N, int(w)), generator=g, device=device)
+            for w in widths]
+    for b in reqs:
+        server.submit(b)
+    outs = server.drain()[0]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {"trmm": trmm.trmm.launches,
+                "tri_inv_blocks": tri_inv_block.tri_inv_blocks.launches}
+    check(len(outs) == REQUESTS and server.requests_served == REQUESTS,
+          f"{precision}: served {server.requests_served} of {REQUESTS}")
+    X = torch.cat(outs, dim=1).double()
+    B = torch.cat(reqs, dim=1).double()
+    check(bool(torch.isfinite(X).all()), f"{precision}: non-finite X")
+    R = L64 @ X - B
+    relres = (torch.linalg.norm(R, dim=0).reshape(-1)
+              / torch.linalg.norm(B, dim=0).reshape(-1))
+    # per request: ||R_j||_F / ||B_j||_F over the request's columns
+    worst, off = 0.0, 0
+    for w in widths:
+        r = torch.linalg.norm(R[:, off:off + w]) \
+            / torch.linalg.norm(B[:, off:off + w])
+        worst = max(worst, r.item())
+        off += int(w)
+    bound_ = RELRES_BOUND[precision]
+    check(worst < bound_, f"{precision} n0={solver.n0}: worst request "
+                          f"relres {worst} >= {bound_}")
+    m = N // solver.n0
+    solves = server.panels_solved + 1                       # + warmup
+    per_solve = m * (solver.policy.refine_steps + 1)
+    check(launches["tri_inv_blocks"] == 1,
+          f"{precision}: tri_inv_blocks launched "
+          f"{launches['tri_inv_blocks']} times at admission, want 1")
+    check(launches["trmm"] == per_solve * solves,
+          f"{precision}: trmm launched {launches['trmm']} times, want "
+          f"{per_solve} per solve x {solves} solves")
+    spec = solver.spec_for(PANEL_K)
+    stats = dict(config=f"{precision} n={N} n0={solver.n0}",
+                 requests=server.requests_served,
+                 columns=int(widths.sum()),
+                 panels=server.panels_solved,
+                 admit_warmup_s=t1 - t0, serve_s=t2 - t1,
+                 ms_per_panel=(t2 - t1) / server.panels_solved * 1e3,
+                 worst_relres=worst, relres_bound=bound_,
+                 median_column_relres=relres.median().item(),
+                 launches=launches, trmm_per_solve=per_solve,
+                 build_counts={str(spec.policy.name) + f" k={PANEL_K}":
+                               session.BUILD_COUNTS[spec]})
+    print(json.dumps(stats), flush=True)
+    return solver, launches
+
+
+def steady_state(api, solver, L64, seed):
+    """solve on a placed RHS: no host sync, no build, a cache hit."""
+    from repro_torch.core import session
+    g = torch.Generator(device=L64.device).manual_seed(seed)
+    Bp = solver.place_rhs(torch.randn((N, PANEL_K), generator=g,
+                                      device=L64.device))
+    spec = solver.spec_for(PANEL_K)
+    torch.cuda.synchronize()
+    builds, hits = session.BUILD_COUNTS[spec], solver.cache.stats()["hits"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        X = solver.solve(Bp)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(session.BUILD_COUNTS[spec] == builds == 1,
+          f"steady state built a program ({builds} -> "
+          f"{session.BUILD_COUNTS[spec]})")
+    check(solver.cache.stats()["hits"] == hits + 1, "no cache hit")
+    relres = (torch.linalg.norm(L64 @ X[0].double() - Bp[0].double())
+              / torch.linalg.norm(Bp[0].double())).item()
+    check(relres < RELRES_BOUND[solver.policy.name],
+          f"steady-state relres {relres}")
+    print(json.dumps(dict(steady_state="ok", sync_debug_mode="error",
+                          builds=builds, relres=relres)), flush=True)
+
+
+def profile_window(solver, seed, solves: int = 10):
+    """Where a steady-state solve's time goes: device time by kernel and
+    the device's busy share of the host-clock window, from
+    torch.profiler (CUPTI).  A profiler that sees no device time is
+    reported, not failed: it measures, it does not check the port."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device=solver.grid.device).manual_seed(seed)
+    Bp = solver.place_rhs(torch.randn((N, PANEL_K), generator=g,
+                                      device=solver.grid.device))
+    for _ in range(2):
+        solver.solve(Bp)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(solves):
+            solver.solve(Bp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((us, e.key, e.count))
+    rows.sort(reverse=True)
+    device_ms = sum(us for us, _, _ in rows) / 1e3
+    print(json.dumps(dict(
+        profile=f"{solver.policy.name} n={N} n0={solver.n0} k={PANEL_K}",
+        solves=solves, wall_ms_per_solve=wall * 1e3 / solves,
+        device_ms_per_solve=device_ms / solves,
+        device_busy_share=device_ms / (wall * 1e3) if rows else None,
+        top=[[key[:60], us / 1e3 / solves, count / solves]
+             for us, key, count in rows[:8]])), flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "needs a CUDA card", file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print(f"chip_smoke: no {SRC}/repro_torch; run it from a checkout "
+              f"of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, SRC)
+    from repro_torch import api
+    from repro_torch.kernels import build
+
+    t_start = time.perf_counter()
+    card = card_line()                                        # phase 1
+    print(f"card: {card}", flush=True)
+    t0 = time.perf_counter()
+    libs = build.build_all()
+    print(json.dumps(dict(build_s=time.perf_counter() - t0,
+                          libraries=sorted(p.name for p in libs.values()))),
+          flush=True)
+    device = api.make_trsm_mesh(1, 1).device
+    g = torch.Generator(device=device).manual_seed(0)
+    L = torch.randn((N, N), generator=g, device=device).tril_()
+    L.diagonal().add_(N)
+    L64 = L.double()
+
+    records = kernel_phase(device, Timer(device))             # phase 2
+
+    main_solver, main_launches = serve(api, L, L64, "bf16_refine", None,
+                                       seed=10)              # phase 3
+    check(main_solver.n0 == N // 2, f"default n0 {main_solver.n0}")
+    others = [serve(api, L, L64, "fp32", None, seed=11)[0],
+              serve(api, L, L64, "bf16_refine", 256, seed=12)[0]]
+
+    steady_state(api, main_solver, L64, seed=13)             # phase 4
+    for i, solver in enumerate([main_solver] + others):      # phase 5
+        profile_window(solver, seed=14 + i)
+
+    kernels = []
+    for name, source, replaces in (
+            ("tri_inv_blocks", "src/repro_torch/kernels/csrc/"
+             "tri_inv_block.cu", "src/repro/kernels/tri_inv_block.py:63"),
+            ("trmm", "src/repro_torch/kernels/csrc/trmm.cu",
+             "src/repro/kernels/trmm.py:32")):
+        rec = records[name]
+        check(main_launches[name] > 0, f"{name} never launched on the "
+                                       f"main path")
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces,
+                            launches=main_launches[name],
+                            max_abs_err=rec["max_abs_err"],
+                            ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
+                            bound_ms=rec["bound_ms"],
+                            bound_by=rec["bound_by"],
+                            library_ms=rec["library_ms"]))
+    print(json.dumps(dict(elapsed_s=time.perf_counter() - t_start)))
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

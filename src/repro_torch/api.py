@@ -1,0 +1,29 @@
+"""The front door of the port (the counterpart of ``repro.api``).
+
+    from repro_torch import api
+
+    grid = api.make_trsm_mesh(1, 1)            # cuda:0; device="cpu" too
+    solver = api.Solver.from_factor(L, grid, precision="bf16_refine")
+    server = api.SolveServer(solver, panel_k=16).warmup()
+    server.submit(b)
+    X, = server.drain()[0]
+
+* :class:`SolveSpec` — frozen, hashable solve configuration; a concrete
+  spec IS the compiled-program cache key.
+* :class:`Solver` — resident factor(s) at any bank width, one cached
+  program per RHS width, a steady state that only queues device work.
+* :class:`SolveServer` — continuous batching over a Solver.
+* :class:`FactorBank` — the admission layer (stacked storage, hoisted
+  phase 1 through the hand-written ``tri_inv_blocks`` kernel).
+"""
+
+from repro_torch.core.bank import FactorBank  # noqa: F401
+from repro_torch.core.errors import (  # noqa: F401
+    DeadlineUnmeetable, Overloaded, ServingError, StrandedRequestError)
+from repro_torch.core.grid import TrsmGrid, make_trsm_mesh  # noqa: F401
+from repro_torch.core.precision import (  # noqa: F401
+    PRESETS, PrecisionPolicy)
+from repro_torch.core.session import (  # noqa: F401
+    BUILD_COUNTS, CompiledSolverCache, default_cache)
+from repro_torch.core.solver import (  # noqa: F401
+    Solver, SolveServer, SolveSpec, solver_for)

@@ -1,0 +1,42 @@
+"""Public wrappers for the hand-written kernels.
+
+``trmm`` and ``tri_inv_blocks`` run the CUDA kernel on a CUDA tensor
+and the kernel's plain PyTorch version on a CPU tensor.
+``block_inv_kernel`` is the drop-in hook for the solvers' ``block_inv=``
+parameter, and the port's default diagonal-block inverter.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.tri_inv_block import tri_inv_blocks  # noqa: F401
+from repro_torch.kernels.trmm import trmm  # noqa: F401
+
+
+def block_inv_kernel(blocks: torch.Tensor) -> torch.Tensor:
+    """Hook matching the ``block_inv`` signature of the solvers:
+    (m, n0, n0) -> batched inverses, kernel-backed when the block size
+    is a power of two (>= 2), plain doubling otherwise.
+
+    Degenerate blocks are rejected eagerly: a zero-sized batch or a
+    0x0 / non-square block would otherwise reach a launch with a
+    0-extent grid."""
+    if blocks.ndim != 3:
+        raise ValueError(
+            f"block_inv_kernel expects a (m, n0, n0) stack of blocks, "
+            f"got ndim={blocks.ndim} shape={tuple(blocks.shape)}")
+    m, r, n0 = blocks.shape
+    if r != n0:
+        raise ValueError(
+            f"diagonal blocks must be square, got {r}x{n0} "
+            f"(shape={tuple(blocks.shape)})")
+    if m == 0 or n0 == 0:
+        raise ValueError(
+            f"degenerate block batch {tuple(blocks.shape)}: zero-sized "
+            f"batches cannot be inverted — check n0 / grid divisibility "
+            f"upstream")
+    if n0 & (n0 - 1) == 0 and n0 >= 2:
+        return tri_inv_blocks(blocks.contiguous())
+    from repro_torch.core import blocked
+    return blocked.tri_inv_batched(blocks)
