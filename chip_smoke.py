@@ -9,34 +9,49 @@ Phases, in order; any failed check raises, so the exit code is not 0:
 
 1. Card: the name and power limit as nvidia-smi reports them.
 2. Kernels: builds ``src/repro_torch/kernels/csrc/*.cu`` with nvcc for
-   sm_90a, runs each kernel at the main path's shapes on inputs where
-   every level and tile shows (tril(randn) + n0 I to invert, a dense
-   tril(randn) to multiply), holds it against its plain PyTorch version
-   and prints one JSON line per case: errors (an inverse's strictly
-   lower part also against its own scale), the kernel's, the plain
-   version's and one PyTorch library call's time (CUDA events, median
-   over runs, L2 flushed before each run), and the least time the card
-   could take (bytes over 3.35 TB/s or flops over the dtype's peak, the
-   larger).
+   sm_90a (one nvcc per source, all started together), runs each kernel
+   at the main paths' shapes on inputs where every level, tile and row
+   block shows (tril(randn) + n0 I to invert, a dense tril(randn) to
+   multiply, tril(randn) / sqrt(n) with a diagonal in [1, 2) to solve),
+   holds it against its plain PyTorch version and prints one JSON line
+   per case: errors (an inverse's strictly lower part also against its
+   own scale; for the substitution, how far leaving out the
+   off-diagonal part or one row block's contribution would move X, in
+   tolerances; its path case is the bf16 factor with fp32 X that
+   bf16_refine solves with, and an fp32 case of the same shape
+   follows), the kernel's, the plain version's and one PyTorch
+   library call's time (CUDA events, median over runs, L2 flushed
+   before each run), and the least time the card could take (bytes over
+   3.35 TB/s or flops over the dtype's peak, the larger).
 3. The slice at full size: a factor of order n = 8192 (the Kronecker
    factor of an 8192-wide layer, the hidden width of 70B-class models),
    L = tril(randn) + n I from seed 0, served through
    ``api.Solver.from_factor`` and ``api.SolveServer(panel_k=16)``: 64
-   requests of widths 1..16 per configuration (bf16_refine at the
-   default n0 = 4096, fp32, bf16_refine at n0 = 256).  Every request's
-   relative residual ||L X - B|| / ||B|| is computed in fp64 on the card
-   and held to the bound the reference asserts for the preset
-   (tests/test_api_solver.py: 1e-5 for fp32 and bf16_refine).  The
-   launch counters are set to 0 before each configuration and read
-   after it; both kernels must have run, trmm exactly m * (refine
-   passes + 1) times per solve.
+   requests of widths 1..16 per configuration.  It-Inv ("inv", the
+   main path of kernels B1 and B2): bf16_refine at the default
+   n0 = 4096, fp32, bf16_refine at n0 = 256.  The recursive baseline
+   ("rec", the main path of kernel B3): bf16_refine and fp32 at the
+   default n0 (= n at p = 1: one base case), bf16_refine at n0 = 512.
+   Every request's relative residual ||L X - B|| / ||B|| is computed in
+   fp64 on the card and held to the bound the reference asserts for
+   the preset (tests/test_api_solver.py: 1e-5 for fp32 and
+   bf16_refine).  The launch counters are set to 0 before each
+   configuration and read after it: for "inv" tri_inv_blocks once and
+   trmm exactly m * (refine passes + 1) times per solve, for "rec"
+   trsm_substitution exactly n / n0 * (refine passes + 1) times per
+   solve and no other kernel.
 4. Steady state: after warmup, ``solve`` on a placed RHS under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), with no
-   program built and a cache hit.
-5. Where the time goes: 10 steady-state solves of each configuration
+   program built and a cache hit, for both main paths.
+5. The other entry points: one-shot ``api.trsm`` with "inv" (n0 =
+   4096 and the planned n0), "rec" and "auto" on the same factor,
+   relres checked, each launching exactly the kernels of the plan it
+   resolves, and the plans that ``Solver.from_factor(method="auto")`` and
+   ``SolveSpec.auto`` resolve under the H100 cost model.
+6. Where the time goes: 10 steady-state solves of each configuration
    under torch.profiler — device time by kernel and the device's busy
    share of the host-clock window.
-6. The card line, the kernels' JSON summary, then the last line
+7. The card line, the kernels' JSON summary, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -54,11 +69,16 @@ SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.float32: 67e12,            # IEEE fp32, CUDA cores
-              torch.bfloat16: 989e12}          # bf16 tensor cores, dense
+              torch.bfloat16: 989e12,          # bf16 tensor cores, dense
+              torch.float64: 34e12}            # IEEE fp64, CUDA cores
 N = 8192
 PANEL_K = 16
 REQUESTS = 64
 RELRES_BOUND = {"fp32": 1e-5, "bf16_refine": 1e-5}
+# inv: (precision, n0); the first is the main path of B1 and B2
+INV_CONFIGS = (("bf16_refine", None), ("fp32", None), ("bf16_refine", 256))
+# rec: the first is the main path of B3
+REC_CONFIGS = (("bf16_refine", None), ("fp32", None), ("bf16_refine", 512))
 
 
 class SmokeFailure(RuntimeError):
@@ -207,22 +227,117 @@ def kernel_phase(device, timer):
         print(json.dumps(rec), flush=True)
         if (n0, dtype) == (4096, torch.bfloat16):
             records["trmm"] = rec
+    records["trsm_substitution"] = substitution_phase(device, timer, g)
     return records
 
 
-def serve(api, L, L64, precision, n0, seed):
+def substitution_phase(device, timer, g):
+    """trsm_substitution against its plain version: the rec path's whole
+    solve (1, 8192, 8192) x 16, first with the bf16 factor and fp32 X
+    of bf16_refine (the main path's entry, whose record this returns),
+    then in fp32; the base case (1, 512, 512) x 16 in fp32, an fp64
+    case, and a batched one with ragged n and k.  The systems are
+    tril(randn) / sqrt(n) with a diagonal in [1, 2), rounded to the
+    factor's dtype, so the off-diagonal part moves X as much as the
+    diagonal does; each case prints how far leaving it out, or leaving
+    out one row block's contribution (fp64 library solve of the altered
+    factor), would move X, in tolerances."""
+    from repro_torch.kernels import trsm_block
+    main = None
+    for m, n, k, ldtype, dtype in (
+            (1, N, PANEL_K, torch.bfloat16, torch.float32),
+            (1, N, PANEL_K, torch.float32, torch.float32),
+            (1, 512, PANEL_K, torch.float32, torch.float32),
+            (1, 2048, PANEL_K, torch.float64, torch.float64),
+            (4, 1000, 21, torch.float32, torch.float32)):
+        L = torch.randn((m, n, n), generator=g, device=device,
+                        dtype=torch.float64).tril_() / n ** 0.5
+        L.diagonal(dim1=-2, dim2=-1).copy_(
+            1 + torch.rand((m, n), generator=g, device=device,
+                           dtype=torch.float64))
+        L = L.to(ldtype).double()
+        B = torch.randn((m, n, k), generator=g, device=device,
+                        dtype=torch.float64)
+        R = trsm_block.ROWS[dtype]
+        b0 = (n // R - 1) // 2 * R             # a row block mid-chain
+        L_drop = L.clone()
+        L_drop[:, b0 + R:, b0:b0 + R] = 0
+        X_drop = torch.linalg.solve_triangular(L_drop, B, upper=False)
+        L, B = L.to(ldtype), B.to(dtype)
+        got = trsm_block.trsm_substitution(L, B)
+        want = trsm_block.trsm_substitution_plain(L, B)
+        abs_err, rel_err = errors(got, want)
+        # fp32: sequential FMA dots against cuBLAS's order, carried into
+        # later rows (a bf16 factor is widened exactly, so the same);
+        # fp64 the same at its own epsilon
+        tol = 1e-4 if dtype == torch.float32 else 1e-10
+        what = f"trsm_substitution {tuple(L.shape)} {ldtype} x {k} {dtype}"
+        check(rel_err <= tol, f"{what}: max_rel_err {rel_err} > {tol}")
+        check(bool(torch.isfinite(got).all()), f"{what}: non-finite X")
+        scale = want.double().abs().max().item()
+        diag_only = B.double() / L.double().diagonal(
+            dim1=-2, dim2=-1)[..., None]
+        off_diag_ratio = (diag_only - want.double()).abs().max().item() \
+            / (tol * scale)
+        drop_ratio = (X_drop - want.double()).abs().max().item() \
+            / (tol * scale)
+        check(min(off_diag_ratio, drop_ratio) > 10,
+              f"{what}: the comparison cannot see a missing block "
+              f"({off_diag_ratio}, {drop_ratio})")
+        big = n >= 4096
+        k_ms = timer.ms(lambda: trsm_block.trsm_substitution(L, B),
+                        5 if big else 20)
+        p_ms = timer.ms(lambda: trsm_block.trsm_substitution_plain(L, B),
+                        2 if big else 3, warm=0)
+        # solve_triangular takes one dtype for both operands, and no bf16
+        # on CUDA: for a bf16 factor there is no one library call, so it
+        # is timed on an fp32 copy of the factor, apart
+        L_lib = L if ldtype == dtype else L.to(dtype)
+        lib_ms = timer.ms(lambda: torch.linalg.solve_triangular(
+            L_lib, B, upper=False), 5 if big else 20)
+        nbytes = m * n * (n + 1) // 2 * L.element_size() \
+            + 2 * m * n * k * B.element_size()
+        b_ms, b_by = bound(nbytes, m * n * n * k, dtype)
+        rec = dict(kernel="trsm_substitution",
+                   data="tril(randn) / sqrt(n), diagonal in [1, 2)",
+                   shape=[list(L.shape), list(B.shape)],
+                   dtype=str(dtype).removeprefix("torch."),
+                   factor_dtype=str(ldtype).removeprefix("torch."),
+                   max_abs_err=abs_err, max_rel_err=rel_err, tol=tol,
+                   off_diagonal_in_tols=off_diag_ratio,
+                   one_row_block_in_tols=drop_ratio,
+                   kernel_ms=k_ms, plain_ms=p_ms,
+                   library_ms=lib_ms if ldtype == dtype else None,
+                   library_ms_fp32_factor=None if ldtype == dtype
+                   else lib_ms,
+                   bound_ms=b_ms, bound_by=b_by,
+                   rows_per_ms=n / k_ms)
+        print(json.dumps(rec), flush=True)
+        if main is None:
+            main = rec
+    return main
+
+
+def counters():
+    from repro_torch.kernels import tri_inv_block, trmm, trsm_block
+    return {"tri_inv_blocks": tri_inv_block.tri_inv_blocks,
+            "trmm": trmm.trmm,
+            "trsm_substitution": trsm_block.trsm_substitution}
+
+
+def serve(api, L, L64, method, precision, n0, seed):
     """One configuration of the slice: admission, warmup, 64 requests.
-    Returns (solver, launches, stats)."""
+    Returns (solver, launches)."""
     from repro_torch.core import session
-    from repro_torch.kernels import tri_inv_block, trmm
     device = L.device
     widths = np.random.default_rng(seed).integers(1, PANEL_K + 1, REQUESTS)
     g = torch.Generator(device=device).manual_seed(seed)
     torch.cuda.synchronize()
-    trmm.trmm.launches = tri_inv_block.tri_inv_blocks.launches = 0
+    for fn in counters().values():
+        fn.launches = 0
     t0 = time.perf_counter()
     solver = api.Solver.from_factor(L, api.make_trsm_mesh(1, 1),
-                                    method="inv", n0=n0,
+                                    method=method, n0=n0,
                                     precision=precision)
     server = api.SolveServer(solver, panel_k=PANEL_K).warmup()
     torch.cuda.synchronize()
@@ -234,8 +349,7 @@ def serve(api, L, L64, precision, n0, seed):
     outs = server.drain()[0]
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = {"trmm": trmm.trmm.launches,
-                "tri_inv_blocks": tri_inv_block.tri_inv_blocks.launches}
+    launches = {name: fn.launches for name, fn in counters().items()}
     check(len(outs) == REQUESTS and server.requests_served == REQUESTS,
           f"{precision}: served {server.requests_served} of {REQUESTS}")
     X = torch.cat(outs, dim=1).double()
@@ -252,19 +366,20 @@ def serve(api, L, L64, precision, n0, seed):
         worst = max(worst, r.item())
         off += int(w)
     bound_ = RELRES_BOUND[precision]
-    check(worst < bound_, f"{precision} n0={solver.n0}: worst request "
-                          f"relres {worst} >= {bound_}")
-    m = N // solver.n0
-    solves = server.panels_solved + 1                       # + warmup
-    per_solve = m * (solver.policy.refine_steps + 1)
-    check(launches["tri_inv_blocks"] == 1,
-          f"{precision}: tri_inv_blocks launched "
-          f"{launches['tri_inv_blocks']} times at admission, want 1")
-    check(launches["trmm"] == per_solve * solves,
-          f"{precision}: trmm launched {launches['trmm']} times, want "
-          f"{per_solve} per solve x {solves} solves")
     spec = solver.spec_for(PANEL_K)
-    stats = dict(config=f"{precision} n={N} n0={solver.n0}",
+    config = f"{method} {precision} n={N} n0={spec.n0}"
+    check(worst < bound_, f"{config}: worst request relres {worst} >= "
+                          f"{bound_}")
+    solves = server.panels_solved + 1                       # + warmup
+    per_solve = N // spec.n0 * (solver.policy.refine_steps + 1)
+    # inv: B1 once at admission, B2 per sweep step; rec: B3 per base case
+    want = {"inv": {"tri_inv_blocks": 1, "trmm": per_solve * solves,
+                    "trsm_substitution": 0},
+            "rec": {"tri_inv_blocks": 0, "trmm": 0,
+                    "trsm_substitution": per_solve * solves}}[method]
+    check(launches == want, f"{config}: launches {launches}, want {want} "
+                            f"({per_solve} per solve x {solves} solves)")
+    stats = dict(config=config,
                  requests=server.requests_served,
                  columns=int(widths.sum()),
                  panels=server.panels_solved,
@@ -272,7 +387,7 @@ def serve(api, L, L64, precision, n0, seed):
                  ms_per_panel=(t2 - t1) / server.panels_solved * 1e3,
                  worst_relres=worst, relres_bound=bound_,
                  median_column_relres=relres.median().item(),
-                 launches=launches, trmm_per_solve=per_solve,
+                 launches=launches, kernel_launches_per_solve=per_solve,
                  build_counts={str(spec.policy.name) + f" k={PANEL_K}":
                                session.BUILD_COUNTS[spec]})
     print(json.dumps(stats), flush=True)
@@ -302,8 +417,58 @@ def steady_state(api, solver, L64, seed):
               / torch.linalg.norm(Bp[0].double())).item()
     check(relres < RELRES_BOUND[solver.policy.name],
           f"steady-state relres {relres}")
-    print(json.dumps(dict(steady_state="ok", sync_debug_mode="error",
-                          builds=builds, relres=relres)), flush=True)
+    print(json.dumps(dict(steady_state="ok", method=solver.method,
+                          sync_debug_mode="error", builds=builds,
+                          relres=relres)), flush=True)
+
+
+def other_entry_points(api, L, L64, seed):
+    """One-shot trsm with each method on the path's factor, and the plans
+    "auto" resolves under the H100 model."""
+    from repro_torch.core import tuning
+    g = torch.Generator(device=L.device).manual_seed(seed)
+    B = torch.randn((N, PANEL_K), generator=g, device=L.device)
+    grid = api.make_trsm_mesh(1, 1)
+    for method, n0 in (("inv", N // 2), ("inv", None), ("rec", None),
+                       ("auto", None)):
+        before = {name: fn.launches for name, fn in counters().items()}
+        t0 = time.perf_counter()
+        X = api.trsm(L, B, grid, method=method, n0=n0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        relres = (torch.linalg.norm(L64 @ X.double() - B.double())
+                  / torch.linalg.norm(B.double())).item()
+        check(relres < RELRES_BOUND["fp32"],
+              f"one-shot trsm {method}: relres {relres}")
+        resolved, r_n0 = api.resolve_plan(grid, N, PANEL_K, method=method,
+                                          n0=n0)
+        launches = {name: fn.launches - before[name]
+                    for name, fn in counters().items()}
+        # the resolved plan's kernels, and only those: B1 once and B2 per
+        # sweep step for "inv", B3 per base case for "rec"
+        want = {"inv": {"tri_inv_blocks": 1, "trmm": N // r_n0,
+                        "trsm_substitution": 0},
+                "rec": {"tri_inv_blocks": 0, "trmm": 0,
+                        "trsm_substitution": N // r_n0}}[resolved]
+        check(launches == want, f"one-shot trsm {method} ({resolved}, "
+                                f"n0={r_n0}): launches {launches}, want "
+                                f"{want}")
+        print(json.dumps(dict(
+            one_shot=method, resolved=[resolved, r_n0], relres=relres,
+            first_call_s=wall, launches=launches)), flush=True)
+    machine = tuning.default_machine()
+    solver = api.Solver.from_factor(L, grid, method="auto", k_hint=PANEL_K)
+    print(json.dumps(dict(
+        machine=machine.__dict__,
+        solver_from_factor_auto=dict(method=solver.method, n0=solver.n0,
+                                     k_hint=PANEL_K),
+        solve_spec_auto=dict(
+            (f, getattr(api.SolveSpec.auto(N, PANEL_K, grid=grid), f))
+            for f in ("method", "n0")),
+        solve_spec_auto_banked=dict(
+            (f, getattr(api.SolveSpec.auto(N, PANEL_K, grid=grid,
+                                           bank_width=1), f))
+            for f in ("method", "n0")))), flush=True)
 
 
 def profile_window(solver, seed, solves: int = 10):
@@ -335,7 +500,8 @@ def profile_window(solver, seed, solves: int = 10):
     rows.sort(reverse=True)
     device_ms = sum(us for us, _, _ in rows) / 1e3
     print(json.dumps(dict(
-        profile=f"{solver.policy.name} n={N} n0={solver.n0} k={PANEL_K}",
+        profile=f"{solver.method} {solver.policy.name} n={N} "
+                f"n0={solver.spec_for(PANEL_K).n0} k={PANEL_K}",
         solves=solves, wall_ms_per_solve=wall * 1e3 / solves,
         device_ms_per_solve=device_ms / solves,
         device_busy_share=device_ms / (wall * 1e3) if rows else None,
@@ -372,28 +538,39 @@ def main() -> int:
 
     records = kernel_phase(device, Timer(device))             # phase 2
 
-    main_solver, main_launches = serve(api, L, L64, "bf16_refine", None,
-                                       seed=10)              # phase 3
-    check(main_solver.n0 == N // 2, f"default n0 {main_solver.n0}")
-    others = [serve(api, L, L64, "fp32", None, seed=11)[0],
-              serve(api, L, L64, "bf16_refine", 256, seed=12)[0]]
+    solvers, main_launches = [], {}
+    for method, configs in (("inv", INV_CONFIGS), ("rec", REC_CONFIGS)):
+        for i, (precision, n0) in enumerate(configs):        # phase 3
+            solver, launches = serve(api, L, L64, method, precision, n0,
+                                     seed=10 + len(solvers))
+            solvers.append(solver)
+            if i == 0:                         # the method's main path
+                main_launches[method] = launches
+                steady_state(api, solver, L64,
+                             seed=30 + len(solvers))         # phase 4
+    check(solvers[0].n0 == N // 2, f"default inv n0 {solvers[0].n0}")
+    check(solvers[len(INV_CONFIGS)].spec_for(PANEL_K).n0 == N,
+          "default rec n0 is not n")
 
-    steady_state(api, main_solver, L64, seed=13)             # phase 4
-    for i, solver in enumerate([main_solver] + others):      # phase 5
-        profile_window(solver, seed=14 + i)
+    other_entry_points(api, L, L64, seed=40)                  # phase 5
+    for i, solver in enumerate(solvers):                      # phase 6
+        profile_window(solver, seed=50 + i)
 
     kernels = []
-    for name, source, replaces in (
-            ("tri_inv_blocks", "src/repro_torch/kernels/csrc/"
+    for name, method, source, replaces in (
+            ("tri_inv_blocks", "inv", "src/repro_torch/kernels/csrc/"
              "tri_inv_block.cu", "src/repro/kernels/tri_inv_block.py:63"),
-            ("trmm", "src/repro_torch/kernels/csrc/trmm.cu",
-             "src/repro/kernels/trmm.py:32")):
+            ("trmm", "inv", "src/repro_torch/kernels/csrc/trmm.cu",
+             "src/repro/kernels/trmm.py:32"),
+            ("trsm_substitution", "rec",
+             "src/repro_torch/kernels/csrc/trsm_block.cu",
+             "src/repro/kernels/trsm_block.py:26")):
         rec = records[name]
-        check(main_launches[name] > 0, f"{name} never launched on the "
-                                       f"main path")
+        launches = main_launches[method][name]
+        check(launches > 0, f"{name} never launched on the {method} main "
+                            f"path")
         kernels.append(dict(name=name, route="cuda", source=source,
-                            replaces=replaces,
-                            launches=main_launches[name],
+                            replaces=replaces, launches=launches,
                             max_abs_err=rec["max_abs_err"],
                             ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
                             bound_ms=rec["bound_ms"],

@@ -8,15 +8,21 @@
     server.submit(b)
     X, = server.drain()[0]
 
+    X = api.trsm(L, B, grid, method="rec")     # one shot
+
 * :class:`SolveSpec` — frozen, hashable solve configuration; a concrete
-  spec IS the compiled-program cache key.
-* :class:`Solver` — resident factor(s) at any bank width, one cached
+  spec IS the compiled-program cache key; ``SolveSpec.auto`` plans it
+  from the cost model (:func:`resolve_plan`, :func:`plan_grid`).
+* :class:`Solver` — resident factor(s) at any bank width, method "inv"
+  (It-Inv-TRSM), "rec" (the recursive baseline) or "auto", one cached
   program per RHS width, a steady state that only queues device work.
 * :class:`SolveServer` — continuous batching over a Solver.
 * :class:`FactorBank` — the admission layer (stacked storage, hoisted
   phase 1 through the hand-written ``tri_inv_blocks`` kernel).
+* :func:`trsm` — one-shot solve.
 """
 
+from repro_torch.core import trsm  # noqa: F401
 from repro_torch.core.bank import FactorBank  # noqa: F401
 from repro_torch.core.errors import (  # noqa: F401
     DeadlineUnmeetable, Overloaded, ServingError, StrandedRequestError)
@@ -26,4 +32,4 @@ from repro_torch.core.precision import (  # noqa: F401
 from repro_torch.core.session import (  # noqa: F401
     BUILD_COUNTS, CompiledSolverCache, default_cache)
 from repro_torch.core.solver import (  # noqa: F401
-    Solver, SolveServer, SolveSpec, solver_for)
+    Solver, SolveServer, SolveSpec, plan_grid, resolve_plan, solver_for)

@@ -1,14 +1,15 @@
 """FactorBank: the admission layer of the solve stack (DESIGN.md Sec. 9).
 
 A device-resident pool of M same-order triangular factors held as
-stacked tensors, one per role: the storage-dtype factor ``L_lo``, its
-inverted diagonal blocks ``Dt`` (phase 1, the paper's
+stacked tensors, one per role: the storage-dtype factor ``L_lo``, for
+method "inv" its inverted diagonal blocks ``Dt`` (phase 1, the paper's
 Diagonal-Inverter, run ONCE at admission since the factor is
 immutable), and, when the precision policy refines, the residual-dtype
-factor ``L_hi``.  Admission folds the operator reduction (upper /
+factor ``L_hi``.  A "rec" bank holds ``(L_lo[, L_hi])``: the recursion
+has no phase 1.  Admission folds the operator reduction (upper /
 transpose) into one gather and casts once; the steady state is the
-sweep alone against the resident stacks.  A width-1 bank is the
-single-factor case.
+sweep (or the recursion) alone against the resident stacks.  A
+width-1 bank is the single-factor case.
 
 This bank is append-only.  Capacity allocation, in-place replace,
 evict, cyclic ingestion and padded admission are ROADMAP A7.
@@ -38,9 +39,11 @@ class FactorBank:
         X = Solver.from_bank(bank).solve(B_stack)   # (M, n, k)
 
     All factors share one operator configuration (method, n0, lower,
-    transpose, precision).  ``dtype`` / ``precision`` take a preset name
-    or a PrecisionPolicy; default fp32 uniform.  ``block_inv=None``
-    inverts the diagonal blocks with the hand-written kernel
+    transpose, precision); "auto" is k-dependent, so a bank takes "inv"
+    or "rec" and ``Solver.from_factor`` resolves "auto" before it.
+    ``dtype`` / ``precision`` take a preset name or a PrecisionPolicy;
+    default fp32 uniform.  ``block_inv=None`` inverts the diagonal
+    blocks with the hand-written kernel
     (``kernels.ops.block_inv_kernel``)."""
 
     def __init__(self, grid: TrsmGrid, n: int, *, method: str = "inv",
@@ -61,6 +64,9 @@ class FactorBank:
         solverlib._check_method(method)
         if capacity is not None:
             raise NotImplementedError(_A7)
+        if grid.device is None:
+            raise ValueError("a plan-only grid (plan_grid) has no device: "
+                             "build banks on make_trsm_mesh")
         self.structure = solverlib._normalize_structure(structure)
         self.overlap = solverlib._normalize_overlap(overlap)
         self.grid = grid
@@ -73,16 +79,24 @@ class FactorBank:
         self.map_mode = map_mode
         self.cache = cache if cache is not None \
             else sessionlib.default_cache()
-        # n0 is pinned at construction (admission pre-inverts the
-        # diagonal blocks, so every program over this bank agrees on
-        # the block size); default: the hoisted-serving argmin
-        self.n0 = n0 if n0 is not None else tuning.serving_n0(n, grid)
-        if self.n0 < 1 or n % self.n0 or self.n0 % (grid.p1 * grid.p2):
-            raise ValueError(f"n0={self.n0} infeasible for n={n} on "
-                             f"p1={grid.p1}, p2={grid.p2}")
-        from repro_torch.core import inv_trsm
-        self._phase1_mode = mode or inv_trsm.pick_phase1_mode(
-            n, self.n0, grid)
+        if method == "inv":
+            # n0 is pinned at construction (admission pre-inverts the
+            # diagonal blocks, so every program over this bank agrees
+            # on the block size); default: the hoisted-serving argmin
+            self.n0 = n0 if n0 is not None else tuning.serving_n0(n, grid)
+            if self.n0 < 1 or n % self.n0 \
+                    or self.n0 % (grid.p1 * grid.p2):
+                raise ValueError(f"n0={self.n0} infeasible for n={n} on "
+                                 f"p1={grid.p1}, p2={grid.p2}")
+            from repro_torch.core import inv_trsm
+            self._phase1_mode = mode or inv_trsm.pick_phase1_mode(
+                n, self.n0, grid)
+        else:
+            # "rec": None follows k (Solver.spec_for -> default_n0)
+            if n0 is not None and (n0 < 1 or n % n0):
+                raise ValueError(f"n0={n0} does not tile n={n}")
+            self.n0 = n0
+            self._phase1_mode = None
         # admitted chunks (tuples of per-role stacks), fused lazily by
         # stacks() into one (width, ...) stack per role
         self._chunks: list[tuple] = []
@@ -121,7 +135,9 @@ class FactorBank:
         return ph1(L_lo)
 
     def _entry(self, parts: tuple) -> tuple:
-        """(L_lo[, L_hi]) stacks -> the resident (L_lo, Dt[, L_hi])."""
+        """(L_lo[, L_hi]) stacks -> the resident (L_lo[, Dt][, L_hi])."""
+        if self.method != "inv":
+            return parts
         return (parts[0], self._phase1(parts[0])) + parts[1:]
 
     def _admit(self, Ls: torch.Tensor) -> None:
@@ -163,7 +179,7 @@ class FactorBank:
 
     def stacks(self) -> tuple:
         """The resident stacks — one (width, ...) tensor per role (sweep
-        factor, inverted diagonal blocks[, residual-dtype factor]).
+        factor[, inverted diagonal blocks][, residual-dtype factor]).
         Admitted chunks are fused on first use after an admission."""
         if self._stacks is None and not self._chunks:
             raise ValueError("empty bank: admit factors before solving")

@@ -12,6 +12,9 @@ The numerical building blocks and oracles of the solve path:
 * ``it_inv_trsm_local`` — the single-device schedule of It-Inv-TRSM
   (Sec. VI): multiply by pre-inverted diagonal blocks + trailing GEMM
   updates; no substitution in the sweep.
+* ``rec_trsm_local`` / ``forward_substitution`` — the recursive
+  baseline (Sec. IV) and the row-by-row substitution it bottoms out in,
+  as single-device oracles.
 * reversal identities reducing upper/transposed solves to the lower case.
 
 Every function takes a leading batch of matrices where the reference
@@ -114,6 +117,33 @@ def it_inv_trsm_local(L: torch.Tensor, B: torch.Tensor, n0: int,
         Xi = dblocks[i] @ Bcur[rows]                      # solve via GEMM
         X[rows] = Xi
         Bcur[(i + 1) * n0:] -= L[(i + 1) * n0:, rows] @ Xi
+    return X
+
+
+def rec_trsm_local(L: torch.Tensor, B: torch.Tensor, n0: int) -> torch.Tensor:
+    """Recursive TRSM baseline (paper Sec. IV) on one device.
+
+    Splits L into quadrants until n <= n0; the base case is a library
+    triangular solve.  Python recursion over static shapes, as in the
+    paper's recursion."""
+    n = L.shape[-1]
+    if n <= n0:
+        return torch.linalg.solve_triangular(L, B, upper=False)
+    h = n // 2
+    L11, L21, L22 = L[..., :h, :h], L[..., h:, :h], L[..., h:, h:]
+    X1 = rec_trsm_local(L11, B[..., :h, :], n0)
+    B2 = B[..., h:, :] - L21 @ X1
+    X2 = rec_trsm_local(L22, B2, n0)
+    return torch.cat([X1, X2], dim=-2)
+
+
+def forward_substitution(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Row-by-row forward substitution with the full-length row dot
+    (the rows of X not yet solved are zero).  Reference only."""
+    X = torch.zeros_like(B)
+    for i in range(L.shape[-1]):
+        X[..., i, :] = (B[..., i, :] - (L[..., i:i + 1, :] @ X)[..., 0, :]) \
+            / L[..., i, i, None]
     return X
 
 

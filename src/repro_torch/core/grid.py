@@ -8,8 +8,10 @@ stride-p cyclic index set (ScaLAPACK-style block-cyclic storage).
 This package runs the 1 x 1 x 1 grid on one device.  There every
 cyclic permutation is the identity, and the only gather left is the
 reversal that reduces upper / transposed solves to the lower case
-(DESIGN.md Sec. 3).  Grids with p > 1 wait for the distributed port
-(ROADMAP A12).
+(DESIGN.md Sec. 3).  A grid of any p without a device
+(``solver.plan_grid``) carries the processor arithmetic of a plan;
+running on grids with p > 1 waits for the distributed port (ROADMAP
+A12).
 """
 
 from __future__ import annotations
@@ -25,8 +27,10 @@ from repro_torch.core import precision as preclib
 
 @dataclasses.dataclass(frozen=True)
 class TrsmGrid:
-    """A p1 x p1 x p2 processor grid; at p = 1 it is one ``device``."""
-    device: torch.device
+    """A p1 x p1 x p2 processor grid; at p = 1 it is one ``device``.
+    ``device=None`` marks a plan-only grid: specs can be planned on it,
+    programs cannot be built."""
+    device: torch.device | None
     p1: int
     p2: int
 

@@ -5,9 +5,11 @@
   description is the SOLE key type, DESIGN.md Sec. 10), with
   single-flight builds.
 * :func:`_build_solver` builds the program for a spec: the B row gather
-  (upper/transpose reversal folded in), the It-Inv sweep against the
-  resident factor and its hoisted Dt, the inverse gather, and the
-  policy's fixed refinement passes (``repro_torch.core.refine``).
+  (upper/transpose reversal folded in), the solve — the It-Inv sweep
+  against the resident factor and its hoisted Dt (banked "inv"),
+  phase 1 then the sweep (one-shot "inv"), or the recursive TRSM
+  ("rec", banked or one-shot) — the inverse gather, and the policy's
+  fixed refinement passes (``repro_torch.core.refine``).
 
 PyTorch runs eagerly, so a "program" is a Python function over device
 tensors; building it resolves every plan decision once, and its gather
@@ -53,12 +55,16 @@ def _needs_reversal(lower: bool, transpose: bool) -> bool:
 @dataclasses.dataclass(frozen=True)
 class SolverProgram:
     """The steady-state program for one solve configuration:
-    ``solve(factor, B_nat) -> X_nat`` over an (M, n, k) stack, where
-    ``factor`` is a bank's resident ``(L_lo, Dt[, L_hi])`` (admission,
-    phase 1 included, is the bank's job: ``FactorBank``).  The sweep
-    works on its own copy of B, so the caller's B is never written."""
+    ``solve(factor, B_nat) -> X_nat``.  A banked program (``bank_width``
+    set) works over an (M, n, k) stack, where ``factor`` is a bank's
+    resident ``(L_lo[, Dt][, L_hi])`` (admission, phase 1 included, is
+    the bank's job: ``FactorBank``).  A one-shot program works on one
+    (n, k) right-hand side against ``prep(L_nat)``, its own admission
+    of one (n, n) factor.  The solve works on its own copy of B, so the
+    caller's B is never written."""
     key: object                  # the program's SolveSpec (cache key)
     solve: Callable
+    prep: Callable | None = None
 
 
 class CompiledSolverCache:
@@ -192,31 +198,77 @@ def _build_phase1(grid: TrsmGrid, n: int, n0: int, mode: str, accum,
 def _build_solver(spec) -> SolverProgram:
     """Build the program for a concrete
     :class:`repro_torch.core.solver.SolveSpec` (which is also the
-    program's cache key and :data:`BUILD_COUNTS` key): the banked "inv"
-    steady state, the sweep alone against the resident Dt."""
+    program's cache key and :data:`BUILD_COUNTS` key).
+
+    * banked "inv": the sweep alone against the resident (L_lo, Dt);
+    * one-shot "inv": phase 1 (the ``tri_inv_blocks`` kernel by
+      default) once per call, then the sweep — every refinement pass
+      reuses the call's Dt;
+    * "rec", banked or one-shot: the recursive TRSM against the
+      resident L_lo, its base cases on the ``trsm_substitution``
+      kernel."""
     grid = spec.grid
-    n, n0, policy = spec.n, spec.n0, spec.policy
-    if spec.method != "inv" or spec.bank_width is None:
-        raise NotImplementedError("only the banked 'inv' program is ported "
-                                  "(one-shot and 'rec' are ROADMAP A8)")
+    n, k, n0, policy = spec.n, spec.k, spec.n0, spec.policy
+    if grid.device is None:
+        raise ValueError("a plan-only grid (plan_grid) cannot run a "
+                         "program: build it on make_trsm_mesh")
     p1, p2 = grid.p1, grid.p2
     rev = _needs_reversal(spec.lower, spec.transpose)
-    gridlib.check_divisibility(n, spec.k, n0, grid)
+    compute, accum = policy.compute, policy.accumulate
+    banked = spec.bank_width is not None
 
-    def base_solve(L_pair, B):
-        B_cyc = gridlib.cyclic_rows_device(B.to(policy.compute), p1,
-                                           reverse=rev)
-        X_cyc = inv_trsm.sweep(L_pair[0], L_pair[1], B_cyc, n0=n0,
-                               accum_dtype=policy.accumulate)
-        return gridlib.cyclic_rows_device(X_cyc, p1, inverse=True,
-                                          reverse=rev)
+    if spec.method == "inv":
+        gridlib.check_divisibility(n, k, n0, grid)
 
-    # factor tuple layout: (L_lo, Dt[, L_hi]); the sweep takes (L_lo, Dt)
+        def base_solve(L_pair, B):
+            B_cyc = gridlib.cyclic_rows_device(B.to(compute), p1,
+                                               reverse=rev)
+            X_cyc = inv_trsm.sweep(L_pair[0], L_pair[1], B_cyc, n0=n0,
+                                   accum_dtype=accum)
+            return gridlib.cyclic_rows_device(X_cyc, p1, inverse=True,
+                                              reverse=rev)
+
+        if banked:
+            def sweep_factor(factor):        # (L_lo, Dt[, L_hi])
+                return factor[:2]
+        else:
+            mode = spec.mode or inv_trsm.pick_phase1_mode(n, n0, grid)
+            ph1 = _build_phase1(grid, n, n0, mode, accum, spec.block_inv)
+
+            def sweep_factor(factor):        # (L_lo[, L_hi])
+                return (factor[0], ph1(factor[0]))
+    elif spec.method == "rec":
+        from repro_torch.core import rec_trsm
+        rec = rec_trsm.rec_trsm_sharded(grid, n, k, n0, accum_dtype=accum)
+
+        def base_solve(L_lo, B):
+            B_cyc = gridlib.cyclic_matrix_device(
+                B.to(compute), p1, p1 * p2, reverse_rows=rev)
+            X_cyc = rec(L_lo, B_cyc)
+            return gridlib.cyclic_matrix_device(
+                X_cyc, p1, p1 * p2, inverse=True, reverse_rows=rev)
+
+        def sweep_factor(factor):            # (L_lo[, L_hi])
+            return factor[0]
+    else:
+        raise ValueError(f"unknown method {spec.method!r}")
+
     def program(factor, B):
         L_hi = factor[-1] if policy.refines else None
-        return refinelib.refined_solve(base_solve, factor[:2], L_hi, B,
-                                       policy=policy, p1=p1, p2=p2,
-                                       reverse=rev)
+        return refinelib.refined_solve(base_solve, sweep_factor(factor),
+                                       L_hi, B, policy=policy, p1=p1,
+                                       p2=p2, reverse=rev)
 
     BUILD_COUNTS[spec] += 1
-    return SolverProgram(key=spec, solve=program)
+    if banked:
+        return SolverProgram(key=spec, solve=program)
+    preps = _factor_preps(grid, spec.lower, spec.transpose, policy)
+
+    def prep(L):
+        return tuple(pr(torch.as_tensor(L)[None]) for pr in preps)
+
+    def solve(factor, B):
+        B = torch.as_tensor(B, device=grid.device)
+        return program(factor, B[None])[0]
+
+    return SolverProgram(key=spec, solve=solve, prep=prep)

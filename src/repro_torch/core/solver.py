@@ -3,9 +3,11 @@
 
 * :class:`SolveSpec` — a frozen, hashable description of ONE solve
   configuration: the problem (n, k, operator variant), the plan
-  (method, n0, mode, grid) and the execution policy (precision, bank
-  width, map mode).  A concrete spec IS the
-  :class:`~repro_torch.core.session.CompiledSolverCache` key.
+  (method, n0, mode, grid — resolvable a priori from the Sec. VIII
+  cost model via :meth:`SolveSpec.auto` and :func:`resolve_plan`) and
+  the execution policy (precision, bank width, map mode).  A concrete
+  spec IS the :class:`~repro_torch.core.session.CompiledSolverCache`
+  key.
 * :class:`Solver` — resident factor(s) at any bank width: a
   :class:`~repro_torch.core.bank.FactorBank` is the admission layer and
   a width-1 bank is the single-factor case.  After ``warmup`` the steady
@@ -15,9 +17,8 @@
   queues, first-fit packed fixed-width panels, one solve per wave
   covering every factor, submit-order results.
 
-Not ported yet: the cost-model plan (``SolveSpec.auto``,
-``method="auto"``: ROADMAP A5, A8), method "rec" (A8), live bank
-mutation (A7), block structures (A9) and fleets (A11).
+Not ported yet: live bank mutation (ROADMAP A7), block structures
+(A9), grids with p > 1 (A12) and fleets (A11).
 """
 
 from __future__ import annotations
@@ -56,15 +57,65 @@ def _normalize_structure(structure):
                               "sweep) are ROADMAP A9")
 
 
-def _check_method(method: str) -> None:
-    if method == "inv":
-        return
-    if method == "rec":
-        raise NotImplementedError("method 'rec' is ROADMAP A8")
+def _check_method(method: str, *, auto: bool = False) -> None:
+    """Methods name an algorithm, "inv" or "rec".  "auto" is resolved
+    before a spec or a bank exists, so only the front doors that
+    resolve it (``auto=True``) take it."""
+    methods = ("inv", "rec", "auto") if auto else ("inv", "rec")
+    if method not in methods:
+        raise ValueError(f"method must be one of {methods}, got "
+                         f"{method!r} (SolveSpec.auto and resolve_plan "
+                         f"resolve 'auto')")
+
+
+# ----------------------------- plan resolution -----------------------------
+
+def plan_grid(p1: int, p2: int) -> TrsmGrid:
+    """A device-less grid (p1 x p1 x p2) for plan-only specs: carries the
+    processor-grid arithmetic of a :class:`SolveSpec` without touching
+    devices.  Executable paths (:func:`solver_for`, :class:`Solver`)
+    need a grid from ``make_trsm_mesh``."""
+    return TrsmGrid(None, p1, p2)
+
+
+def resolve_plan(grid: TrsmGrid, n: int, k: int, *, method: str = "inv",
+                 n0: int | None = None, machine=None,
+                 hoisted: bool = False,
+                 structure=None) -> tuple[str, int]:
+    """The ONE place method/n0 defaults are resolved (host arithmetic,
+    so cache keys are concrete).
+
+    ``method="auto"`` dispatches through the Sec. VIII alpha-beta-gamma
+    model — the fused comparison (``tuning.choose_method``) for
+    one-shot solves, or the sweep-only steady comparison
+    (``tuning.choose_serving_method``) when ``hoisted``: a resident
+    factor pays phase 1 once at admission, so the inversion term must
+    not count against "inv" in the per-solve dispatch.  An unset ``n0``
+    is consumed verbatim from the tuner's frozen
+    :class:`~repro_torch.core.tuning.TrsmPlan` for "inv"
+    (``tune_for_grid`` — or the hoisted-serving argmin ``serving_n0``),
+    and set to the Sec. IV-A base-case size for "rec".  ``machine``
+    defaults to the H100 preset (``tuning.default_machine``); a
+    non-dense ``structure`` raises (ROADMAP A9)."""
+    from repro_torch.core import tuning
+    structure = _normalize_structure(structure)
+    _check_method(method, auto=True)
     if method == "auto":
-        raise NotImplementedError("method 'auto' needs the cost model "
-                                  "(ROADMAP A5, A8)")
-    raise ValueError(f"spec method must be 'inv' or 'rec', got {method!r}")
+        if hoisted:
+            method, h_n0, _ = tuning.choose_serving_method(
+                n, k, grid, machine, n0=n0)
+            if method == "inv" and n0 is None:
+                n0 = h_n0
+        else:
+            method, _, _ = tuning.choose_method(n, k, grid.p, machine)
+    if n0 is None:
+        if method == "inv":
+            n0 = tuning.serving_n0(n, grid) if hoisted else \
+                tuning.tune_for_grid(n, k, grid, machine).n0
+        else:
+            from repro_torch.core import rec_trsm
+            n0 = rec_trsm.default_n0(n, k, grid.p1, grid.p2)
+    return method, n0
 
 
 # ------------------------------- SolveSpec -------------------------------
@@ -77,13 +128,17 @@ class SolveSpec:
     * problem — ``n`` (factor order), ``k`` (RHS width; ``None`` marks a
       template spec a :class:`Solver` completes per width),
       ``lower``/``transpose`` (the operator variant, DESIGN.md Sec. 3).
-    * plan — ``method`` ("inv"), ``n0`` (diagonal-block size), ``mode``
-      (phase-1 scheme), ``grid``, ``block_inv`` (optional
-      diagonal-inverter hook; ``None`` is the hand-written kernel).
+    * plan — ``method`` ("inv" | "rec"; ``"auto"`` is resolved before a
+      spec exists, via :meth:`auto`), ``n0`` (diagonal-block size for
+      "inv", base-case size for "rec"), ``mode`` (phase-1 scheme),
+      ``grid`` (a plan-only grid has no device), ``block_inv``
+      (optional diagonal-inverter hook; ``None`` is the hand-written
+      kernel).
     * execution — ``policy`` (the full
       :class:`~repro_torch.core.precision.PrecisionPolicy`),
-      ``bank_width`` and ``map_mode`` ("vmap" | "scan"; ``None`` when
-      unbanked).
+      ``bank_width`` (``None`` = the unbanked one-shot program; M >= 1
+      = the program over an M-factor stack) and ``map_mode`` ("vmap" |
+      "scan"; ``None`` when unbanked).
     * ``structure`` — ``None``; a dense structure normalizes to it.
     * ``overlap`` — "auto"/"on"/True normalize to "on", "off"/False to
       ``None``.
@@ -128,17 +183,67 @@ class SolveSpec:
 
     def validate(self) -> "SolveSpec":
         """Check plan feasibility (raises ValueError): n0 must tile the
-        factor and respect the cyclic layout ((p1*p2) | n0)."""
+        factor and, for "inv", respect the cyclic layout
+        ((p1*p2) | n0)."""
         n0 = self.n0
         if n0 is not None:
             if n0 < 1 or self.n % n0:
                 raise ValueError(f"n0={n0} does not tile n={self.n}")
-            if self.grid is not None \
+            if self.method == "inv" and self.grid is not None \
                     and n0 % (self.grid.p1 * self.grid.p2):
                 raise ValueError(
                     f"n0={n0} infeasible for the cyclic layout on "
                     f"p1={self.grid.p1}, p2={self.grid.p2}")
         return self
+
+    @classmethod
+    def auto(cls, n: int, k: int, *, grid: TrsmGrid | None = None,
+             p: int | None = None, method: str = "auto",
+             n0: int | None = None, mode: str | None = None,
+             lower: bool = True, transpose: bool = False,
+             machine=None, precision=None, dtype=None,
+             block_inv: Callable | None = None,
+             bank_width: int | None = None,
+             map_mode: str | None = None,
+             hoisted: bool | None = None, structure=None,
+             overlap: str | bool | None = "auto") -> "SolveSpec":
+        """The a-priori front door: resolve the plan ONCE from the
+        Sec. VIII cost model and freeze it into a spec.
+
+        Pass either a ``grid`` (n0/method tuned for it) or a processor
+        count ``p`` (the tuner also picks p1/p2; the result carries a
+        device-less :func:`plan_grid` and is a plan-only spec).  The
+        tuner's frozen :class:`~repro_torch.core.tuning.TrsmPlan` is
+        consumed verbatim — same n0, same grid factors.  ``hoisted``
+        selects the serving-n0 argmin (defaults to True exactly when
+        ``bank_width`` is set, i.e. when phase 1 runs at admission).
+        ``machine`` defaults to the H100 preset.  ``precision`` accepts
+        a preset name or PrecisionPolicy; ``dtype`` the uniform policy;
+        default fp32."""
+        from repro_torch.core import tuning
+        if hoisted is None:
+            hoisted = bank_width is not None
+        structure = _normalize_structure(structure)
+        if grid is None:
+            if p is None:
+                raise ValueError("SolveSpec.auto needs grid= or p=")
+            if method == "auto":
+                method, plan, _ = tuning.choose_method(n, k, p, machine)
+            else:
+                plan = tuning.tune(n, k, p, machine)
+            grid = plan_grid(plan.p1, plan.p2)
+            if n0 is None and method == "inv" and not hoisted:
+                n0 = plan.n0                      # the plan, verbatim
+        method, n0 = resolve_plan(grid, n, k, method=method, n0=n0,
+                                  machine=machine, hoisted=hoisted)
+        if precision is None and dtype is None:
+            dtype = torch.float32
+        return cls(n=n, k=k, grid=grid,
+                   policy=preclib.resolve(precision, dtype),
+                   method=method, n0=n0, mode=mode, lower=lower,
+                   transpose=transpose, block_inv=block_inv,
+                   bank_width=bank_width, map_mode=map_mode,
+                   structure=structure, overlap=overlap).validate()
 
 
 def solver_for(spec: SolveSpec, cache=None):
@@ -183,19 +288,29 @@ class Solver:
     def from_factor(cls, L, grid: TrsmGrid, *, method: str = "inv",
                     n0: int | None = None, mode: str | None = None,
                     lower: bool = True, transpose: bool = False,
-                    block_inv: Callable | None = None,
+                    machine=None, block_inv: Callable | None = None,
                     dtype=None, precision=None, map_mode: str = "vmap",
-                    structure=None, overlap: str | bool | None = "auto",
+                    k_hint: int | None = None, structure=None,
+                    overlap: str | bool | None = "auto",
                     cache=None) -> "Solver":
-        """A width-1 solver around one natural-layout (n, n) factor.  An
-        unset n0 defaults to the hoisted-serving argmin
-        (``tuning.serving_n0``: n/2 — phase 1 runs at admission)."""
-        _check_method(method)
+        """A width-1 solver around one natural-layout (n, n) factor.
+        ``method="auto"`` resolves the algorithm a priori from the cost
+        model at ``k_hint`` RHS columns (default n) on ``machine``
+        (default the H100 preset).  An unset n0 defaults to the
+        hoisted-serving argmin for "inv" (``tuning.serving_n0``: n/2 —
+        phase 1 runs at admission) and to the Sec. IV-A base-case size
+        for "rec" (n at p = 1)."""
+        _check_method(method, auto=True)
         L = torch.as_tensor(L)
         if dtype is not None:
             L = L.to(preclib.as_torch_dtype(dtype))
         if L.ndim != 2 or L.shape[0] != L.shape[1]:
             raise ValueError(f"factor must be square, got {tuple(L.shape)}")
+        if method == "auto":
+            method, n0 = resolve_plan(grid, L.shape[0], k_hint or L.shape[0],
+                                      method="auto", n0=n0,
+                                      machine=machine, hoisted=True,
+                                      structure=structure)
         bank = FactorBank(grid, L.shape[0], method=method, n0=n0,
                           mode=mode, lower=lower, transpose=transpose,
                           block_inv=block_inv,
@@ -210,19 +325,26 @@ class Solver:
     def from_factors(cls, Ls, grid: TrsmGrid, *, method: str = "inv",
                      n0: int | None = None, mode: str | None = None,
                      lower: bool = True, transpose: bool = False,
-                     block_inv: Callable | None = None,
+                     machine=None, block_inv: Callable | None = None,
                      dtype=None, precision=None, map_mode: str = "vmap",
-                     structure=None, overlap: str | bool | None = "auto",
+                     k_hint: int | None = None, structure=None,
+                     overlap: str | bool | None = "auto",
                      cache=None) -> "Solver":
         """A width-M solver over an (M, n, n) natural-layout stack,
-        admitted in one batched admission."""
-        _check_method(method)
+        admitted in one batched admission.  ``method="auto"`` resolves
+        as in :meth:`from_factor`."""
+        _check_method(method, auto=True)
         Ls = torch.as_tensor(Ls)
         if dtype is not None:
             Ls = Ls.to(preclib.as_torch_dtype(dtype))
         if Ls.ndim != 3 or Ls.shape[-1] != Ls.shape[-2]:
             raise ValueError(f"factor stack must be (M, n, n), got "
                              f"{tuple(Ls.shape)}")
+        n = Ls.shape[-1]
+        if method == "auto":
+            method, n0 = resolve_plan(grid, n, k_hint or n, method="auto",
+                                      n0=n0, machine=machine, hoisted=True,
+                                      structure=structure)
         bank = FactorBank(grid, Ls.shape[-1], method=method, n0=n0,
                           mode=mode, lower=lower, transpose=transpose,
                           block_inv=block_inv,
@@ -294,7 +416,9 @@ class Solver:
         return self.bank.method
 
     @property
-    def n0(self) -> int:
+    def n0(self) -> int | None:
+        """The bank's block size; ``None`` for a "rec" bank whose base
+        case follows k (:meth:`spec_for`)."""
         return self.bank.n0
 
     def live_slots(self) -> tuple:
@@ -304,8 +428,12 @@ class Solver:
         """The concrete :class:`SolveSpec` (== cache key) serving RHS
         width k at the current bank width."""
         b = self.bank
+        n0 = b.n0
+        if n0 is None:                       # "rec" with unpinned n0
+            from repro_torch.core import rec_trsm
+            n0 = rec_trsm.default_n0(b.n, k, b.grid.p1, b.grid.p2)
         return SolveSpec(n=b.n, k=k, grid=b.grid, policy=b.policy,
-                         method=b.method, n0=b.n0, mode=b.mode,
+                         method=b.method, n0=n0, mode=b.mode,
                          lower=b.lower, transpose=b.transpose,
                          block_inv=b.block_inv, bank_width=b.width,
                          map_mode=b.map_mode, structure=b.structure,

@@ -1,7 +1,8 @@
 """Public wrappers for the hand-written kernels.
 
-``trmm`` and ``tri_inv_blocks`` run the CUDA kernel on a CUDA tensor
-and the kernel's plain PyTorch version on a CPU tensor.
+``trmm``, ``tri_inv_blocks`` and ``trsm_substitution`` run the CUDA
+kernel on a CUDA tensor and the kernel's plain PyTorch version on a
+CPU tensor.
 ``block_inv_kernel`` is the drop-in hook for the solvers' ``block_inv=``
 parameter, and the port's default diagonal-block inverter.
 """
@@ -12,12 +13,15 @@ import torch
 
 from repro_torch.kernels.tri_inv_block import tri_inv_blocks  # noqa: F401
 from repro_torch.kernels.trmm import trmm  # noqa: F401
+from repro_torch.kernels.trsm_block import trsm_substitution  # noqa: F401
 
 
 def block_inv_kernel(blocks: torch.Tensor) -> torch.Tensor:
     """Hook matching the ``block_inv`` signature of the solvers:
-    (m, n0, n0) -> batched inverses, kernel-backed when the block size
-    is a power of two (>= 2), plain doubling otherwise.
+    (m, n0, n0) -> batched inverses.  A power-of-two n0 (1 included)
+    goes to :func:`tri_inv_blocks`; another n0 runs the plain doubling
+    on a CPU tensor and raises on any other device, since B1 takes
+    powers of two only.
 
     Degenerate blocks are rejected eagerly: a zero-sized batch or a
     0x0 / non-square block would otherwise reach a launch with a
@@ -36,7 +40,10 @@ def block_inv_kernel(blocks: torch.Tensor) -> torch.Tensor:
             f"degenerate block batch {tuple(blocks.shape)}: zero-sized "
             f"batches cannot be inverted — check n0 / grid divisibility "
             f"upstream")
-    if n0 & (n0 - 1) == 0 and n0 >= 2:
+    if n0 & (n0 - 1) == 0:
         return tri_inv_blocks(blocks.contiguous())
+    if blocks.device.type != "cpu":
+        raise ValueError(f"the tri_inv_blocks kernel takes a power-of-two "
+                         f"block size, got n0={n0} on {blocks.device}")
     from repro_torch.core import blocked
     return blocked.tri_inv_batched(blocks)

@@ -2,11 +2,15 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --workload trsm \
         --n 8192 --panel-k 16 --requests 64 [--n0 4096] \
+        [--method inv|rec|auto] \
         [--precision fp32|bf16|bf16_refine|fp64_refine] [--cache-stats] \
         [--device cuda:0|cpu]
 
 The factor is L = tril(randn) + n I from seed 0; requests have random
-widths 1..panel_k.  Prints requests served, panels and ms per panel.
+widths 1..panel_k.  ``--method rec`` serves through the recursive
+baseline (its base cases on the substitution kernel), ``auto`` lets
+the cost model choose at k = panel_k.  Prints requests served, panels
+and ms per panel.
 The other workloads of ``repro.launch.serve`` are not ported yet.
 """
 
@@ -43,8 +47,9 @@ def serve_trsm(args):
     L.diagonal().add_(n)
     if args.precision != "fp64_refine":
         L = L.float()
-    solver = api.Solver.from_factor(L, grid, method="inv", n0=args.n0,
-                                    precision=args.precision)
+    solver = api.Solver.from_factor(L, grid, method=args.method,
+                                    n0=args.n0, precision=args.precision,
+                                    k_hint=args.panel_k)
     server = api.SolveServer(solver, args.panel_k).warmup()
     widths = rng.integers(1, args.panel_k + 1, args.requests)
     if grid.device.type == "cuda":
@@ -62,7 +67,8 @@ def serve_trsm(args):
     print(f"served {server.requests_served} solve requests "
           f"({int(widths.sum())} columns) in {panels} panels, "
           f"{dt:.3f}s ({dt / max(panels, 1) * 1e3:.2f} ms/panel) "
-          f"on {grid.device} n={n} n0={solver.n0} "
+          f"on {grid.device} n={n} "
+          f"n0={solver.spec_for(args.panel_k).n0} "
           f"method={solver.method} precision={policy.name} "
           f"({policy.describe()})")
     if args.cache_stats:
@@ -76,6 +82,10 @@ def main(argv=None):
     ap.add_argument("--n", type=int, default=256)
     ap.add_argument("--n0", type=int, default=None)
     ap.add_argument("--panel-k", type=int, default=16)
+    ap.add_argument("--method", default="inv",
+                    choices=["inv", "rec", "auto"],
+                    help="It-Inv-TRSM, the recursive baseline, or the "
+                         "cost model's choice")
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--precision", default="fp32",
                     choices=["fp32", "bf16", "bf16_refine", "fp64_refine"],

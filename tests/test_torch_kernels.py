@@ -157,6 +157,17 @@ def test_block_inv_kernel_rejects_degenerate_blocks():
     np.testing.assert_allclose(out.numpy(), np.ones((3, 1, 1)))
 
 
+def test_block_inv_kernel_takes_powers_of_two_off_the_cpu():
+    """Off the CPU a block size B1 cannot take raises; a power of two,
+    1 included, goes to tri_inv_blocks (which raises on a meta tensor
+    because it runs on CUDA or CPU only: no plain fallback)."""
+    with pytest.raises(ValueError, match="power-of-two block size"):
+        ops.block_inv_kernel(torch.zeros((2, 3, 3), device="meta"))
+    for n0 in (1, 4):
+        with pytest.raises(ValueError, match="CUDA or CPU"):
+            ops.block_inv_kernel(torch.zeros((2, n0, n0), device="meta"))
+
+
 @pytest.mark.parametrize("n0", [3, 6, 16])
 def test_block_inv_kernel_matches_reference_hook(n0):
     """Non-power-of-two n0 goes to padded doubling, powers of two to the
