@@ -22,7 +22,10 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    follows), the kernel's, the plain version's and one PyTorch
    library call's time (CUDA events, median over runs, L2 flushed
    before each run), and the least time the card could take (bytes over
-   3.35 TB/s or flops over the dtype's peak, the larger).
+   3.35 TB/s or flops over the dtype's peak, the larger).  The
+   block-masked trmm (B4) runs at the structured residual's shape and
+   three more (``masked_phase``), each also with NaN planted in its
+   skipped blocks.
 3. The slice at full size: a factor of order n = 8192 (the Kronecker
    factor of an 8192-wide layer, the hidden width of 70B-class models),
    L = tril(randn) + n I from seed 0, served through
@@ -39,7 +42,7 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    configuration and read after it: for "inv" tri_inv_blocks once and
    trmm exactly m * (refine passes + 1) times per solve, for "rec"
    trsm_substitution exactly n / n0 * (refine passes + 1) times per
-   solve and no other kernel.
+   solve and no other kernel (trmm_masked included).
 4. Steady state: after warmup, ``solve`` on a placed RHS under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), with no
    program built and a cache hit, for both main paths.
@@ -51,7 +54,16 @@ Phases, in order; any failed check raises, so the exit code is not 0:
 6. Where the time goes: 10 steady-state solves of each configuration
    under torch.profiler — device time by kernel and the device's busy
    share of the host-clock window.
-7. The card line, the kernels' JSON summary, then the last line
+7. Structured factors (``structured_phase``), bf16_refine on the same
+   factor: "inv" with banded:1024 at n0 = 512 (the main path of B4),
+   with the 8x8 block-sparse mask at n0 = 1024, and with banded:1024 at
+   the H100 planner's n0 (printed with the planner's choices); "rec"
+   with banded:1024 at n0 = 512.  Served and counted as in phase 3,
+   with B4 once per refinement pass and the relres against the masked
+   operator; then the NaN-poisoned factor, the dense program where the
+   mask keeps every block, the steady state, and profiler windows beside
+   the dense program at the same n0.
+8. The card line, the kernels' JSON summary, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -79,10 +91,23 @@ RELRES_BOUND = {"fp32": 1e-5, "bf16_refine": 1e-5}
 INV_CONFIGS = (("bf16_refine", None), ("fp32", None), ("bf16_refine", 256))
 # rec: the first is the main path of B3
 REC_CONFIGS = (("bf16_refine", None), ("fp32", None), ("bf16_refine", 512))
+# structured, bf16_refine: (method, structure, n0); the first is the main
+# path of B4, None the planner's n0
+STRUCTURED_CONFIGS = (("inv", "banded:1024", 512),
+                      ("inv", "block-sparse", 1024),
+                      ("inv", "banded:1024", None),
+                      ("rec", "banded:1024", 512))
 
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def named(structure) -> str:
+    """A structure as the CLI spells it."""
+    if structure.kind == "banded":
+        return f"banded:{structure.bandwidth}"
+    return f"block-sparse {len(structure.mask)}x{len(structure.mask)}"
 
 
 def check(ok: bool, what: str) -> None:
@@ -228,6 +253,7 @@ def kernel_phase(device, timer):
         if (n0, dtype) == (4096, torch.bfloat16):
             records["trmm"] = rec
     records["trsm_substitution"] = substitution_phase(device, timer, g)
+    records["trmm_masked"] = masked_phase(device, timer, g)
     return records
 
 
@@ -318,17 +344,104 @@ def substitution_phase(device, timer, g):
     return main
 
 
+def masked_phase(device, timer, g):
+    """trmm_masked (B4) against its plain version: the structured
+    residual's shape (1, 8192, 8192) x 16 fp32 with the banded:1024 mask
+    at bt = 512 (the main path's case, whose record this returns), the
+    8x8 block-sparse mask at bt = 1024, an fp64 case (the fp64_refine
+    residual) at n = 2048 with banded:256 at bt = 256, and a case with
+    bt = 32, below the kernel's 256-deep k-step (a seeded random mask).
+    The factor is a dense tril(randn) masked by the kernel; each case
+    checks that NaN planted in the skipped blocks and above the
+    diagonal changes no bit of C, and prints how far leaving out one
+    more kept block would move C, in tolerances.  The library time is
+    torch.matmul on the dense masked factor, what an unstructured
+    residual costs; the bound counts the kept blocks (diagonal blocks
+    as triangles), X and C."""
+    from repro_torch.core.structure import FactorStructure
+    from repro_torch.kernels import trmm
+    rng = np.random.default_rng(2)
+    rand = np.tril(rng.random((16, 16)) < 0.3) | np.eye(16, dtype=bool)
+    main = None
+    for n, bt, dtype, what, bm in (
+            (N, 512, torch.float32, "banded:1024",
+             FactorStructure.parse("banded:1024").block_mask(N, 512)),
+            (N, 1024, torch.float32, "block-sparse",
+             FactorStructure.parse("block-sparse").block_mask(N, 1024)),
+            (2048, 256, torch.float64, "banded:256",
+             FactorStructure.parse("banded", n=2048).block_mask(2048, 256)),
+            (512, 32, torch.float32, "random 16x16", rand)):
+        mask = torch.as_tensor(bm.astype(np.int32), device=device)
+        L = torch.randn((1, n, n), generator=g, device=device,
+                        dtype=torch.float64).tril_().to(dtype)
+        X = torch.randn((1, n, PANEL_K), generator=g, device=device,
+                        dtype=torch.float64).to(dtype)
+        elem = mask.bool().repeat_interleave(bt, 0) \
+            .repeat_interleave(bt, 1)
+        got = trmm.trmm_masked(L, X, mask, bt)
+        want = trmm.trmm_masked_plain(L, X, mask, bt)
+        abs_err, rel_err = errors(got, want)
+        tol = 2e-5                   # fp32 / fp64 sums in another order
+        case = f"trmm_masked {n} bt={bt} {what} {dtype}"
+        check(rel_err <= tol, f"{case}: max_rel_err {rel_err} > {tol}")
+        poisoned = torch.where(elem & torch.ones_like(elem).tril(), L,
+                               torch.full_like(L, float("nan")))
+        same = torch.equal(trmm.trmm_masked(poisoned, X, mask, bt), got)
+        check(same, f"{case}: NaN in a skipped block reached C")
+        # leave out one more kept block: the last off-diagonal one
+        ii, jj = np.nonzero(np.tril(bm, -1))
+        drop = bm.copy()
+        drop[ii[-1], jj[-1]] = False
+        dropped = trmm.trmm_masked_plain(
+            L, X, torch.as_tensor(drop.astype(np.int32), device=device), bt)
+        scale = want.double().abs().max().item()
+        drop_tols = (dropped.double() - want.double()).abs().max().item() \
+            / (tol * scale)
+        check(drop_tols > 10, f"{case}: the comparison cannot see a "
+                              f"missing block ({drop_tols})")
+        big = n >= 4096
+        k_ms = timer.ms(lambda: trmm.trmm_masked(L, X, mask, bt), 50)
+        p_ms = timer.ms(lambda: trmm.trmm_masked_plain(L, X, mask, bt),
+                        5 if big else 20)
+        Lm = torch.where(elem, L, torch.zeros_like(L))
+        lib_ms = timer.ms(lambda: torch.matmul(Lm, X), 50)
+        blocks = int(bm.sum())
+        diag = bm.shape[0]
+        elems = (blocks - diag) * bt * bt + diag * bt * (bt + 1) // 2
+        nbytes = elems * L.element_size() \
+            + 2 * n * PANEL_K * X.element_size()
+        b_ms, b_by = bound(nbytes, 2 * elems * PANEL_K, dtype)
+        rec = dict(kernel="trmm_masked", data="tril(randn), block mask",
+                   structure=what, shape=[list(L.shape), list(X.shape)],
+                   bt=bt, kept_blocks=blocks,
+                   lower_blocks=diag * (diag + 1) // 2,
+                   dtype=str(dtype).removeprefix("torch."),
+                   max_abs_err=abs_err, max_rel_err=rel_err, tol=tol,
+                   poisoned_bit_equal=same,
+                   one_kept_block_in_tols=drop_tols,
+                   kernel_ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                   bound_ms=b_ms, bound_by=b_by)
+        print(json.dumps(rec), flush=True)
+        if main is None:
+            main = rec
+    return main
+
+
 def counters():
     from repro_torch.kernels import tri_inv_block, trmm, trsm_block
     return {"tri_inv_blocks": tri_inv_block.tri_inv_blocks,
             "trmm": trmm.trmm,
-            "trsm_substitution": trsm_block.trsm_substitution}
+            "trsm_substitution": trsm_block.trsm_substitution,
+            "trmm_masked": trmm.trmm_masked}
 
 
-def serve(api, L, L64, method, precision, n0, seed):
+def serve(api, L, L64, method, precision, n0, seed, structure=None):
     """One configuration of the slice: admission, warmup, 64 requests.
-    Returns (solver, launches)."""
+    With a ``structure`` the residuals are against the masked operator
+    (admission enforces the structure).  Returns (solver, launches,
+    stats)."""
     from repro_torch.core import session
+    from repro_torch.core.structure import apply_block_mask
     device = L.device
     widths = np.random.default_rng(seed).integers(1, PANEL_K + 1, REQUESTS)
     g = torch.Generator(device=device).manual_seed(seed)
@@ -338,7 +451,7 @@ def serve(api, L, L64, method, precision, n0, seed):
     t0 = time.perf_counter()
     solver = api.Solver.from_factor(L, api.make_trsm_mesh(1, 1),
                                     method=method, n0=n0,
-                                    precision=precision)
+                                    precision=precision, structure=structure)
     server = api.SolveServer(solver, panel_k=PANEL_K).warmup()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -352,6 +465,9 @@ def serve(api, L, L64, method, precision, n0, seed):
     launches = {name: fn.launches for name, fn in counters().items()}
     check(len(outs) == REQUESTS and server.requests_served == REQUESTS,
           f"{precision}: served {server.requests_served} of {REQUESTS}")
+    spec = solver.spec_for(PANEL_K)
+    if structure is not None:
+        L64 = apply_block_mask(L64, structure, spec.n0)
     X = torch.cat(outs, dim=1).double()
     B = torch.cat(reqs, dim=1).double()
     check(bool(torch.isfinite(X).all()), f"{precision}: non-finite X")
@@ -366,17 +482,22 @@ def serve(api, L, L64, method, precision, n0, seed):
         worst = max(worst, r.item())
         off += int(w)
     bound_ = RELRES_BOUND[precision]
-    spec = solver.spec_for(PANEL_K)
-    config = f"{method} {precision} n={N} n0={spec.n0}"
+    config = f"{method} {precision} n={N} n0={spec.n0}" + (
+        f" {named(structure)}" if structure is not None else "")
     check(worst < bound_, f"{config}: worst request relres {worst} >= "
                           f"{bound_}")
     solves = server.panels_solved + 1                       # + warmup
     per_solve = N // spec.n0 * (solver.policy.refine_steps + 1)
+    # B4 forms each refinement residual when the structure leaves out a
+    # block at n0; otherwise the program is the dense one
+    masked = solver.policy.refine_steps * solves \
+        if session.structured_info(structure, N, spec.n0) else 0
     # inv: B1 once at admission, B2 per sweep step; rec: B3 per base case
     want = {"inv": {"tri_inv_blocks": 1, "trmm": per_solve * solves,
-                    "trsm_substitution": 0},
+                    "trsm_substitution": 0, "trmm_masked": masked},
             "rec": {"tri_inv_blocks": 0, "trmm": 0,
-                    "trsm_substitution": per_solve * solves}}[method]
+                    "trsm_substitution": per_solve * solves,
+                    "trmm_masked": masked}}[method]
     check(launches == want, f"{config}: launches {launches}, want {want} "
                             f"({per_solve} per solve x {solves} solves)")
     stats = dict(config=config,
@@ -391,7 +512,7 @@ def serve(api, L, L64, method, precision, n0, seed):
                  build_counts={str(spec.policy.name) + f" k={PANEL_K}":
                                session.BUILD_COUNTS[spec]})
     print(json.dumps(stats), flush=True)
-    return solver, launches
+    return solver, launches, stats
 
 
 def steady_state(api, solver, L64, seed):
@@ -447,9 +568,10 @@ def other_entry_points(api, L, L64, seed):
         # the resolved plan's kernels, and only those: B1 once and B2 per
         # sweep step for "inv", B3 per base case for "rec"
         want = {"inv": {"tri_inv_blocks": 1, "trmm": N // r_n0,
-                        "trsm_substitution": 0},
+                        "trsm_substitution": 0, "trmm_masked": 0},
                 "rec": {"tri_inv_blocks": 0, "trmm": 0,
-                        "trsm_substitution": N // r_n0}}[resolved]
+                        "trsm_substitution": N // r_n0,
+                        "trmm_masked": 0}}[resolved]
         check(launches == want, f"one-shot trsm {method} ({resolved}, "
                                 f"n0={r_n0}): launches {launches}, want "
                                 f"{want}")
@@ -474,8 +596,10 @@ def other_entry_points(api, L, L64, seed):
 def profile_window(solver, seed, solves: int = 10):
     """Where a steady-state solve's time goes: device time by kernel and
     the device's busy share of the host-clock window, from
-    torch.profiler (CUPTI).  A profiler that sees no device time is
-    reported, not failed: it measures, it does not check the port."""
+    torch.profiler (CUPTI), and the ``torch.matmul`` calls per solve
+    (the update GEMMs, and an unstructured factor's residual GEMMs).  A
+    profiler that sees no device time is reported, not failed: it
+    measures, it does not check the port.  Returns the printed record."""
     from torch.profiler import ProfilerActivity, profile
     g = torch.Generator(device=solver.grid.device).manual_seed(seed)
     Bp = solver.place_rhs(torch.randn((N, PANEL_K), generator=g,
@@ -499,14 +623,124 @@ def profile_window(solver, seed, solves: int = 10):
             rows.append((us, e.key, e.count))
     rows.sort(reverse=True)
     device_ms = sum(us for us, _, _ in rows) / 1e3
-    print(json.dumps(dict(
+    matmuls = sum(e.count for e in prof.key_averages()
+                  if e.key == "aten::matmul")
+    spec = solver.spec_for(PANEL_K)
+    rec = dict(
         profile=f"{solver.method} {solver.policy.name} n={N} "
-                f"n0={solver.spec_for(PANEL_K).n0} k={PANEL_K}",
+                f"n0={spec.n0} k={PANEL_K}"
+                + (f" {named(spec.structure)}" if spec.structure
+                   else ""),
         solves=solves, wall_ms_per_solve=wall * 1e3 / solves,
         device_ms_per_solve=device_ms / solves,
         device_busy_share=device_ms / (wall * 1e3) if rows else None,
+        matmuls_per_solve=matmuls / solves,
         top=[[key[:60], us / 1e3 / solves, count / solves]
-             for us, key, count in rows[:8]])), flush=True)
+             for us, key, count in rows[:8]])
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def structured_phase(api, L, L64, seed):
+    """The structured configurations (STRUCTURED_CONFIGS) through
+    ``Solver.from_factor(..., structure=)``, served as phase 3 serves the
+    dense ones (relres against the masked operator, exact launch
+    counts: B4 once per refinement pass).  Then, per configuration: the
+    factor with NaN planted in its dropped blocks (and above the block
+    diagonal) gives the same X bit for bit; where the mask at n0 keeps
+    every block, X equals the dense program's bit for bit; the steady
+    state under sync-debug mode "error"; and a profiler window beside
+    the dense program at the same n0, with the update GEMMs counted
+    (update_cols x passes per "inv" solve).  Returns the launches of
+    the first configuration, B4's main path."""
+    from repro_torch.core import session, tuning
+    from repro_torch.core.structure import analyze, apply_block_mask
+    grid = api.make_trsm_mesh(1, 1)
+    machine = tuning.default_machine()
+    plans = {}
+    for text in ("banded:1024", "block-sparse"):
+        st = api.FactorStructure.parse(text, n=N)
+        n0 = tuning.serving_n0(N, grid, structure=st)
+        _, _, times = tuning.choose_serving_method(N, PANEL_K, grid,
+                                                   structure=st)
+        plans[text] = dict(
+            serving_n0=n0, kept_blocks=st.nnz_blocks(N, n0),
+            lower_blocks=(N // n0) * (N // n0 + 1) // 2,
+            served_auto=list(api.resolve_plan(grid, N, PANEL_K,
+                                              method="auto", hoisted=True,
+                                              structure=st)),
+            modeled_s=times)
+    print(json.dumps(dict(h100_structured_plans=plans,
+                          machine=machine.__dict__)), flush=True)
+    dense = {}                    # (method, n0) -> dense solver
+    main_launches = None
+    for i, (method, text, n0) in enumerate(STRUCTURED_CONFIGS):
+        st = api.FactorStructure.parse(text, n=N)
+        solver, launches, stats = serve(api, L, L64, method, "bf16_refine",
+                                        n0, seed=60 + i, structure=st)
+        if main_launches is None:
+            main_launches = launches
+        spec = solver.spec_for(PANEL_K)
+        n0 = spec.n0
+        info = analyze(st, N, n0)
+        full = session.structured_info(st, N, n0) is None
+        spans = [list(sp) if sp else None for sp in info.spans]
+        # columns whose span holds blocks the mask leaves out
+        holes = [j for j, sp in enumerate(info.spans) if sp and not all(
+            info.mask[r][j] for r in range(*sp))]
+        if text == "block-sparse":
+            check(0 in holes, f"{text}: column 0's span {spans[0]} has no "
+                              f"left-out block inside it")
+        g = torch.Generator(device=L.device).manual_seed(70 + i)
+        Bp = solver.place_rhs(torch.randn((N, PANEL_K), generator=g,
+                                          device=L.device))
+        X = solver.solve(Bp)
+        key = (method, n0)
+        if key not in dense:
+            dense[key] = api.Solver.from_factor(
+                L, grid, method=method, n0=n0, precision="bf16_refine")
+        if full:
+            check(torch.equal(dense[key].solve(Bp), X),
+                  f"{text} at n0={n0} keeps every block but differs from "
+                  f"the dense program")
+            poisoned_equal = None              # no block is dropped
+        else:
+            elem = torch.as_tensor(info.mask_array(), device=L.device) \
+                .repeat_interleave(n0, 0).repeat_interleave(n0, 1)
+            Lp = torch.where(elem, L, torch.full_like(L, float("nan")))
+            Xp = api.Solver.from_factor(Lp, grid, method=method, n0=n0,
+                                        precision="bf16_refine",
+                                        structure=st).solve(Bp)
+            del Lp
+            poisoned_equal = torch.equal(Xp, X)
+            check(poisoned_equal, f"{text} n0={n0}: NaN in a dropped block "
+                                  f"changed X")
+        steady_state(api, solver, apply_block_mask(L64, st, n0),
+                     seed=80 + i)
+        prof = profile_window(solver, seed=90 + i)
+        dprof = profile_window(dense[key], seed=90 + i)
+        passes = solver.policy.refine_steps + 1
+        if method == "inv" and not full:
+            want = info.update_cols * passes
+            check(prof["matmuls_per_solve"] == want,
+                  f"{text} n0={n0}: {prof['matmuls_per_solve']} update "
+                  f"GEMMs per solve, want {want}")
+        print(json.dumps(dict(
+            structured=stats["config"], full_mask=full,
+            kept_blocks=int(info.mask_array().sum()),
+            lower_blocks=info.m * (info.m + 1) // 2,
+            update_cols=info.update_cols, spans=spans,
+            spans_with_left_out_blocks=holes,
+            poisoned_bit_equal=poisoned_equal,
+            ms_per_panel=stats["ms_per_panel"],
+            worst_relres=stats["worst_relres"],
+            device_ms_per_solve=prof["device_ms_per_solve"],
+            dense_device_ms_per_solve=dprof["device_ms_per_solve"],
+            update_gemms_per_solve=prof["matmuls_per_solve"],
+            dense_matmuls_per_solve=dprof["matmuls_per_solve"])),
+            flush=True)
+        del solver
+    return main_launches
 
 
 def main() -> int:
@@ -541,8 +775,8 @@ def main() -> int:
     solvers, main_launches = [], {}
     for method, configs in (("inv", INV_CONFIGS), ("rec", REC_CONFIGS)):
         for i, (precision, n0) in enumerate(configs):        # phase 3
-            solver, launches = serve(api, L, L64, method, precision, n0,
-                                     seed=10 + len(solvers))
+            solver, launches, _ = serve(api, L, L64, method, precision,
+                                        n0, seed=10 + len(solvers))
             solvers.append(solver)
             if i == 0:                         # the method's main path
                 main_launches[method] = launches
@@ -555,6 +789,8 @@ def main() -> int:
     other_entry_points(api, L, L64, seed=40)                  # phase 5
     for i, solver in enumerate(solvers):                      # phase 6
         profile_window(solver, seed=50 + i)
+    main_launches["structured"] = structured_phase(api, L, L64,  # phase 7
+                                                   seed=60)
 
     kernels = []
     for name, method, source, replaces in (
@@ -564,7 +800,10 @@ def main() -> int:
              "src/repro/kernels/trmm.py:32"),
             ("trsm_substitution", "rec",
              "src/repro_torch/kernels/csrc/trsm_block.cu",
-             "src/repro/kernels/trsm_block.py:26")):
+             "src/repro/kernels/trsm_block.py:26"),
+            ("trmm_masked", "structured",
+             "src/repro_torch/kernels/csrc/trmm.cu",
+             "src/repro/kernels/trmm.py:50")):
         rec = records[name]
         launches = main_launches[method][name]
         check(launches > 0, f"{name} never launched on the {method} main "

@@ -19,6 +19,11 @@
 * :class:`SolveServer` — continuous batching over a Solver.
 * :class:`FactorBank` — the admission layer (stacked storage, hoisted
   phase 1 through the hand-written ``tri_inv_blocks`` kernel).
+* :class:`FactorStructure` — a factor's block structure (dense, banded,
+  block-sparse; DESIGN.md Sec. 14): ``Solver.from_factor(...,
+  structure=...)`` masks the factor at admission, sweeps only its kept
+  blocks and forms the refinement residual with the block-masked
+  ``trmm`` kernel.
 * :func:`trsm` — one-shot solve.
 """
 
@@ -33,3 +38,4 @@ from repro_torch.core.session import (  # noqa: F401
     BUILD_COUNTS, CompiledSolverCache, default_cache)
 from repro_torch.core.solver import (  # noqa: F401
     Solver, SolveServer, SolveSpec, plan_grid, resolve_plan, solver_for)
+from repro_torch.core.structure import FactorStructure  # noqa: F401

@@ -9,7 +9,8 @@ factor ``L_hi``.  A "rec" bank holds ``(L_lo[, L_hi])``: the recursion
 has no phase 1.  Admission folds the operator reduction (upper /
 transpose) into one gather and casts once; the steady state is the
 sweep (or the recursion) alone against the resident stacks.  A
-width-1 bank is the single-factor case.
+width-1 bank is the single-factor case.  A structured bank (DESIGN.md
+Sec. 14) masks both resident copies to its structure at its n0.
 
 This bank is append-only.  Capacity allocation, in-place replace,
 evict, cyclic ingestion and padded admission are ROADMAP A7.
@@ -68,6 +69,9 @@ class FactorBank:
             raise ValueError("a plan-only grid (plan_grid) has no device: "
                              "build banks on make_trsm_mesh")
         self.structure = solverlib._normalize_structure(structure)
+        if self.structure is not None:
+            self.structure.validate_for(n, lower=lower,
+                                        transpose=transpose)
         self.overlap = solverlib._normalize_overlap(overlap)
         self.grid = grid
         self.n = n
@@ -82,8 +86,10 @@ class FactorBank:
         if method == "inv":
             # n0 is pinned at construction (admission pre-inverts the
             # diagonal blocks, so every program over this bank agrees
-            # on the block size); default: the hoisted-serving argmin
-            self.n0 = n0 if n0 is not None else tuning.serving_n0(n, grid)
+            # on the block size); default: the hoisted-serving argmin,
+            # which prices the structure's skipped blocks
+            self.n0 = n0 if n0 is not None else tuning.serving_n0(
+                n, grid, structure=self.structure)
             if self.n0 < 1 or n % self.n0 \
                     or self.n0 % (grid.p1 * grid.p2):
                 raise ValueError(f"n0={self.n0} infeasible for n={n} on "
@@ -141,8 +147,15 @@ class FactorBank:
         return (parts[0], self._phase1(parts[0])) + parts[1:]
 
     def _admit(self, Ls: torch.Tensor) -> None:
+        # a structure is enforced at the programs' block size: n0, or for
+        # a "rec" bank with n0 unset the base case of every k, n at p = 1
+        # (rec_trsm.default_n0), where the mask leaves out nothing
+        n0 = self.n0 if self.n0 is not None else self.n
+        mask = (self.structure, n0) if sessionlib.structured_info(
+            self.structure, self.n, n0) else ()
         preps = sessionlib._factor_preps(self.grid, self.lower,
-                                         self.transpose, self.policy)
+                                         self.transpose, self.policy,
+                                         *mask)
         self._chunks.append(self._entry(tuple(p(Ls) for p in preps)))
         self._size += Ls.shape[0]
 
@@ -167,6 +180,12 @@ class FactorBank:
         return range(first, self.size)
 
     def admit_cyclic(self, L_cyc) -> int:
+        if self.structure is not None:
+            raise ValueError(
+                "cyclic ingestion into a structured bank is not "
+                "supported: the admission-time block mask is applied "
+                "in natural layout, before distribution (mask the "
+                "factor yourself and use natural admission)")
         raise NotImplementedError(f"cyclic ingestion: {_A7}")
 
     def replace(self, slot: int, L, *, pad_to: int | None = None) -> int:

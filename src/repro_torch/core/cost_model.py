@@ -15,8 +15,9 @@ plans can be compared with the reference's for the same machine.  The
 reference's measured calibration is TPU data and is not ported.  Only
 what the port's planner prices is here: the MM costs, the fleet's
 queue-wait pricing and the Sec. IX table come with the slices that
-use them.  Block structures other than dense are ROADMAP A9: a
-non-dense ``structure=`` raises.
+use them.  A non-dense ``structure=`` (a
+:class:`~repro_torch.core.structure.FactorStructure`) prices the blocks
+the structured programs execute (DESIGN.md Sec. 14).
 """
 
 from __future__ import annotations
@@ -219,31 +220,55 @@ def rec_trsm_cost(n: float, k: float, p: float,
     recursion is not over-credited against It-Inv serving
     (DESIGN.md Sec. 12).
 
-    ``structure`` other than dense raises (ROADMAP A9)."""
+    ``structure`` (a non-dense ``FactorStructure``) prices the
+    structured recursion: admission masks the factor, so the
+    L-proportional terms (the n^2-order words that move the factor and
+    the trailing-MM flops) scale with the factor's block fill, diagonal
+    blocks included.  The RHS-proportional nk words stay dense, and the
+    message count is not scaled: the recursion and its base cases are
+    structure-blind."""
     if model not in ("paper", "tang2024"):
         raise ValueError(f"unknown rec cost model {model!r}")
-    _dense_only(structure)
+    fill = 1.0
+    if structure is not None and not structure.is_dense:
+        fill = _structure_fill_total(structure, n)
     corrected = model == "tang2024"
     if n < 4 * k / p:      # one large dimension
-        return Cost(s=lg(p), w=n * n, f=n * n * k / p)
+        return Cost(s=lg(p), w=n * n * fill, f=n * n * k / p * fill)
     if n > 4 * k * math.sqrt(p):   # two large dimensions
         w = n * k * lg(p) / math.sqrt(p)
         if corrected:
-            w += n * n / math.sqrt(p)
-        return Cost(s=math.sqrt(p), w=w, f=n * n * k / p)
+            w += n * n / math.sqrt(p) * fill
+        return Cost(s=math.sqrt(p), w=w, f=n * n * k / p * fill)
     # three large dimensions
     w = (n * n * k / p) ** (2.0 / 3.0)
     if corrected:
         w *= max(lg(n / k), 1.0)   # one optimal-size term per level
     return Cost(s=(n * p / k) ** (2.0 / 3.0) * lg(p), w=w,
-                f=n * n * k / p)
+                f=n * n * k / p * fill)
 
 
-def _dense_only(structure) -> None:
-    """Structured pricing reads the reference's structure analysis,
-    which is not ported: ROADMAP A9."""
-    if structure is not None and not getattr(structure, "is_dense", False):
-        raise NotImplementedError("structure-priced costs are ROADMAP A9")
+def _structure_fill_total(structure, n: float) -> float:
+    """Whole-factor block fill (diagonal included) of a structure at its
+    natural granularity, from the admission analysis's nonzero counts;
+    dense (1.0) when n cannot host that granularity."""
+    from repro_torch.core.structure import block_counts
+    n = int(n)
+    if n < 2:
+        return 1.0
+    if structure.kind == "block_sparse":
+        g = len(structure.mask)
+        n0 = n // g if g and n % g == 0 else 0
+    else:
+        g = 64
+        while g > 1 and n % g:
+            g //= 2
+        n0 = n // g
+    if n0 < 1 or n % n0:
+        return 1.0
+    m, nnz_offdiag, _ = block_counts(structure, n, n0)
+    total = m * (m + 1) / 2.0
+    return (nnz_offdiag + m) / total if total else 1.0
 
 
 # --------------------- Triangular inversion (Sec. V) ---------------------
@@ -298,8 +323,11 @@ def update_phase_cost(n: float, k: float, n0: float,
                       structure=None, overlap: bool = False):
     """Trailing updates: bcast of the L~ panel + GEMM + allreduce (VII-C).
 
-    ``structure`` other than dense raises (ROADMAP A9).  ``overlap``
-    returns the pipelined ``max(comm, comp)`` form — the
+    With a non-dense ``structure`` the sweep skips zero blocks: words
+    and flops scale by the off-diagonal block fill (nnz_offdiag over
+    the dense m(m-1)/2), and the latency term counts only the columns
+    with at least one dependent block row (DESIGN.md Sec. 14).
+    ``overlap`` returns the pipelined ``max(comm, comp)`` form — the
     double-buffered sweep starts panel i+1's allgather before panel
     i's update GEMM executes (Sec. 16)."""
     m = n / n0
@@ -308,7 +336,14 @@ def update_phase_cost(n: float, k: float, n0: float,
                    + 4 * n0 * k / (p1 * p2) * ind(p1))
     s = (m - 1) * lg(p)
     f = (m - 1) * k * n * n0 / (p1 * p1 * p2)
-    _dense_only(structure)
+    if structure is not None and not structure.is_dense:
+        from repro_torch.core.structure import block_counts
+        mi, nnz_offdiag, update_cols = block_counts(structure, int(n),
+                                                    int(n0))
+        dense_off = mi * (mi - 1) / 2.0
+        fill = nnz_offdiag / dense_off if dense_off else 0.0
+        cols = update_cols / (mi - 1.0) if mi > 1 else 0.0
+        w, f, s = w * fill, f * fill, s * cols
     if overlap:
         return pipelined(Cost(s=s, w=w), Cost(f=f))
     return Cost(s=s, w=w, f=f)
@@ -328,7 +363,9 @@ def it_inv_trsm_steady_cost(n: float, k: float, n0: float,
     """Per-solve It-Inv cost in the HOISTED steady state (DESIGN.md
     Secs. 9-10): the Diagonal-Inverter ran once at factor admission, so
     a resident-factor solve pays only the sweep (solve + update
-    phases).  ``structure`` other than dense raises (ROADMAP A9).
+    phases).  ``structure`` prices the level-scheduled sweep: the solve
+    phase is unchanged (every diagonal block is on its block row's
+    critical path), the update phase pays only for nonzero blocks.
     ``overlap`` prices the double-buffered sweep's ``max(comm, comp)``
     per phase (a :class:`PipelinedCost` — same counts, smaller
     ``time``)."""

@@ -49,7 +49,7 @@ def invert_diag_blocks(L: torch.Tensor, *, n0: int, block_inv: Callable,
 
 
 def sweep(L: torch.Tensor, Dt: torch.Tensor, B: torch.Tensor, *, n0: int,
-          accum_dtype=None) -> torch.Tensor:
+          accum_dtype=None, spans=None) -> torch.Tensor:
     """Phase 2 against ALREADY-INVERTED diagonal blocks: L (M, n, n),
     Dt (M, m, n0, n0), B (M, n, k) at the compute dtype -> X (M, n, k).
 
@@ -57,7 +57,15 @@ def sweep(L: torch.Tensor, Dt: torch.Tensor, B: torch.Tensor, *, n0: int,
     The trailing update multiplies only the rows below block i: at
     p = 1 the rows the reference masks to zero are exactly the rows not
     computed here, so the values are identical.  The last column has no
-    trailing rows and no update, as in the reference's unrolled sweep."""
+    trailing rows and no update, as in the reference's unrolled sweep.
+
+    ``spans`` makes the sweep LEVEL-SCHEDULED (DESIGN.md Sec. 14): one
+    ``(lo, hi)`` range of dependent block rows (or None) per column,
+    from ``structure.analyze``.  Column i then updates only the rows of
+    blocks [lo, hi), and a column whose span is None issues no update
+    GEMM.  Admission masked the factor, so a block row inside a span
+    that does not depend on column i multiplies exact zeros.  The solve
+    step is the same for every column."""
     from repro_torch.kernels import ops
     M, n, k = B.shape
     m = n // n0
@@ -70,9 +78,11 @@ def sweep(L: torch.Tensor, Dt: torch.Tensor, B: torch.Tensor, *, n0: int,
         # solve via GEMM (l. 4-5): partial sums at acc, X_i at ct
         Xi = ops.trmm(Dt[:, i], Bcur[:, rows])
         X[:, rows] = Xi
-        if i + 1 < m:
-            # update (l. 7-8): rows >= (i+1) n0 only
-            below = slice((i + 1) * n0, n)
+        span = spans[i] if spans is not None else \
+            ((i + 1, m) if i + 1 < m else None)
+        if span is not None:
+            # update (l. 7-8): the block rows of the span only
+            below = slice(span[0] * n0, span[1] * n0)
             Bcur[:, below] -= matmul_as(L[:, below, rows], Xi, acc, ct)
     return X
 

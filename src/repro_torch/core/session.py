@@ -10,6 +10,12 @@
   phase 1 then the sweep (one-shot "inv"), or the recursive TRSM
   ("rec", banked or one-shot) — the inverse gather, and the policy's
   fixed refinement passes (``repro_torch.core.refine``).
+* A structured spec (DESIGN.md Sec. 14) masks both resident copies of
+  the factor at admission, sweeps only the blocks the structure keeps
+  ("inv"; the recursion of "rec" is structure-blind, as in the
+  reference), and forms each refinement residual with the block-masked
+  ``trmm`` kernel.  A structure that leaves out no block at the spec's
+  n0 builds the dense program (:func:`structured_info`).
 
 PyTorch runs eagerly, so a "program" is a Python function over device
 tensors; building it resolves every plan decision once, and its gather
@@ -42,6 +48,7 @@ from repro_torch.core import inv_trsm
 from repro_torch.core import refine as refinelib
 from repro_torch.core.grid import TrsmGrid
 from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.core.structure import analyze, apply_block_mask
 
 # Build telemetry: bumped once per program build, so a test can assert
 # steady-state solves never rebuild (spec -> count).
@@ -150,21 +157,38 @@ def default_cache() -> CompiledSolverCache:
 
 # ------------------------- program construction -------------------------
 
+def structured_info(structure, n: int, n0: int):
+    """The :class:`~repro_torch.core.structure.StructureInfo` a
+    structured program is built from, or None when there is no
+    structure or it leaves out no block at block size n0: such a
+    factor is served by the dense program, bit for bit."""
+    if structure is None:
+        return None
+    info = analyze(structure, n, n0)
+    return None if info.full else info
+
+
 @functools.lru_cache(maxsize=128)
 def _build_prep(grid: TrsmGrid, lower: bool, transpose: bool,
-                dtype: torch.dtype):
+                dtype: torch.dtype, structure=None, n0: int | None = None):
     """L_nat -> L_cyc admission for one dtype role: a copy on the grid's
     device at ``dtype`` with the operator reduction folded into one
     gather (identity at p = 1 for the lower, non-transposed case), for
-    an (M, n, n) stack of factors."""
+    an (M, n, n) stack of factors.  A ``structure`` (with its block
+    size ``n0``, both in the memo key) is enforced here: every element
+    outside its block mask is zeroed, in natural layout, before the
+    gather."""
     p1, p2 = grid.p1, grid.p2
     rev = _needs_reversal(lower, transpose)
 
     def prep(L):
         A = torch.as_tensor(L)
+        out = A.to(grid.device, dtype)
+        if structure is not None:
+            out = apply_block_mask(out, structure, n0)
         out = gridlib.cyclic_matrix_device(
-            A.to(grid.device, dtype), p1, p1 * p2, reverse_rows=rev,
-            reverse_cols=rev, transpose=transpose)
+            out, p1, p1 * p2, reverse_rows=rev, reverse_cols=rev,
+            transpose=transpose)
         # the resident copy never aliases the caller's tensor
         return out.clone() if out.data_ptr() == A.data_ptr() else out
 
@@ -172,11 +196,16 @@ def _build_prep(grid: TrsmGrid, lower: bool, transpose: bool,
 
 
 def _factor_preps(grid: TrsmGrid, lower: bool, transpose: bool,
-                  policy: PrecisionPolicy) -> tuple:
-    """The (storage[, residual]) admission programs for a policy."""
-    preps = (_build_prep(grid, lower, transpose, policy.storage),)
+                  policy: PrecisionPolicy, structure=None,
+                  n0: int | None = None) -> tuple:
+    """The (storage[, residual]) admission programs for a policy.  Both
+    copies are masked to ``structure``: the refinement residual sees
+    the operator the sweep solves against."""
+    preps = (_build_prep(grid, lower, transpose, policy.storage,
+                         structure, n0),)
     if policy.refines:
-        preps += (_build_prep(grid, lower, transpose, policy.residual),)
+        preps += (_build_prep(grid, lower, transpose, policy.residual,
+                              structure, n0),)
     return preps
 
 
@@ -206,7 +235,12 @@ def _build_solver(spec) -> SolverProgram:
       reuses the call's Dt;
     * "rec", banked or one-shot: the recursive TRSM against the
       resident L_lo, its base cases on the ``trsm_substitution``
-      kernel."""
+      kernel.
+
+    A structure that leaves out blocks at n0 (:func:`structured_info`)
+    gives "inv" the level-scheduled sweep (its updates narrowed to the
+    spans of kept blocks) and both methods the block-masked residual;
+    otherwise the program is the dense one."""
     grid = spec.grid
     n, k, n0, policy = spec.n, spec.k, spec.n0, spec.policy
     if grid.device is None:
@@ -216,6 +250,14 @@ def _build_solver(spec) -> SolverProgram:
     rev = _needs_reversal(spec.lower, spec.transpose)
     compute, accum = policy.compute, policy.accumulate
     banked = spec.bank_width is not None
+    info = structured_info(spec.structure, n, n0)
+    spans = info.spans if info is not None else None
+    mask = {}
+    if info is not None and policy.refines:
+        # the residual's block mask, on the device once at build time
+        mask = dict(block_mask=torch.as_tensor(
+            info.mask_array(), dtype=torch.int32, device=grid.device),
+            bt=n0)
 
     if spec.method == "inv":
         gridlib.check_divisibility(n, k, n0, grid)
@@ -224,7 +266,7 @@ def _build_solver(spec) -> SolverProgram:
             B_cyc = gridlib.cyclic_rows_device(B.to(compute), p1,
                                                reverse=rev)
             X_cyc = inv_trsm.sweep(L_pair[0], L_pair[1], B_cyc, n0=n0,
-                                   accum_dtype=accum)
+                                   accum_dtype=accum, spans=spans)
             return gridlib.cyclic_rows_device(X_cyc, p1, inverse=True,
                                               reverse=rev)
 
@@ -257,12 +299,13 @@ def _build_solver(spec) -> SolverProgram:
         L_hi = factor[-1] if policy.refines else None
         return refinelib.refined_solve(base_solve, sweep_factor(factor),
                                        L_hi, B, policy=policy, p1=p1,
-                                       p2=p2, reverse=rev)
+                                       p2=p2, reverse=rev, **mask)
 
     BUILD_COUNTS[spec] += 1
     if banked:
         return SolverProgram(key=spec, solve=program)
-    preps = _factor_preps(grid, spec.lower, spec.transpose, policy)
+    preps = _factor_preps(grid, spec.lower, spec.transpose, policy,
+                          *((spec.structure, n0) if info else ()))
 
     def prep(L):
         return tuple(pr(torch.as_tensor(L)[None]) for pr in preps)

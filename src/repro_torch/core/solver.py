@@ -17,8 +17,8 @@
   queues, first-fit packed fixed-width panels, one solve per wave
   covering every factor, submit-order results.
 
-Not ported yet: live bank mutation (ROADMAP A7), block structures
-(A9), grids with p > 1 (A12) and fleets (A11).
+Not ported yet: live bank mutation (ROADMAP A7), grids with p > 1
+(A12) and fleets (A11).
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from repro_torch.core import precision as preclib
 from repro_torch.core.bank import FactorBank
 from repro_torch.core.grid import TrsmGrid
 from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.core.structure import FactorStructure
 
 
 def _normalize_overlap(overlap) -> str | None:
@@ -49,12 +50,11 @@ def _normalize_overlap(overlap) -> str | None:
 
 
 def _normalize_structure(structure):
-    """Dense IS the unstructured path (one cache key); other block
-    structures are ROADMAP A9."""
-    if structure is None or getattr(structure, "is_dense", False):
+    """Dense IS the unstructured path: ``FactorStructure.dense()``
+    normalizes to ``None``, so the two spell one cache key."""
+    if structure is None or structure.is_dense:
         return None
-    raise NotImplementedError("structured factors (level-scheduled "
-                              "sweep) are ROADMAP A9")
+    return structure
 
 
 def _check_method(method: str, *, auto: bool = False) -> None:
@@ -95,22 +95,26 @@ def resolve_plan(grid: TrsmGrid, n: int, k: int, *, method: str = "inv",
     :class:`~repro_torch.core.tuning.TrsmPlan` for "inv"
     (``tune_for_grid`` — or the hoisted-serving argmin ``serving_n0``),
     and set to the Sec. IV-A base-case size for "rec".  ``machine``
-    defaults to the H100 preset (``tuning.default_machine``); a
-    non-dense ``structure`` raises (ROADMAP A9)."""
+    defaults to the H100 preset (``tuning.default_machine``).
+
+    ``structure`` makes the hoisted dispatch and n0 argmin price the
+    blocks the level-scheduled sweep executes, and the recursion from
+    the structure's fill."""
     from repro_torch.core import tuning
     structure = _normalize_structure(structure)
     _check_method(method, auto=True)
     if method == "auto":
         if hoisted:
             method, h_n0, _ = tuning.choose_serving_method(
-                n, k, grid, machine, n0=n0)
+                n, k, grid, machine, n0=n0, structure=structure)
             if method == "inv" and n0 is None:
                 n0 = h_n0
         else:
             method, _, _ = tuning.choose_method(n, k, grid.p, machine)
     if n0 is None:
         if method == "inv":
-            n0 = tuning.serving_n0(n, grid) if hoisted else \
+            n0 = tuning.serving_n0(n, grid, structure=structure) \
+                if hoisted else \
                 tuning.tune_for_grid(n, k, grid, machine).n0
         else:
             from repro_torch.core import rec_trsm
@@ -139,7 +143,10 @@ class SolveSpec:
       ``bank_width`` (``None`` = the unbanked one-shot program; M >= 1
       = the program over an M-factor stack) and ``map_mode`` ("vmap" |
       "scan"; ``None`` when unbanked).
-    * ``structure`` — ``None``; a dense structure normalizes to it.
+    * ``structure`` — the factor's
+      :class:`~repro_torch.core.structure.FactorStructure` (DESIGN.md
+      Sec. 14); ``None`` and ``FactorStructure.dense()`` are the same
+      key.
     * ``overlap`` — "auto"/"on"/True normalize to "on", "off"/False to
       ``None``.
     """
@@ -155,7 +162,7 @@ class SolveSpec:
     block_inv: Callable | None = None
     bank_width: int | None = None
     map_mode: str | None = None
-    structure: object = None
+    structure: FactorStructure | None = None
     overlap: str | bool | None = "auto"
 
     def __post_init__(self):
@@ -184,7 +191,8 @@ class SolveSpec:
     def validate(self) -> "SolveSpec":
         """Check plan feasibility (raises ValueError): n0 must tile the
         factor and, for "inv", respect the cyclic layout
-        ((p1*p2) | n0)."""
+        ((p1*p2) | n0); a structure must fit the factor and its
+        operator variant."""
         n0 = self.n0
         if n0 is not None:
             if n0 < 1 or self.n % n0:
@@ -194,6 +202,9 @@ class SolveSpec:
                 raise ValueError(
                     f"n0={n0} infeasible for the cyclic layout on "
                     f"p1={self.grid.p1}, p2={self.grid.p2}")
+        if self.structure is not None:
+            self.structure.validate_for(self.n, lower=self.lower,
+                                        transpose=self.transpose)
         return self
 
     @classmethod
@@ -224,6 +235,8 @@ class SolveSpec:
         if hoisted is None:
             hoisted = bank_width is not None
         structure = _normalize_structure(structure)
+        if structure is not None:
+            structure.validate_for(n, lower=lower, transpose=transpose)
         if grid is None:
             if p is None:
                 raise ValueError("SolveSpec.auto needs grid= or p=")
@@ -235,7 +248,8 @@ class SolveSpec:
             if n0 is None and method == "inv" and not hoisted:
                 n0 = plan.n0                      # the plan, verbatim
         method, n0 = resolve_plan(grid, n, k, method=method, n0=n0,
-                                  machine=machine, hoisted=hoisted)
+                                  machine=machine, hoisted=hoisted,
+                                  structure=structure)
         if precision is None and dtype is None:
             dtype = torch.float32
         return cls(n=n, k=k, grid=grid,
@@ -299,7 +313,10 @@ class Solver:
         (default the H100 preset).  An unset n0 defaults to the
         hoisted-serving argmin for "inv" (``tuning.serving_n0``: n/2 —
         phase 1 runs at admission) and to the Sec. IV-A base-case size
-        for "rec" (n at p = 1)."""
+        for "rec" (n at p = 1).  ``structure`` declares the factor's
+        block structure (DESIGN.md Sec. 14): admission masks to it, the
+        "inv" sweep skips outside it, the residual reads only its
+        blocks, and the n0 argmin prices it."""
         _check_method(method, auto=True)
         L = torch.as_tensor(L)
         if dtype is not None:

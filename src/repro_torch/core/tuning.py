@@ -11,8 +11,8 @@ sizes and processor grids a priori", Sec. I).
 Every planner prices with :func:`default_machine` -- the NVIDIA H100
 preset (``cost_model.h100``, nominal data-sheet constants) -- unless
 the caller passes ``machine=``.  The reference's calibration of its TPU
-constants is never read.  Block structures other than dense are
-ROADMAP A9.
+constants is never read.  A non-dense ``structure=`` prices the blocks
+the structured sweep executes (DESIGN.md Sec. 14).
 """
 
 from __future__ import annotations
@@ -40,6 +40,18 @@ def steps_s(machine: cm.Machine, n: int, n0: int) -> float:
     solve (It-Inv sweep steps or Rec-TRSM base cases); 0 for a machine
     without a launch term, so such a machine plans as the reference."""
     return machine.launch * n / n0
+
+
+def _sweep_steps_s(machine: cm.Machine, n: int, n0: int,
+                   structure=None) -> float:
+    """:func:`steps_s` for the It-Inv sweep as it executes: the n/n0
+    solve steps of a dense sweep, or for a structure every solve step
+    and every update the level schedule keeps (m + update_cols)."""
+    if structure is None or structure.is_dense:
+        return steps_s(machine, n, n0)
+    from repro_torch.core.structure import block_counts
+    m, _, update_cols = block_counts(structure, n, n0)
+    return machine.launch * (m + update_cols)
 
 
 def _rec_steps_s(machine: cm.Machine, n: int, k: int, p1: int,
@@ -274,12 +286,33 @@ def serving_n0(n: int, grid, structure=None) -> int:
     alternative to decline to pick.  k does not enter: with inversion
     hoisted, every remaining cost term scales the same way in k.
 
-    Block structures other than dense are ROADMAP A9."""
-    if structure is not None and not structure.is_dense:
-        raise NotImplementedError("structured factors are ROADMAP A9")
+    With a non-dense ``structure`` the monotone argument breaks: a
+    larger block coarsens the mask, so the sweep skips less.  The
+    structured path argmins the structure-priced steady cost (at a
+    nominal k = 16) over the same hedged set, plus one alpha of
+    dispatch per executed sweep step, as the reference does, plus the
+    machine's launch per executed step (:func:`_sweep_steps_s`; 0 for
+    a machine without one, which then plans as the reference).  Ties go
+    to the larger block.  The machine is :func:`default_machine`, as
+    the reference prices with its own default."""
     feas = _feasible_n0(n, grid.p1, grid.p2)
     capped = [n0 for n0 in feas if n0 <= n // 2]
-    return max(capped if capped else [max(feas)])
+    cands = capped if capped else [max(feas)]
+    if structure is None or structure.is_dense:
+        return max(cands)
+    from repro_torch.core.structure import block_counts
+    machine = default_machine()
+    best = None
+    for n0 in sorted(cands, reverse=True):   # ties -> larger block
+        m, _, update_cols = block_counts(structure, n, n0)
+        t = cm.it_inv_trsm_steady_cost(
+            n, 16, n0, grid.p1, grid.p2, structure=structure,
+            overlap=True).time(machine)
+        t += machine.alpha * (m + update_cols)
+        t += _sweep_steps_s(machine, n, n0, structure)
+        if best is None or t < best[0]:
+            best = (t, n0)
+    return best[1]
 
 
 def serving_steady_s(n: int, k: int, grid, *,
@@ -294,14 +327,16 @@ def serving_steady_s(n: int, k: int, grid, *,
     both control decisions price the same model.  ``n0`` defaults to
     the hoisted-serving argmin; ``overlap`` (on by default, matching
     the serving tier's resolved ``SolveSpec.overlap``) prices the
-    double-buffered sweep's ``max(comm, comp)`` pipeline (Sec. 16).
-    A non-dense ``structure`` raises (ROADMAP A9)."""
+    double-buffered sweep's ``max(comm, comp)`` pipeline (Sec. 16);
+    ``structure`` prices the level-scheduled sweep's skipped blocks and
+    its executed steps."""
     machine = machine or default_machine()
     n0 = n0 if n0 is not None else serving_n0(n, grid,
                                               structure=structure)
     return cm.it_inv_trsm_steady_cost(
         n, k, n0, grid.p1, grid.p2, structure=structure,
-        overlap=overlap).time(machine) + steps_s(machine, n, n0)
+        overlap=overlap).time(machine) \
+        + _sweep_steps_s(machine, n, n0, structure)
 
 
 def tuning_table(n: int, k: int, p: int) -> dict:
@@ -350,9 +385,13 @@ def choose_serving_method(n: int, k: int, grid,
     (:func:`repro_torch.core.cost_model.rec_trsm_cost`) — the fleet
     planner's setting, so recursion is not over-credited.
 
+    ``structure`` prices both sides from the declared block structure:
+    the It-Inv side with the level-scheduled sweep's skipped blocks,
+    the recursive side from the structure's fill
+    (``cost_model.rec_trsm_cost``).
+
     ``overlap`` (default on, matching the serving tier's resolved
-    ``SolveSpec.overlap``) prices the It-Inv sweep pipelined.  A
-    non-dense ``structure`` raises (ROADMAP A9)."""
+    ``SolveSpec.overlap``) prices the It-Inv sweep pipelined."""
     machine = machine or default_machine()
     n0 = n0 if n0 is not None else serving_n0(n, grid,
                                               structure=structure)

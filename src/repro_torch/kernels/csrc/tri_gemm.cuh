@@ -19,6 +19,15 @@
 // float for float and bf16, double for double.  Products are IEEE
 // fused multiply-adds on the CUDA cores (no TF32, no tensor cores); the
 // result is rounded once to T.  Ragged edges (any M, N, K) are masked.
+//
+// The MASK instantiation (trmm.cu's block-masked product) also skips
+// every block of A whose entry in an (M/bt, K/bt) block mask is 0: a
+// row tile walks only the runs of consecutive block columns that one of
+// its block rows keeps, each run in BK-deep k-steps that stop at the
+// run's end, so a skipped block is never loaded.  When a row tile spans
+// several block rows (bt < BM), each element is also gated by its own
+// block's entry on load.  The unmasked instantiation is B1's and B2's
+// kernel and must compile to the same code whatever the MASK path does.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -74,13 +83,69 @@ struct TriGemmArgs {
   int tri_a, tri_b, negate;
 };
 
-// BM x BN output tile per block, BK-deep k-steps, TM x TN outputs per
-// thread.
-template <typename T, int BM, int BN, int BK, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-    tri_gemm_kernel(const TriGemmArgs<T> p) {
+// The MASK instantiation's block mask: A's element (r, c) is kept when
+// mask[(r / bt) * nb + c / bt] != 0.  A parameter of its own: with these
+// fields inside TriGemmArgs, nvcc reads the larger parameter through its
+// address and the unmasked kernels compile to other code.
+struct BlockMask {
+  const int* mask;
+  int bt, nb;
+};
+
+// One BK-deep k-step of the MASK instantiation at k0: the unmasked
+// k-loop's step with the contraction index limited to k < k_end (the
+// end of a run of kept blocks); with GATE, an element of A outside the
+// block mask also reads as 0 and is never loaded.
+template <typename T, int BM, int BN, int BK, int TM, int TN, bool GATE>
+__device__ __forceinline__ void k_step(
+    const TriGemmArgs<T>& p, const BlockMask& bm, const T* A, const T* B,
+    typename Acc<T>::type (&As)[BK][BM + 1],
+    typename Acc<T>::type (&Bs)[BK][BN + 1],
+    typename Acc<T>::type (&acc)[TM][TN], int r0, int c0, int k0,
+    int k_end) {
   using A_t = typename Acc<T>::type;
   constexpr int NT = (BM / TM) * (BN / TN);
+  const int tid = threadIdx.x;
+  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
+  for (int e = tid; e < BM * BK; e += NT) {
+    const int r = e / BK, kk = e % BK;
+    const int gr = r0 + r, gk = k0 + kk;
+    A_t v = A_t(0);
+    if (gr < p.M && gk < k_end && (!p.tri_a || gk <= gr) &&
+        (!GATE || bm.mask[(gr / bm.bt) * bm.nb + gk / bm.bt]))
+      v = to_acc(A[gr * p.lda + gk]);
+    As[kk][r] = v;
+  }
+  for (int e = tid; e < BK * BN; e += NT) {
+    const int kk = e / BN, c = e % BN;
+    const int gk = k0 + kk, gc = c0 + c;
+    A_t v = A_t(0);
+    if (gk < k_end && gc < p.N && (!p.tri_b || gc <= gk))
+      v = to_acc(B[gk * p.ldb + gc]);
+    Bs[kk][c] = v;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int kk = 0; kk < BK; ++kk) {
+    A_t a[TM], b[TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) a[i] = As[kk][ty * TM + i];
+#pragma unroll
+    for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx * TN + j];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = mad(a[i], b[j], acc[i][j]);
+  }
+  __syncthreads();
+}
+
+// BM x BN output tile per block, BK-deep k-steps, TM x TN outputs per
+// thread.
+template <typename T, int BM, int BN, int BK, int TM, int TN, bool MASK>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN))
+    tri_gemm_kernel(const TriGemmArgs<T> p, const BlockMask bm) {
+  using A_t = typename Acc<T>::type;
   __shared__ A_t As[BK][BM + 1];
   __shared__ A_t Bs[BK][BN + 1];
 
@@ -101,37 +166,73 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = A_t(0);
 
-  for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
-    for (int e = tid; e < BM * BK; e += NT) {
-      const int r = e / BK, kk = e % BK;
-      const int gr = r0 + r, gk = k0 + kk;
-      A_t v = A_t(0);
-      if (gr < p.M && gk < p.K && (!p.tri_a || gk <= gr))
-        v = to_acc(A[gr * p.lda + gk]);
-      As[kk][r] = v;
+  if constexpr (!MASK) {
+    // not k_step: through it the 64 x 64 tiles of B1 and B2 compile to
+    // another schedule
+    constexpr int NT = (BM / TM) * (BN / TN);
+    for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
+      for (int e = tid; e < BM * BK; e += NT) {
+        const int r = e / BK, kk = e % BK;
+        const int gr = r0 + r, gk = k0 + kk;
+        A_t v = A_t(0);
+        if (gr < p.M && gk < p.K && (!p.tri_a || gk <= gr))
+          v = to_acc(A[gr * p.lda + gk]);
+        As[kk][r] = v;
+      }
+      for (int e = tid; e < BK * BN; e += NT) {
+        const int kk = e / BN, c = e % BN;
+        const int gk = k0 + kk, gc = c0 + c;
+        A_t v = A_t(0);
+        if (gk < p.K && gc < p.N && (!p.tri_b || gc <= gk))
+          v = to_acc(B[gk * p.ldb + gc]);
+        Bs[kk][c] = v;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < BK; ++kk) {
+        A_t a[TM], b[TN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) a[i] = As[kk][ty * TM + i];
+#pragma unroll
+        for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx * TN + j];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            acc[i][j] = mad(a[i], b[j], acc[i][j]);
+      }
+      __syncthreads();
     }
-    for (int e = tid; e < BK * BN; e += NT) {
-      const int kk = e / BN, c = e % BN;
-      const int gk = k0 + kk, gc = c0 + c;
-      A_t v = A_t(0);
-      if (gk < p.K && gc < p.N && (!p.tri_b || gc <= gk))
-        v = to_acc(B[gk * p.ldb + gc]);
-      Bs[kk][c] = v;
+  } else {
+    // block rows [i_lo, i_hi] of this row tile; block column j is live
+    // when one of them keeps it
+    const int bt = bm.bt;
+    const int i_lo = r0 / bt, i_hi = (min(r0 + BM, p.M) - 1) / bt;
+    const int j_end = (k_hi + bt - 1) / bt;
+    const bool gate = i_lo != i_hi;
+    auto live = [&](int j) {
+      for (int i = i_lo; i <= i_hi; ++i)
+        if (bm.mask[i * bm.nb + j]) return true;
+      return false;
+    };
+    for (int j = k_lo / bt; j < j_end;) {
+      if (!live(j)) {
+        ++j;
+        continue;
+      }
+      int j1 = j + 1;
+      while (j1 < j_end && live(j1)) ++j1;
+      const int ke = min(j1 * bt, k_hi);
+      for (int k0 = max(j * bt, k_lo); k0 < ke; k0 += BK) {
+        if (gate)
+          k_step<T, BM, BN, BK, TM, TN, true>(p, bm, A, B, As, Bs, acc, r0,
+                                              c0, k0, ke);
+        else
+          k_step<T, BM, BN, BK, TM, TN, false>(p, bm, A, B, As, Bs, acc,
+                                               r0, c0, k0, ke);
+      }
+      j = j1;
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      A_t a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx * TN + j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = mad(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
   }
 
 #pragma unroll
@@ -147,15 +248,15 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
   }
 }
 
-template <typename T, int BM, int BN, int BK, int TM, int TN>
-cudaError_t launch_tiles(const TriGemmArgs<T>& p, int64_t batch,
-                         cudaStream_t stream) {
+template <typename T, int BM, int BN, int BK, int TM, int TN, bool MASK>
+cudaError_t launch_tiles(const TriGemmArgs<T>& p, const BlockMask& bm,
+                         int64_t batch, cudaStream_t stream) {
   const int64_t gx = (p.N + BN - 1) / BN, gy = (p.M + BM - 1) / BM;
   if (batch < 1 || batch > 65535 || gy > 65535 || gx > 65535)
     return cudaErrorInvalidConfiguration;
   dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)batch);
-  tri_gemm_kernel<T, BM, BN, BK, TM, TN>
-      <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(p);
+  tri_gemm_kernel<T, BM, BN, BK, TM, TN, MASK>
+      <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(p, bm);
   return cudaGetLastError();
 }
 
@@ -165,14 +266,18 @@ cudaError_t launch_tiles(const TriGemmArgs<T>& p, int64_t batch,
 // longest row tile, which bounds the launch, walks 16 dependent k-steps
 // instead of the 128 of 32 x 16 x 32 tiles (PERF.md has both times).
 // Everything else takes 64 x 64 tiles.
-template <typename T>
+template <typename T, bool MASK = false>
 cudaError_t launch_tri_gemm(const TriGemmArgs<T>& p, int64_t batch,
-                            cudaStream_t stream) {
+                            cudaStream_t stream,
+                            const BlockMask& bm = BlockMask{nullptr, 0, 0}) {
   if (p.M < 1 || p.N < 1 || p.K < 1 || p.nq < 1) return cudaErrorInvalidValue;
+  if (MASK && (bm.mask == nullptr || bm.bt < 1 || bm.nb < 1))
+    return cudaErrorInvalidValue;
   constexpr int kSkinnyBK = sizeof(typename Acc<T>::type) == 8 ? 128 : 256;
   if (p.N <= 16)
-    return launch_tiles<T, 8, 16, kSkinnyBK, 1, 1>(p, batch, stream);
-  return launch_tiles<T, 64, 64, 16, 4, 4>(p, batch, stream);
+    return launch_tiles<T, 8, 16, kSkinnyBK, 1, 1, MASK>(p, bm, batch,
+                                                         stream);
+  return launch_tiles<T, 64, 64, 16, 4, 4, MASK>(p, bm, batch, stream);
 }
 
 }  // namespace repro

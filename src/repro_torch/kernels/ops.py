@@ -1,8 +1,8 @@
 """Public wrappers for the hand-written kernels.
 
-``trmm``, ``tri_inv_blocks`` and ``trsm_substitution`` run the CUDA
-kernel on a CUDA tensor and the kernel's plain PyTorch version on a
-CPU tensor.
+``trmm`` (with ``block_mask=``, the masked kernel ``trmm_masked``),
+``tri_inv_blocks`` and ``trsm_substitution`` run the CUDA kernel on a
+CUDA tensor and the kernel's plain PyTorch version on a CPU tensor.
 ``block_inv_kernel`` is the drop-in hook for the solvers' ``block_inv=``
 parameter, and the port's default diagonal-block inverter.
 """
@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.tri_inv_block import tri_inv_blocks  # noqa: F401
-from repro_torch.kernels.trmm import trmm  # noqa: F401
+from repro_torch.kernels.trmm import trmm, trmm_masked  # noqa: F401
 from repro_torch.kernels.trsm_block import trsm_substitution  # noqa: F401
 
 

@@ -22,3 +22,12 @@ def tri_inv_blocks_ref(Ls: torch.Tensor) -> torch.Tensor:
 def trsm_ref(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """X with tril(L) X = B."""
     return torch.linalg.solve_triangular(torch.tril(L), B, upper=False)
+
+
+def trmm_masked_ref(L: torch.Tensor, X: torch.Tensor, block_mask,
+                    bt: int) -> torch.Tensor:
+    """C = tril(L) @ X with the (bt x bt) blocks whose mask entry is 0
+    taken as zero."""
+    mask = torch.as_tensor(block_mask, device=L.device).bool()
+    elem = mask.repeat_interleave(bt, 0).repeat_interleave(bt, 1)
+    return torch.where(elem, torch.tril(L), torch.zeros_like(L)) @ X

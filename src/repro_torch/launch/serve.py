@@ -4,13 +4,15 @@
         --n 8192 --panel-k 16 --requests 64 [--n0 4096] \
         [--method inv|rec|auto] \
         [--precision fp32|bf16|bf16_refine|fp64_refine] [--cache-stats] \
-        [--device cuda:0|cpu]
+        [--structure dense|banded[:BW]|block-sparse] [--device cuda:0|cpu]
 
 The factor is L = tril(randn) + n I from seed 0; requests have random
 widths 1..panel_k.  ``--method rec`` serves through the recursive
 baseline (its base cases on the substitution kernel), ``auto`` lets
-the cost model choose at k = panel_k.  Prints requests served, panels
-and ms per panel.
+the cost model choose at k = panel_k.  ``--structure`` declares a
+block structure; admission masks the factor to it, so the solves are
+against the masked operator.  Prints requests served, panels and ms
+per panel.
 The other workloads of ``repro.launch.serve`` are not ported yet.
 """
 
@@ -47,9 +49,12 @@ def serve_trsm(args):
     L.diagonal().add_(n)
     if args.precision != "fp64_refine":
         L = L.float()
+    structure = api.FactorStructure.parse(args.structure, n=n) \
+        if args.structure else None
     solver = api.Solver.from_factor(L, grid, method=args.method,
                                     n0=args.n0, precision=args.precision,
-                                    k_hint=args.panel_k)
+                                    k_hint=args.panel_k,
+                                    structure=structure)
     server = api.SolveServer(solver, args.panel_k).warmup()
     widths = rng.integers(1, args.panel_k + 1, args.requests)
     if grid.device.type == "cuda":
@@ -70,6 +75,7 @@ def serve_trsm(args):
           f"on {grid.device} n={n} "
           f"n0={solver.spec_for(args.panel_k).n0} "
           f"method={solver.method} precision={policy.name} "
+          f"structure={args.structure or 'dense'} "
           f"({policy.describe()})")
     if args.cache_stats:
         _print_cache_stats()
@@ -90,6 +96,10 @@ def main(argv=None):
     ap.add_argument("--precision", default="fp32",
                     choices=["fp32", "bf16", "bf16_refine", "fp64_refine"],
                     help="mixed-precision policy of the solve pipeline")
+    ap.add_argument("--structure", default=None,
+                    metavar="dense|banded[:BW]|block-sparse",
+                    help="factor block structure for the trsm workload "
+                         "(level-scheduled sweep; DESIGN.md Sec. 14)")
     ap.add_argument("--cache-stats", action="store_true",
                     help="print compiled-solver cache stats after the "
                          "drain")

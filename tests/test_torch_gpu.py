@@ -6,8 +6,9 @@ on the machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances: trmm 2e-5 (fp32, fp64) and 2e-2 (bf16) relative, with an
-absolute term scaled by sqrt(n) for the reordered sums; the inverse
+Tolerances: trmm and the block-masked trmm 2e-5 (fp32, fp64) and 2e-2
+(bf16) relative, with an absolute term scaled by sqrt(n) for the
+reordered sums (the masked one of its largest entry); the inverse
 1e-4 (fp32, fp64) and 2e-2 (bf16) of its largest entry, and its
 strictly lower part the same share of that part's largest entry; the
 substitution 1e-4 (fp32) and 1e-10 (fp64) of max|X|: its dots are
@@ -273,3 +274,146 @@ def test_block_inv_kernel_launches_for_every_power_of_two(cuda, n0):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
     with pytest.raises(ValueError, match="power-of-two"):
         ops.block_inv_kernel(torch.ones((2, 3, 3), device=cuda))
+
+
+def _masked_operands(g, device, b, n, k, bt, dtype, seed):
+    """A dense tril(randn) stack, X, a seeded (n/bt, n/bt) block mask
+    (diagonal kept, ~40% of the rest) and the stack with NaN in every
+    left-out block and above the diagonal."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    m = n // bt
+    bm = np.tril(rng.random((m, m)) < 0.4)
+    np.fill_diagonal(bm, True)
+    mask = torch.as_tensor(bm.astype(np.int32), device=device)
+    L = torch.randn((b, n, n), generator=g, device=device).tril_().to(dtype)
+    X = torch.randn((b, n, k), generator=g, device=device).to(dtype)
+    elem = mask.bool().repeat_interleave(bt, 0).repeat_interleave(bt, 1)
+    keep = elem & torch.ones_like(elem).tril()
+    poisoned = torch.where(keep, L, torch.full_like(L, float("nan")))
+    return L, X, mask, poisoned
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("b,n,k,bt", [
+    (1, 2048, 16, 512),      # bt above the 256-deep k-step
+    (2, 512, 16, 32),        # below it
+    (3, 200, 5, 4),          # below the 8-row tile: per-element gate
+    (1, 256, 40, 32),        # 64 x 64 tiles
+    (1, 256, 40, 128)])
+def test_trmm_masked_kernel_matches_plain(cuda, dtype, b, n, k, bt):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    L, X, mask, poisoned = _masked_operands(g, cuda, b, n, k, bt, dtype,
+                                            seed=n + bt)
+    launches = (trmm.trmm.launches, trmm.trmm_masked.launches)
+    got = trmm.trmm(L, X, block_mask=mask, bt=bt)
+    want = trmm.trmm_masked_plain(L, X, mask, bt)
+    torch.cuda.synchronize()
+    assert (trmm.trmm.launches, trmm.trmm_masked.launches) \
+        == (launches[0], launches[1] + 1)
+    assert got.dtype == dtype
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    scale = want.double().abs().max().item()
+    assert (got.double() - want.double()).abs().max().item() <= tol * scale
+    # the mask matters: the unmasked product is far from it
+    full = trmm.trmm_plain(L, X).double()
+    assert (full - want.double()).abs().max().item() > 10 * tol * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k,bt", [(2048, 16, 512), (512, 16, 32),
+                                    (200, 5, 4), (256, 40, 32)])
+def test_trmm_masked_kernel_never_reads_skipped_blocks(cuda, n, k, bt):
+    """NaN planted in every left-out block and above the diagonal does
+    not reach C: the result is the clean operand's, bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    L, X, mask, poisoned = _masked_operands(g, cuda, 2, n, k, bt,
+                                            torch.float32, seed=bt)
+    got = trmm.trmm_masked(poisoned, X, mask, bt)
+    want = trmm.trmm_masked(L, X, mask, bt)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="int32"):
+        trmm.trmm_masked(L, X, mask.cpu(), bt)
+    with pytest.raises(ValueError, match="divide"):
+        trmm.trmm_masked(L, X, mask, 3 * bt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method,precision,bound", [
+    ("inv", "bf16_refine", 1e-5), ("inv", "fp64_refine", 1e-11),
+    ("rec", "bf16_refine", 1e-5)])
+@pytest.mark.parametrize("text", ["banded:64", "block-sparse"])
+def test_structured_solver_on_the_card(cuda, method, precision, bound, text):
+    """A structured solver on the card: relres against the masked
+    operator, exact launch counts per solve (B2 per sweep step or B3 per
+    base case in every pass, B4 once per refinement pass), no host sync
+    in the steady state, and NaN in the dropped blocks changes no bit
+    of X."""
+    from repro_torch import api
+    from repro_torch.core.structure import analyze, apply_block_mask
+    n, k, n0 = 512, 16, 64
+    g = torch.Generator(device=cuda).manual_seed(13)
+    L = torch.randn((n, n), generator=g, device=cuda,
+                    dtype=torch.float64).tril() \
+        + n * torch.eye(n, device=cuda, dtype=torch.float64)
+    B = torch.randn((n, k), generator=g, device=cuda, dtype=torch.float64)
+    st = api.FactorStructure.parse(text, n=n)
+    info = analyze(st, n, n0)
+    assert not info.full
+    Lm = apply_block_mask(L, st, n0)
+    grid = api.make_trsm_mesh(1, 1)
+    solver = api.Solver.from_factor(L, grid, method=method, n0=n0,
+                                    structure=st,
+                                    precision=precision).warmup(k)
+    Bp = solver.place_rhs(B)
+    counts = (trmm.trmm.launches, trmm.trmm_masked.launches,
+              trsm_block.trsm_substitution.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        X = solver.solve(Bp)[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    relres = (torch.linalg.norm(Lm @ X.double() - B)
+              / torch.linalg.norm(B)).item()
+    assert relres < bound, relres
+    steps = solver.policy.refine_steps
+    per_pass = n // n0
+    want = (per_pass * (steps + 1), steps, 0) if method == "inv" \
+        else (0, steps, per_pass * (steps + 1))
+    after = (trmm.trmm.launches, trmm.trmm_masked.launches,
+             trsm_block.trsm_substitution.launches)
+    assert tuple(a - b for a, b in zip(after, counts)) == want
+    elem = torch.as_tensor(info.mask_array(), device=cuda) \
+        .repeat_interleave(n0, 0).repeat_interleave(n0, 1)
+    poisoned = torch.where(elem | torch.ones_like(elem).triu(1), L,
+                           torch.full_like(L, float("nan")))
+    Xp = api.Solver.from_factor(poisoned, grid, method=method, n0=n0,
+                                structure=st,
+                                precision=precision).solve(Bp)[0]
+    assert torch.equal(Xp, X)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["inv", "rec"])
+def test_full_mask_block_sparse_is_dense_on_the_card(cuda, method):
+    import numpy as np
+    from repro_torch import api
+    n, k, n0 = 512, 16, 128
+    g = torch.Generator(device=cuda).manual_seed(14)
+    L = torch.randn((n, n), generator=g, device=cuda).tril() \
+        + n * torch.eye(n, device=cuda)
+    B = torch.randn((n, k), generator=g, device=cuda)
+    m = n // n0
+    full = api.FactorStructure.block_sparse(np.tril(np.ones((m, m), bool)))
+    grid = api.make_trsm_mesh(1, 1)
+    kw = dict(method=method, n0=n0, precision="bf16_refine")
+    masked = trmm.trmm_masked.launches
+    Xd = api.Solver.from_factor(L, grid, **kw).solve(B)
+    Xf = api.Solver.from_factor(L, grid, structure=full, **kw).solve(B)
+    torch.cuda.synchronize()
+    assert torch.equal(Xd, Xf)
+    assert trmm.trmm_masked.launches == masked

@@ -3,7 +3,8 @@
 Both are host arithmetic, so for the same explicit machine every cost,
 plan and spec must agree EXACTLY over a small grid of (n, k, p).  The
 port's default machine is the H100 preset and never the reference's
-calibrated TPU machine; structures other than dense raise (ROADMAP A9).
+calibrated TPU machine.  The structure-priced planner is held against
+the reference in tests/test_torch_structure.py.
 """
 
 import dataclasses
@@ -14,7 +15,6 @@ import pytest
 from repro import api as japi
 from repro.core import cost_model as jcm
 from repro.core import tuning as jtuning
-from repro.core.structure import FactorStructure
 from repro_torch import api
 from repro_torch.core import cost_model as cm
 from repro_torch.core import tuning
@@ -227,16 +227,19 @@ def test_h100_plans_at_the_path_shape():
 
 
 def test_structures_and_plan_grids_are_out_of_scope():
-    banded = FactorStructure.banded(2)
+    """Structures are priced now (the structure slice): a banded factor
+    costs less than a dense one and resolves a plan, dense prices as no
+    structure at all; plan grids still cannot run a program."""
+    banded = api.FactorStructure.banded(2)
     g = api.plan_grid(1, 1)
-    with pytest.raises(NotImplementedError, match="A9"):
-        cm.rec_trsm_cost(256, 16, 1, structure=banded)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tuning.choose_serving_method(256, 16, g, structure=banded)
-    with pytest.raises(NotImplementedError, match="A9"):
-        api.resolve_plan(g, 256, 16, method="auto", structure=banded)
+    assert cm.rec_trsm_cost(256, 16, 1, structure=banded).f \
+        < cm.rec_trsm_cost(256, 16, 1).f
+    assert tuning.choose_serving_method(256, 16, g, structure=banded)[0] \
+        in ("inv", "rec")
+    assert api.resolve_plan(g, 256, 16, method="auto",
+                            structure=banded)[0] in ("inv", "rec")
     assert cm.update_phase_cost(256, 16, 64, 1, 1,
-                                structure=FactorStructure.dense()) \
+                                structure=api.FactorStructure.dense()) \
         == cm.update_phase_cost(256, 16, 64, 1, 1)
     spec = api.SolveSpec.auto(256, 16, p=64)
     with pytest.raises(ValueError, match="concrete"):
