@@ -25,7 +25,11 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    3.35 TB/s or flops over the dtype's peak, the larger).  The
    block-masked trmm (B4) runs at the structured residual's shape and
    three more (``masked_phase``), each also with NaN planted in its
-   skipped blocks.
+   skipped blocks.  The validity-gated substitution (B6, ``valid_phase``)
+   runs at a capacity bank's rec base case (16, 8192, 8192) x 16 with
+   half its mask zero, on strided quadrant views and in fp64, each also
+   with NaN planted in its invalid systems and with an all-ones mask
+   held bit for bit against B3.
 3. The slice at full size: a factor of order n = 8192 (the Kronecker
    factor of an 8192-wide layer, the hidden width of 70B-class models),
    L = tril(randn) + n I from seed 0, served through
@@ -63,10 +67,23 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    operator; then the NaN-poisoned factor, the dense program where the
    mask keeps every block, the steady state, and profiler windows beside
    the dense program at the same n0.
-8. The card line, the kernels' JSON summary, then the last line
-   ``{"ok": true, "device": {...}}``.
+8. Live-mutable capacity banks (``churn_phase``), "inv" then "rec",
+   one after the other (the first bank is freed before the second):
+   C = 16 slots of order 8192, bf16_refine, warmed up empty, half
+   filled, churned on the reference CLI's trsm-churn schedule, with a
+   replace_run and a padded admission; relres after every wave against
+   each slot's current factor, dead lanes exactly zero, no build, no
+   host sync around a replace, exact launches (a rec bank's base cases
+   on B6 only), ms per wave, per update and per admission, and a
+   profiler window of 10 steady waves.
+9. The card line, the kernels' JSON summary, then the last line
+   ``{"ok": true, "device": {...}}``.  Each kernel's launches are those
+   of its main path's run: B1 and B2 the inv configuration at the
+   default n0, B3 the rec one, B4 the first structured one, B6 the rec
+   churn phase.
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -97,6 +114,14 @@ STRUCTURED_CONFIGS = (("inv", "banded:1024", 512),
                       ("inv", "block-sparse", 1024),
                       ("inv", "banded:1024", None),
                       ("rec", "banded:1024", 512))
+# churn: a capacity bank of the reference CLI's default --bank 16 (one
+# Kronecker factor per layer of a 16-layer slice), its trsm-churn
+# schedule (--requests 256 --updates 32), bf16_refine
+CHURN_CAPACITY = 16
+CHURN_REQUESTS = 256
+CHURN_UPDATES = 32
+CHURN_RELRES = 1e-5
+SYNC_GUARD_WAVE = 10        # this wave, the replace after it, the next
 
 
 class SmokeFailure(RuntimeError):
@@ -254,6 +279,7 @@ def kernel_phase(device, timer):
             records["trmm"] = rec
     records["trsm_substitution"] = substitution_phase(device, timer, g)
     records["trmm_masked"] = masked_phase(device, timer, g)
+    records["trsm_substitution_valid"] = valid_phase(device, timer, g)
     return records
 
 
@@ -427,12 +453,127 @@ def masked_phase(device, timer, g):
     return main
 
 
+def valid_phase(device, timer, g):
+    """trsm_substitution(valid=) (B6) against its plain version: a
+    capacity bank's whole rec base case (16, 8192, 8192) x 16 with the
+    bf16 factor and fp32 X of bf16_refine and the first half of the mask
+    zero, as the churn bank at half occupancy has it (the main path's
+    case, whose record this returns); (16, 512, 512) x 16 fp32 on strided
+    quadrant views of a (16, 1024, 1024) stack; (8, 2048, 2048) x 16 in
+    fp64.  Systems as in ``substitution_phase``.  Each case also checks
+    that NaN planted in every invalid system's L (its diagonal zeroed)
+    and B changes no bit of the valid outputs and leaves the invalid ones
+    exact zeros, that an all-ones mask gives B3's X bit for bit, and
+    times B3 on the same stack.  The library call is solve_triangular on
+    the valid systems only (index_select'ed outside the timed region; an
+    fp32 copy for a bf16 factor, marked so); the bound counts the valid
+    systems' triangles and B, and all of X."""
+    from repro_torch.kernels import trsm_block
+    main = None
+    for m, big, n, k, ldtype, dtype, mask in (
+            (16, N, N, PANEL_K, torch.bfloat16, torch.float32, [1] * 8 +
+             [0] * 8),
+            (16, 1024, 512, PANEL_K, torch.float32, torch.float32,
+             [1, 0] * 8),
+            (8, 2048, 2048, PANEL_K, torch.float64, torch.float64,
+             [0, 1, 1, 0, 1, 0, 0, 1])):
+        v = torch.tensor(mask, dtype=torch.int32, device=device)
+        live = v.bool()
+        L = torch.empty((m, big, big), dtype=ldtype, device=device)
+        for z in range(m):            # one system at a time: fp64 scratch
+            A = torch.randn((big, big), generator=g, device=device,
+                            dtype=torch.float64).tril_() / big ** 0.5
+            A.diagonal().copy_(1 + torch.rand(big, generator=g,
+                                              device=device,
+                                              dtype=torch.float64))
+            L[z] = A.to(ldtype)
+            del A
+        B = torch.randn((m, big, k), generator=g, device=device,
+                        dtype=torch.float64).to(dtype)
+        Lq, Bq = L[:, big - n:, big - n:], B[:, big - n:]  # views if big > n
+        got = trsm_block.trsm_substitution(Lq, Bq, valid=v)
+        want = trsm_block.trsm_substitution_plain(Lq, Bq, valid=v)
+        abs_err, rel_err = errors(got, want)
+        tol = 1e-4 if dtype == torch.float32 else 1e-10
+        what = (f"trsm_substitution(valid=) {tuple(Lq.shape)} {ldtype} x {k}"
+                f" {dtype}, {int(live.sum())} of {m} valid")
+        check(rel_err <= tol, f"{what}: max_rel_err {rel_err} > {tol}")
+        check(bool(torch.isfinite(got).all()), f"{what}: non-finite X")
+        check(not got[~live].any(), f"{what}: an invalid system's X is "
+                                    f"not zero")
+        Lp = Lq.clone()
+        Lp[~live] = float("nan")
+        Lp.diagonal(dim1=-2, dim2=-1)[~live] = 0
+        Bp = torch.where(live[:, None, None], Bq,
+                         torch.full_like(Bq, float("nan")))
+        poisoned = trsm_block.trsm_substitution(Lp, Bp, valid=v)
+        poisoned_equal = torch.equal(poisoned, got)
+        check(poisoned_equal, f"{what}: NaN in an invalid system reached X")
+        del Lp, Bp, poisoned
+        ones = torch.ones_like(v)
+        all_ones_equal = torch.equal(
+            trsm_block.trsm_substitution(Lq, Bq, valid=ones),
+            trsm_block.trsm_substitution(Lq, Bq))
+        check(all_ones_equal, f"{what}: an all-ones mask is not B3")
+        k_ms = timer.ms(lambda: trsm_block.trsm_substitution(Lq, Bq,
+                                                             valid=v), 5)
+        b3_ms = timer.ms(lambda: trsm_block.trsm_substitution(Lq, Bq), 5)
+        p_ms = timer.ms(lambda: trsm_block.trsm_substitution_plain(
+            Lq, Bq, valid=v), 2 if n >= 4096 else 3, warm=0)
+        idx = torch.nonzero(live).flatten()
+        L_lib = Lq.index_select(0, idx).to(dtype)
+        B_lib = Bq.index_select(0, idx)
+        lib_ms = timer.ms(lambda: torch.linalg.solve_triangular(
+            L_lib, B_lib, upper=False), 5)
+        del L_lib, B_lib
+        nv = int(live.sum())
+        nbytes = nv * (n * (n + 1) // 2 * Lq.element_size()
+                       + n * k * Bq.element_size()) \
+            + m * n * k * got.element_size()
+        b_ms, b_by = bound(nbytes, nv * n * n * k, dtype)
+        rec = dict(kernel="trsm_substitution_valid",
+                   data="tril(randn) / sqrt(n), diagonal in [1, 2)",
+                   shape=[list(Lq.shape), list(Bq.shape)],
+                   strided=big > n, mask=mask, valid_systems=nv,
+                   dtype=str(dtype).removeprefix("torch."),
+                   factor_dtype=str(ldtype).removeprefix("torch."),
+                   max_abs_err=abs_err, max_rel_err=rel_err, tol=tol,
+                   poisoned_bit_equal=poisoned_equal,
+                   all_ones_equal_b3=all_ones_equal,
+                   kernel_ms=k_ms, b3_unmasked_ms=b3_ms, plain_ms=p_ms,
+                   library_ms=lib_ms if ldtype == dtype else None,
+                   library_ms_fp32_factor=None if ldtype == dtype
+                   else lib_ms,
+                   bound_ms=b_ms, bound_by=b_by)
+        print(json.dumps(rec), flush=True)
+        if main is None:
+            main = rec
+        del L, B, Lq, Bq, got, want
+    torch.cuda.empty_cache()
+    return main
+
+
 def counters():
+    """kernel -> (wrapper, counter attribute): each wrapper adds one to
+    its counter where it launches its kernel; B6 is the gated launch of
+    the substitution wrapper, counted apart."""
     from repro_torch.kernels import tri_inv_block, trmm, trsm_block
-    return {"tri_inv_blocks": tri_inv_block.tri_inv_blocks,
-            "trmm": trmm.trmm,
-            "trsm_substitution": trsm_block.trsm_substitution,
-            "trmm_masked": trmm.trmm_masked}
+    return {"tri_inv_blocks": (tri_inv_block.tri_inv_blocks, "launches"),
+            "trmm": (trmm.trmm, "launches"),
+            "trsm_substitution": (trsm_block.trsm_substitution, "launches"),
+            "trmm_masked": (trmm.trmm_masked, "launches"),
+            "trsm_substitution_valid": (trsm_block.trsm_substitution,
+                                        "valid_launches")}
+
+
+def read_counts() -> dict:
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in counters().items()}
+
+
+def reset_counts() -> None:
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def serve(api, L, L64, method, precision, n0, seed, structure=None):
@@ -446,8 +587,7 @@ def serve(api, L, L64, method, precision, n0, seed, structure=None):
     widths = np.random.default_rng(seed).integers(1, PANEL_K + 1, REQUESTS)
     g = torch.Generator(device=device).manual_seed(seed)
     torch.cuda.synchronize()
-    for fn in counters().values():
-        fn.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     solver = api.Solver.from_factor(L, api.make_trsm_mesh(1, 1),
                                     method=method, n0=n0,
@@ -462,7 +602,7 @@ def serve(api, L, L64, method, precision, n0, seed, structure=None):
     outs = server.drain()[0]
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = {name: fn.launches for name, fn in counters().items()}
+    launches = read_counts()
     check(len(outs) == REQUESTS and server.requests_served == REQUESTS,
           f"{precision}: served {server.requests_served} of {REQUESTS}")
     spec = solver.spec_for(PANEL_K)
@@ -494,10 +634,12 @@ def serve(api, L, L64, method, precision, n0, seed, structure=None):
         if session.structured_info(structure, N, spec.n0) else 0
     # inv: B1 once at admission, B2 per sweep step; rec: B3 per base case
     want = {"inv": {"tri_inv_blocks": 1, "trmm": per_solve * solves,
-                    "trsm_substitution": 0, "trmm_masked": masked},
+                    "trsm_substitution": 0, "trmm_masked": masked,
+                    "trsm_substitution_valid": 0},
             "rec": {"tri_inv_blocks": 0, "trmm": 0,
                     "trsm_substitution": per_solve * solves,
-                    "trmm_masked": masked}}[method]
+                    "trmm_masked": masked,
+                    "trsm_substitution_valid": 0}}[method]
     check(launches == want, f"{config}: launches {launches}, want {want} "
                             f"({per_solve} per solve x {solves} solves)")
     stats = dict(config=config,
@@ -552,7 +694,7 @@ def other_entry_points(api, L, L64, seed):
     grid = api.make_trsm_mesh(1, 1)
     for method, n0 in (("inv", N // 2), ("inv", None), ("rec", None),
                        ("auto", None)):
-        before = {name: fn.launches for name, fn in counters().items()}
+        before = read_counts()
         t0 = time.perf_counter()
         X = api.trsm(L, B, grid, method=method, n0=n0)
         torch.cuda.synchronize()
@@ -563,15 +705,17 @@ def other_entry_points(api, L, L64, seed):
               f"one-shot trsm {method}: relres {relres}")
         resolved, r_n0 = api.resolve_plan(grid, N, PANEL_K, method=method,
                                           n0=n0)
-        launches = {name: fn.launches - before[name]
-                    for name, fn in counters().items()}
+        launches = {name: n - before[name]
+                    for name, n in read_counts().items()}
         # the resolved plan's kernels, and only those: B1 once and B2 per
         # sweep step for "inv", B3 per base case for "rec"
         want = {"inv": {"tri_inv_blocks": 1, "trmm": N // r_n0,
-                        "trsm_substitution": 0, "trmm_masked": 0},
+                        "trsm_substitution": 0, "trmm_masked": 0,
+                        "trsm_substitution_valid": 0},
                 "rec": {"tri_inv_blocks": 0, "trmm": 0,
                         "trsm_substitution": N // r_n0,
-                        "trmm_masked": 0}}[resolved]
+                        "trmm_masked": 0,
+                        "trsm_substitution_valid": 0}}[resolved]
         check(launches == want, f"one-shot trsm {method} ({resolved}, "
                                 f"n0={r_n0}): launches {launches}, want "
                                 f"{want}")
@@ -593,25 +737,23 @@ def other_entry_points(api, L, L64, seed):
             for f in ("method", "n0")))), flush=True)
 
 
-def profile_window(solver, seed, solves: int = 10):
-    """Where a steady-state solve's time goes: device time by kernel and
-    the device's busy share of the host-clock window, from
-    torch.profiler (CUPTI), and the ``torch.matmul`` calls per solve
-    (the update GEMMs, and an unstructured factor's residual GEMMs).  A
+def profile_calls(run, label: str, calls: int = 10,
+                  unit: str = "solve") -> dict:
+    """Where the time of ``calls`` calls of ``run`` (each one ``unit``)
+    goes: device time by kernel and the device's busy share of the
+    host-clock window, from torch.profiler (CUPTI), and the
+    ``torch.matmul`` calls per call.  A
     profiler that sees no device time is reported, not failed: it
     measures, it does not check the port.  Returns the printed record."""
     from torch.profiler import ProfilerActivity, profile
-    g = torch.Generator(device=solver.grid.device).manual_seed(seed)
-    Bp = solver.place_rhs(torch.randn((N, PANEL_K), generator=g,
-                                      device=solver.grid.device))
-    for _ in range(2):
-        solver.solve(Bp)
+    for i in range(2):
+        run(i)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(solves):
-            solver.solve(Bp)
+        for i in range(calls):
+            run(i)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -625,20 +767,28 @@ def profile_window(solver, seed, solves: int = 10):
     device_ms = sum(us for us, _, _ in rows) / 1e3
     matmuls = sum(e.count for e in prof.key_averages()
                   if e.key == "aten::matmul")
-    spec = solver.spec_for(PANEL_K)
-    rec = dict(
-        profile=f"{solver.method} {solver.policy.name} n={N} "
-                f"n0={spec.n0} k={PANEL_K}"
-                + (f" {named(spec.structure)}" if spec.structure
-                   else ""),
-        solves=solves, wall_ms_per_solve=wall * 1e3 / solves,
-        device_ms_per_solve=device_ms / solves,
-        device_busy_share=device_ms / (wall * 1e3) if rows else None,
-        matmuls_per_solve=matmuls / solves,
-        top=[[key[:60], us / 1e3 / solves, count / solves]
-             for us, key, count in rows[:8]])
+    rec = {"profile": label, f"{unit}s": calls,
+           f"wall_ms_per_{unit}": wall * 1e3 / calls,
+           f"device_ms_per_{unit}": device_ms / calls,
+           "device_busy_share": device_ms / (wall * 1e3) if rows else None,
+           f"matmuls_per_{unit}": matmuls / calls,
+           "top": [[key[:60], us / 1e3 / calls, count / calls]
+                   for us, key, count in rows[:8]]}
     print(json.dumps(rec), flush=True)
     return rec
+
+
+def profile_window(solver, seed, solves: int = 10):
+    """10 steady-state solves of a configuration under the profiler
+    (``profile_calls``)."""
+    g = torch.Generator(device=solver.grid.device).manual_seed(seed)
+    Bp = solver.place_rhs(torch.randn((N, PANEL_K), generator=g,
+                                      device=solver.grid.device))
+    spec = solver.spec_for(PANEL_K)
+    label = (f"{solver.method} {solver.policy.name} n={N} n0={spec.n0} "
+             f"k={PANEL_K}" + (f" {named(spec.structure)}"
+                               if spec.structure else ""))
+    return profile_calls(lambda i: solver.solve(Bp), label, solves)
 
 
 def structured_phase(api, L, L64, seed):
@@ -743,6 +893,334 @@ def structured_phase(api, L, L64, seed):
     return main_launches
 
 
+def factor_maker(device, seed):
+    """fresh(n) -> a new L = tril(randn) + n I (fp32) on ``device``, from
+    one seeded generator; also returns the generator."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def fresh(n=N):
+        L = torch.randn((n, n), generator=g, device=device).tril_()
+        L.diagonal().add_(n)
+        return L
+
+    return fresh, g
+
+
+def request_relres(L, xs, bs) -> list:
+    """||L X_j - B_j|| / ||B_j|| per request, in fp64 on the card."""
+    X = torch.cat(xs, dim=1).double()
+    B = torch.cat(bs, dim=1).double()
+    R = L.double() @ X - B
+    out, off = [], 0
+    for b in bs:
+        w = b.shape[1]
+        out.append((torch.linalg.norm(R[:, off:off + w])
+                    / torch.linalg.norm(B[:, off:off + w])).item())
+        off += w
+    return out
+
+
+def churn_phase(api, method, seed):
+    """A capacity bank of C = 16 slots of order n = 8192, bf16_refine,
+    live-mutated while it serves (CHURN_*): built through
+    ``Solver.from_spec(SolveSpec.auto(..., bank_width=16), capacity=16)``
+    and warmed up EMPTY (every lane of the warmup, and of a solve of
+    random panels on the empty bank, exactly zero: a "rec" bank gates
+    its empty lanes off on B6); 8 admissions (half occupancy); the
+    schedule of the reference CLI's ``serve_trsm_churn`` (256 requests of
+    widths 1..16, an in-place replace after every 8, every third update
+    an evict and a re-admit that must reuse the victim's slot); one
+    ``replace_run`` of 4 contiguous slots in one updater call; a padded
+    admission (``pad_to=8192`` of an order-4096 factor) whose leading
+    block must equal, bit for bit, an unpadded order-4096 bank's solve
+    at the same n0 and bank width.  After every wave each request's
+    relres against its slot's factor at the time is held to 1e-5, every
+    dead lane of the wave is exactly zero; the wave before and after the
+    replace with a ``place_factor``'d factor, and the replace itself, run
+    under sync-debug mode "error"; no program or updater is built from
+    the first wave to the last; the launches are exact (rec: B6 per base
+    case, never B3; inv: B1 per updater call, B2 per sweep step, no B6).
+    Then 10 steady waves under the profiler.  Returns (launches,
+    stats)."""
+    from repro_torch.core import session
+    grid = api.make_trsm_mesh(1, 1)
+    C = CHURN_CAPACITY
+    fresh, g = factor_maker(grid.device, seed)
+    rng = np.random.default_rng(seed)
+    what = f"churn {method} bf16_refine n={N} C={C}"
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    spec = api.SolveSpec.auto(N, PANEL_K, grid=grid, method=method,
+                              precision="bf16_refine", bank_width=C)
+    solver = api.Solver.from_spec(spec, capacity=C)
+    bank = solver.bank
+    waves = []                     # every X the solver returns, in order
+    solve = solver.solve
+
+    def capture(B, **kw):
+        X = solve(B, **kw)
+        waves.append(X)
+        return X
+
+    solver.solve = capture
+    server = api.SolveServer(solver, PANEL_K).warmup()        # EMPTY
+    torch.cuda.synchronize()
+    empty_warmup_s = time.perf_counter() - t0
+    solver.solve(torch.randn((C, N, PANEL_K), generator=g,
+                             device=grid.device))
+    for X in waves:
+        check(bool(torch.isfinite(X).all()) and not X.any(),
+              f"{what}: the empty bank's lanes are not exact zeros")
+    empty = read_counts()
+    want_empty = {"rec": empty["trsm_substitution_valid"] > 0
+                  and empty["trsm_substitution"] == 0,
+                  "inv": empty["trmm"] > 0 and empty["tri_inv_blocks"] == 0}
+    check(want_empty[method], f"{what}: empty-bank launches {empty}")
+    current = {}                   # slot -> its resident factor (fp32)
+    admit_ms = []
+    for _ in range(C // 2):
+        L = fresh()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        slot = solver.admit_factor(L)
+        torch.cuda.synchronize()
+        admit_ms.append((time.perf_counter() - t) * 1e3)
+        current[slot] = L
+    check(bank.live_slots() == tuple(range(C // 2)),
+          f"{what}: admissions filled {bank.live_slots()}")
+    key, uspec = solver.spec_for(PANEL_K), bank.update_spec()
+    builds0 = (session.BUILD_COUNTS[key], session.BUILD_COUNTS[uspec])
+    host = torch.Generator().manual_seed(seed + 1)   # made on the host,
+    Lh = torch.randn((N, N), generator=host).tril_()  # placed ahead
+    Lh.diagonal().add_(N)
+    placed = bank.place_factor(Lh)
+    del Lh
+
+    checks = dict(requests=0, worst=0.0, dead_lanes=0, waves=0)
+    pending = []
+
+    def settle():
+        """Check every recorded wave: relres per request against the
+        slot's factor at the time, dead lanes exactly zero."""
+        while pending:
+            outs, reqs, factors, xs, live = pending.pop(0)
+            check(set(outs) == set(live), f"{what}: drained slots "
+                                          f"{sorted(outs)} != live {live}")
+            for X in xs:
+                checks["waves"] += 1
+                for s_ in range(C):
+                    if s_ not in live:
+                        check(not X[s_].any(), f"{what}: dead lane {s_} "
+                                               f"is not zero")
+                        checks["dead_lanes"] += 1
+            by_slot = {}
+            for slot, b in reqs:
+                by_slot.setdefault(slot, []).append(b)
+            for slot, bs in by_slot.items():
+                check(len(outs[slot]) == len(bs), f"{what}: slot {slot} "
+                                                  f"lost a request")
+                for r in request_relres(factors[slot], outs[slot], bs):
+                    check(r <= CHURN_RELRES, f"{what}: slot {slot} relres "
+                                             f"{r} > {CHURN_RELRES}")
+                    checks["worst"] = max(checks["worst"], r)
+                    checks["requests"] += 1
+
+    def wave(reqs, guarded=False):
+        n_before = len(waves)
+        t = time.perf_counter()
+        for slot, b in reqs:
+            server.submit(b, slot)
+        outs = server.drain()
+        ms = None
+        if not guarded:
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+        pending.append((outs, reqs, dict(current), waves[n_before:],
+                        bank.live_slots()))
+        return ms
+
+    widths = rng.integers(1, PANEL_K + 1, CHURN_REQUESTS)
+    per_wave = CHURN_REQUESTS // CHURN_UPDATES
+    replaced = evicted = 0
+    wave_ms, replace_ms, readmit_ms = [], [], []
+    guard_s = None
+    reqs = []
+    for i, w in enumerate(widths):
+        live = bank.live_slots()
+        reqs.append((int(live[i % len(live)]),
+                     torch.randn((N, int(w)), generator=g,
+                                 device=grid.device)))
+        if (i + 1) % per_wave:
+            continue
+        index = (i + 1) // per_wave - 1
+        guarded = index in (SYNC_GUARD_WAVE, SYNC_GUARD_WAVE + 1)
+        live = bank.live_slots()
+        target = int(live[replaced % len(live)])
+        if index == SYNC_GUARD_WAVE:
+            torch.cuda.synchronize()
+            tg = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            ms = wave(reqs, guarded)
+            if index == SYNC_GUARD_WAVE:
+                solver.replace_factor(target, placed)
+        except BaseException:
+            torch.cuda.set_sync_debug_mode(0)
+            raise
+        if index != SYNC_GUARD_WAVE:
+            torch.cuda.set_sync_debug_mode(0)
+        reqs = []
+        if ms is not None:
+            wave_ms.append(ms)
+        if index == SYNC_GUARD_WAVE + 1:
+            torch.cuda.synchronize()
+            guard_s = time.perf_counter() - tg
+        if index == SYNC_GUARD_WAVE:
+            current[target] = placed
+            replaced += 1
+            check(replaced % 3 != 0, f"{what}: the guarded update is an "
+                                     f"evict")
+            continue
+        L = fresh()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        solver.replace_factor(target, L)
+        torch.cuda.synchronize()
+        replace_ms.append((time.perf_counter() - t) * 1e3)
+        current[target] = L
+        replaced += 1
+        if replaced % 3 == 0:
+            victim = int(live[evicted % len(live)])
+            L = fresh()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            solver.evict_factor(victim)
+            slot = solver.admit_factor(L)
+            torch.cuda.synchronize()
+            readmit_ms.append((time.perf_counter() - t) * 1e3)
+            check(slot == victim, f"{what}: re-admitted into {slot}, not "
+                                  f"the victim's slot {victim}")
+            current[slot] = L
+            evicted += 1
+        settle()
+    check(not server.pending() and server.requests_served
+          == CHURN_REQUESTS, f"{what}: served {server.requests_served}")
+    builds = (session.BUILD_COUNTS[key], session.BUILD_COUNTS[uspec])
+    check(builds == builds0, f"{what}: BUILD_COUNTS moved during the churn "
+                             f"{builds0} -> {builds}")
+
+    # one replace_run of 4 contiguous live slots, one updater call
+    first = 0
+    check(all(bank.is_live(s_) for s_ in range(first, first + 4)),
+          f"{what}: slots 0..3 are not all live")
+    Ls = torch.stack([fresh() for _ in range(4)])
+    calls = bank.updates_dispatched
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    bank.replace_run(first, Ls)
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t) * 1e3
+    check(bank.updates_dispatched == calls + 1,
+          f"{what}: replace_run took {bank.updates_dispatched - calls} "
+          f"updater calls")
+    for j in range(4):
+        current[first + j] = Ls[j]
+    del Ls
+    wave([(s_, torch.randn((N, PANEL_K), generator=g, device=grid.device))
+          for s_ in bank.live_slots()])
+    settle()
+
+    # padded admission: an order-4096 factor into the order-8192 bank
+    d = N // 2
+    T = fresh(d)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pslot = bank.admit(T, pad_to=N)
+    torch.cuda.synchronize()
+    pad_ms = (time.perf_counter() - t) * 1e3
+    padded = torch.zeros((N, N), device=grid.device)
+    padded[:d, :d] = T
+    padded.diagonal()[d:] = 1
+    current[pslot] = padded
+    bp = torch.zeros((N, PANEL_K), device=grid.device)
+    bp[:d] = torch.randn((d, PANEL_K), generator=g, device=grid.device)
+    n_before = len(waves)
+    reqs = [(s_, bp if s_ == pslot else torch.randn(
+        (N, PANEL_K), generator=g, device=grid.device))
+        for s_ in bank.live_slots()]
+    wave(reqs)
+    Xp = waves[n_before][pslot]
+    settle()
+    launches = read_counts()
+    solves = len(waves)
+    passes = solver.policy.refine_steps + 1
+    per_solve = N // key.n0 * passes
+    want = {"rec": {"tri_inv_blocks": 0, "trmm": 0, "trsm_substitution": 0,
+                    "trmm_masked": 0,
+                    "trsm_substitution_valid": per_solve * solves},
+            "inv": {"tri_inv_blocks": bank.updates_dispatched,
+                    "trmm": per_solve * solves, "trsm_substitution": 0,
+                    "trmm_masked": 0, "trsm_substitution_valid": 0}}[method]
+    check(launches == want, f"{what}: launches {launches}, want {want} "
+                            f"({per_solve} per solve x {solves} solves)")
+    check(not Xp[d:].any(), f"{what}: the padded tail is not zero")
+    small = api.Solver.from_spec(api.SolveSpec.auto(
+        d, PANEL_K, grid=grid, method=method, precision="bf16_refine",
+        n0=key.n0 if method == "inv" else None, bank_width=C), capacity=C)
+    small.admit_factor(T)
+    Bs = torch.zeros((C, d, PANEL_K), device=grid.device)
+    Bs[0] = bp[:d]
+    Xs = small.solve(Bs)[0]
+    padded_equal = torch.equal(Xp[:d], Xs)
+    check(padded_equal, f"{what}: the padded leading block differs from the "
+                        f"unpadded order-{d} solve at n0 = "
+                        f"{small.spec_for(PANEL_K).n0}")
+    one = api.Solver.from_factor(T, grid, method=method,
+                                 n0=small.spec_for(PANEL_K).n0,
+                                 precision="bf16_refine")
+    width1_equal = torch.equal(Xp[:d], one.solve(bp[:d]))
+    del small, one, Bs, Xs, padded, T
+
+    # 10 steady waves under the profiler: one 16-column panel per slot
+    live = bank.live_slots()
+    panels = [[(s_, torch.randn((N, PANEL_K), generator=g,
+                                device=grid.device)) for s_ in live]
+              for _ in range(12)]
+
+    def run(i):
+        for slot, b in panels[i]:
+            server.submit(b, slot)
+        server.drain()
+
+    prof = profile_calls(run, f"{what} n0={key.n0} occupancy {len(live)}",
+                         10, unit="wave")
+    stats = dict(
+        churn=what, n0=key.n0, capacity=C, occupancy=bank.size,
+        requests_served=server.requests_served, waves=checks["waves"],
+        checked_requests=checks["requests"],
+        dead_lanes_checked=checks["dead_lanes"],
+        worst_relres=checks["worst"], relres_bound=CHURN_RELRES,
+        empty_warmup_s=empty_warmup_s, admit_ms=admit_ms,
+        ms_per_wave_median=float(np.median(wave_ms)),
+        ms_per_wave_mean=float(np.mean(wave_ms)),
+        replace_ms_median=float(np.median(replace_ms)),
+        evict_readmit_ms_median=float(np.median(readmit_ms)),
+        replace_run_4_ms=run_ms, padded_admit_ms=pad_ms,
+        replaces=replaced, evict_readmits=evicted,
+        updater_calls=bank.updates_dispatched,
+        sync_guarded_window_s=guard_s, builds=dict(
+            solve=builds[0], update=builds[1]),
+        padded_bit_equal=padded_equal,
+        padded_width1_bit_equal=width1_equal,
+        launches=launches,
+        device_ms_per_wave=prof["device_ms_per_wave"],
+        device_busy_share=prof["device_busy_share"])
+    print(json.dumps(stats), flush=True)
+    del solver.solve
+    return launches, stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -791,6 +1269,14 @@ def main() -> int:
         profile_window(solver, seed=50 + i)
     main_launches["structured"] = structured_phase(api, L, L64,  # phase 7
                                                    seed=60)
+    del L, L64, solvers
+    gc.collect()
+    torch.cuda.empty_cache()
+    for i, method in enumerate(("inv", "rec")):               # phase 8
+        main_launches[f"churn {method}"], _ = churn_phase(api, method,
+                                                          seed=100 + i)
+        gc.collect()                  # the bank goes before the next one
+        torch.cuda.empty_cache()
 
     kernels = []
     for name, method, source, replaces in (
@@ -803,7 +1289,10 @@ def main() -> int:
              "src/repro/kernels/trsm_block.py:26"),
             ("trmm_masked", "structured",
              "src/repro_torch/kernels/csrc/trmm.cu",
-             "src/repro/kernels/trmm.py:50")):
+             "src/repro/kernels/trmm.py:50"),
+            ("trsm_substitution_valid", "churn rec",
+             "src/repro_torch/kernels/csrc/trsm_block.cu",
+             "src/repro/kernels/trsm_block.py:44")):
         rec = records[name]
         launches = main_launches[method][name]
         check(launches > 0, f"{name} never launched on the {method} main "

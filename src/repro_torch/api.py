@@ -18,7 +18,16 @@
   program per RHS width, a steady state that only queues device work.
 * :class:`SolveServer` — continuous batching over a Solver.
 * :class:`FactorBank` — the admission layer (stacked storage, hoisted
-  phase 1 through the hand-written ``tri_inv_blocks`` kernel).
+  phase 1 through the hand-written ``tri_inv_blocks`` kernel);
+  ``capacity=C`` makes it live-mutable (admit / replace / replace_run /
+  evict / padded and cyclic admission, in place), with
+  :class:`UpdateSpec` keying its updater (:func:`updater_for`):
+
+      solver = api.Solver.from_spec(spec, capacity=16)   # empty bank
+      slot = solver.admit_factor(L)
+      solver.replace_factor(slot, L_new)
+      solver.evict_factor(slot)
+
 * :class:`FactorStructure` — a factor's block structure (dense, banded,
   block-sparse; DESIGN.md Sec. 14): ``Solver.from_factor(...,
   structure=...)`` masks the factor at admission, sweeps only its kept
@@ -37,5 +46,6 @@ from repro_torch.core.precision import (  # noqa: F401
 from repro_torch.core.session import (  # noqa: F401
     BUILD_COUNTS, CompiledSolverCache, default_cache)
 from repro_torch.core.solver import (  # noqa: F401
-    Solver, SolveServer, SolveSpec, plan_grid, resolve_plan, solver_for)
+    Solver, SolveServer, SolveSpec, UpdateSpec,
+    plan_grid, resolve_plan, solver_for, updater_for)
 from repro_torch.core.structure import FactorStructure  # noqa: F401

@@ -1,4 +1,5 @@
-"""FactorBank: the admission layer of the solve stack (DESIGN.md Sec. 9).
+"""FactorBank: the admission layer of the solve stack (DESIGN.md Secs. 9,
+11).
 
 A device-resident pool of M same-order triangular factors held as
 stacked tensors, one per role: the storage-dtype factor ``L_lo``, for
@@ -12,12 +13,25 @@ sweep (or the recursion) alone against the resident stacks.  A
 width-1 bank is the single-factor case.  A structured bank (DESIGN.md
 Sec. 14) masks both resident copies to its structure at its n0.
 
-This bank is append-only.  Capacity allocation, in-place replace,
-evict, cyclic ingestion and padded admission are ROADMAP A7.
+**Live mutation** (DESIGN.md Sec. 11): a bank built with
+``capacity=C`` allocates zero-filled (C, ...) stacks up front and a
+device int32 liveness vector of width C.  ``admit`` fills the lowest
+free slot, ``replace``/``replace_cyclic``/``replace_run`` refresh live
+slots, and ``evict`` frees one, all in place through the bank's
+updater (``session._build_updater``, keyed by an
+:class:`~repro_torch.core.solver.UpdateSpec`).  The programs are keyed
+on C, not on occupancy, so churn never rebuilds one.  ``evict`` and
+``admit`` write the liveness entry with a device fill: neither syncs
+nor uploads.  A "rec" program hands the liveness vector to every base
+case (kernel B6), so an empty or evicted lane solves to zeros without
+reading its factor; an "inv" lane of an empty slot solves to zeros
+against its zero Dt.
 """
 
 from __future__ import annotations
 
+import bisect
+import warnings
 from typing import Callable
 
 import torch
@@ -27,7 +41,10 @@ from repro_torch.core import session as sessionlib
 from repro_torch.core.grid import TrsmGrid
 from repro_torch.core.session import CompiledSolverCache
 
-_A7 = "live-mutable (capacity) banks are ROADMAP A7"
+_CYCLIC_OPERATOR = (
+    "cyclic ingestion requires lower=True, transpose=False (the "
+    "reversal/transpose reductions are folded into the natural-layout "
+    "distribution gather; a pre-permuted factor cannot carry them)")
 
 
 class FactorBank:
@@ -45,7 +62,11 @@ class FactorBank:
     ``dtype`` / ``precision`` take a preset name or a PrecisionPolicy;
     default fp32 uniform.  ``block_inv=None`` inverts the diagonal
     blocks with the hand-written kernel
-    (``kernels.ops.block_inv_kernel``)."""
+    (``kernels.ops.block_inv_kernel``).
+
+    ``capacity=C`` makes the bank live-mutable at width C (zero-filled
+    slots solve to zeros — they never contaminate live lanes); without
+    it the bank is append-only (width == size grows per admission)."""
 
     def __init__(self, grid: TrsmGrid, n: int, *, method: str = "inv",
                  n0: int | None = None, mode: str | None = None,
@@ -63,8 +84,6 @@ class FactorBank:
         if map_mode not in ("vmap", "scan"):
             raise ValueError(f"unknown map_mode {map_mode!r}")
         solverlib._check_method(method)
-        if capacity is not None:
-            raise NotImplementedError(_A7)
         if grid.device is None:
             raise ValueError("a plan-only grid (plan_grid) has no device: "
                              "build banks on make_trsm_mesh")
@@ -104,33 +123,113 @@ class FactorBank:
             self.n0 = n0
             self._phase1_mode = None
         # admitted chunks (tuples of per-role stacks), fused lazily by
-        # stacks() into one (width, ...) stack per role
+        # stacks() into one (width, ...) stack per role; a capacity bank
+        # has no chunks: its stacks are allocated here and written in
+        # place
         self._chunks: list[tuple] = []
         self._size = 0
         self._stacks: tuple | None = None
-        self.capacity = None
+        self._updaters: dict[tuple, object] = {}
+        self.updates_dispatched = 0        # updater calls
+        self.capacity = capacity
+        self._live = self._gens = self._free = self.valid = None
+        if capacity is not None:
+            if capacity < 1:
+                raise ValueError(f"capacity must be >= 1, got {capacity}")
+            self._live = [False] * capacity
+            self._gens = [0] * capacity             # bumped per evict
+            self._free = list(range(capacity))      # sorted, min first
+            self._stacks = self._alloc_stacks()
+            # the liveness operand of every "rec" program over this bank
+            self.valid = torch.zeros(capacity, dtype=torch.int32,
+                                     device=grid.device)
 
-    # ------------------------------ admission ------------------------------
+    # ------------------------------ slots ------------------------------
 
     @property
     def size(self) -> int:
-        """M — the number of resident factors."""
+        """M — the number of LIVE resident factors (occupancy)."""
         return self._size
 
     @property
     def width(self) -> int:
-        """The stack width the programs are keyed on (== size for an
-        append-only bank)."""
-        return self._size
+        """The stack width the programs are keyed on: ``capacity`` for a
+        capacity bank (occupancy never re-keys), else the live size."""
+        return self.capacity if self.capacity is not None else self._size
+
+    def is_live(self, slot: int) -> bool:
+        """Whether ``slot`` holds an admitted factor."""
+        if self.capacity is None:
+            return 0 <= slot < self._size
+        return 0 <= slot < self.capacity and self._live[slot]
 
     def live_slots(self) -> tuple:
-        return tuple(range(self._size))
+        """The live slot indices, ascending."""
+        if self.capacity is None:
+            return tuple(range(self._size))
+        return tuple(i for i, live in enumerate(self._live) if live)
 
-    def _check_square(self, L, ndim: int) -> None:
-        if L.ndim != ndim or tuple(L.shape[-2:]) != (self.n, self.n):
+    def slot_generation(self, slot: int) -> int:
+        """How many times ``slot`` has been turned over (evicted).  A
+        server records it at submit, so a request is never served
+        against a factor admitted after its slot was evicted;
+        ``replace`` does not bump it (refreshing a live factor in place
+        is the intended serving semantic).  Always 0 for append-only
+        banks."""
+        return 0 if self.capacity is None else self._gens[slot]
+
+    def _roles(self) -> list:
+        """(shape, dtype) per resident role: L_lo[, Dt][, L_hi]."""
+        pol = self.policy
+        roles = [((self.n, self.n), pol.storage)]
+        if self.method == "inv":
+            from repro_torch.core import inv_trsm
+            roles.append((inv_trsm.dt_shape(self.n, self.n0), pol.storage))
+        if pol.refines:
+            roles.append(((self.n, self.n), pol.residual))
+        return roles
+
+    def _alloc_stacks(self) -> tuple:
+        """The zero-filled (C, ...) resident stacks: a zero factor's
+        "inv" lane solves to zeros, and a "rec" program gates its lane
+        off through the liveness vector."""
+        return tuple(torch.zeros((self.capacity,) + shape, dtype=dt,
+                                 device=self.grid.device)
+                     for shape, dt in self._roles())
+
+    def _check_square(self, L, ndim: int, order: int | None = None) -> None:
+        d = self.n if order is None else order
+        if L.ndim != ndim or tuple(L.shape[-2:]) != (d, d):
             lead = "(M, " if ndim == 3 else "("
-            raise ValueError(f"factor must be {lead}{self.n}, {self.n}), "
+            raise ValueError(f"factor must be {lead}{d}, {d}), "
                              f"got {tuple(L.shape)}")
+
+    def _check_cyclic_operator(self) -> None:
+        if not self.lower or self.transpose:
+            raise ValueError(_CYCLIC_OPERATOR)
+
+    def _resolve_pad(self, L, pad_to: int | None) -> int | None:
+        """Normalize a padded-admission request: ``pad_to`` must name
+        this bank's order, the incoming factor a (d, d) with d <= n.
+        Returns the UpdateSpec's ``pad_from`` (None when d == n)."""
+        if pad_to is None:
+            return None
+        if pad_to != self.n:
+            raise ValueError(f"pad_to={pad_to} must equal the bank's "
+                             f"order n={self.n} (route to the right "
+                             f"bucket first)")
+        if self.capacity is None:
+            raise ValueError(
+                "padded admission requires a capacity-allocated bank "
+                "(FactorBank(..., capacity=C)): padding runs inside the "
+                "updater")
+        d = int(L.shape[-1])
+        if tuple(L.shape[-2:]) != (d, d) or not 1 <= d <= self.n:
+            raise ValueError(f"padded factor must be (d, d) with "
+                             f"1 <= d <= {self.n}, got {tuple(L.shape)}")
+        return None if d == self.n else d
+
+    # ------------------------------ admission ------------------------------
 
     def _phase1(self, L_lo: torch.Tensor) -> torch.Tensor:
         """Admission-time phase 1: invert the factors' diagonal blocks
@@ -146,60 +245,234 @@ class FactorBank:
             return parts
         return (parts[0], self._phase1(parts[0])) + parts[1:]
 
-    def _admit(self, Ls: torch.Tensor) -> None:
-        # a structure is enforced at the programs' block size: n0, or for
-        # a "rec" bank with n0 unset the base case of every k, n at p = 1
-        # (rec_trsm.default_n0), where the mask leaves out nothing
-        n0 = self.n0 if self.n0 is not None else self.n
-        mask = (self.structure, n0) if sessionlib.structured_info(
-            self.structure, self.n, n0) else ()
-        preps = sessionlib._factor_preps(self.grid, self.lower,
-                                         self.transpose, self.policy,
-                                         *mask)
-        self._chunks.append(self._entry(tuple(p(Ls) for p in preps)))
-        self._size += Ls.shape[0]
+    def _prepare(self, Ls: torch.Tensor) -> tuple:
+        """The resident roles of a natural-layout (M, n, n) stack, the
+        structure enforced (``session._admission_preps``)."""
+        preps = sessionlib._admission_preps(
+            self.grid, self.n, self.n0, self.lower, self.transpose,
+            self.policy, self.structure)
+        return self._entry(tuple(p(Ls) for p in preps))
 
     def admit(self, L, *, pad_to: int | None = None) -> int:
         """Admit one natural-layout (n, n) factor (gather with the
         operator reduction folded in, policy casts, diagonal blocks
-        pre-inverted); returns its slot."""
-        if pad_to is not None:
-            raise NotImplementedError(f"padded admission: {_A7}")
+        pre-inverted); returns its slot.  A capacity bank fills its
+        lowest free slot (re-using evicted slots) through its updater;
+        an append-only bank grows by one.
+
+        ``pad_to=n`` admits a smaller (d, d) factor into this bank's
+        order as ``blockdiag(L, I)``: the tail solves to exact zeros and
+        the leading d x k block of a solve is an unpadded order-d
+        solve's at the same n0 (DESIGN.md Sec. 12).  Capacity banks
+        only."""
         L = torch.as_tensor(L)
-        self._check_square(L, 2)
-        self._admit(L[None])
+        pad_from = self._resolve_pad(L, pad_to)
+        self._check_square(L, 2, order=pad_from)
+        if self.capacity is not None:
+            return self._admit_slot(L, "natural", pad_from=pad_from)
+        self._chunks.append(self._prepare(L[None]))
+        self._size += 1
         return self.size - 1
 
-    def admit_stack(self, Ls) -> range:
-        """Admit a natural-layout (M, n, n) stack in one batched
-        admission; returns the admitted slots."""
+    def admit_stack(self, Ls):
+        """Admit a natural-layout (M, n, n) stack; returns the admitted
+        slots (a range for an append-only bank, a list for a capacity
+        bank, whose free slots may not be contiguous).  An append-only
+        bank, and an EMPTY capacity bank filled to exactly C, admit the
+        stack in one batched admission (whose output is the resident
+        stack); a partly filled capacity bank admits slot by slot."""
         Ls = torch.as_tensor(Ls)
         self._check_square(Ls, 3)
-        first = self.size
-        self._admit(Ls)
-        return range(first, self.size)
+        M = Ls.shape[0]
+        if self.capacity is None:
+            first = self.size
+            self._chunks.append(self._prepare(Ls))
+            self._size += M
+            return range(first, self.size)
+        if M > len(self._free):
+            raise ValueError(
+                f"bank full: {M} factors for {len(self._free)} free "
+                f"slot(s) of capacity {self.capacity} (evict first)")
+        if self._size == 0 and M == self.capacity:
+            self._stacks = None            # free the zero stacks first
+            self._stacks = self._prepare(Ls)
+            self.valid.fill_(1)
+            self._live = [True] * M
+            self._free = []
+            self._size = M
+            return list(range(M))
+        return [self.admit(Ls[j]) for j in range(M)]
 
     def admit_cyclic(self, L_cyc) -> int:
+        """Admit a factor ALREADY in the cyclic storage the producers
+        emit (``cholesky_cyclic`` / ``lu_cyclic``): only the policy's
+        casts (and phase 1) run.  At p = 1 cyclic storage is the natural
+        layout.  Only for lower=True, transpose=False, and never into a
+        structured bank (its mask is applied in natural layout)."""
+        self._check_cyclic_operator()
         if self.structure is not None:
             raise ValueError(
                 "cyclic ingestion into a structured bank is not "
                 "supported: the admission-time block mask is applied "
                 "in natural layout, before distribution (mask the "
                 "factor yourself and use natural admission)")
-        raise NotImplementedError(f"cyclic ingestion: {_A7}")
+        L_cyc = torch.as_tensor(L_cyc)
+        self._check_square(L_cyc, 2)
+        if self.capacity is not None:
+            return self._admit_slot(L_cyc, "cyclic")
+        dts = (self.policy.storage,) + ((self.policy.residual,)
+                                        if self.policy.refines else ())
+        self._chunks.append(self._entry(tuple(
+            L_cyc.to(self.grid.device, dt, copy=True)[None] for dt in dts)))
+        self._size += 1
+        return self.size - 1
+
+    # ----------------------- live mutation (Sec. 11) -----------------------
+
+    def _alloc_slot(self) -> int:
+        if not self._free:
+            raise ValueError(
+                f"bank full: all {self.capacity} capacity slots are "
+                f"live (evict one before admitting)")
+        return self._free.pop(0)                   # lowest free slot
+
+    def _admit_slot(self, L, ingest: str, pad_from: int | None = None) -> int:
+        """Fill the lowest free slot through the updater.  The slot is
+        committed only once the update succeeds: a failed build or
+        launch puts it back on the free list."""
+        slot = self._alloc_slot()
+        try:
+            self._scatter(slot, L, ingest, pad_from=pad_from)
+        except BaseException:
+            bisect.insort(self._free, slot)
+            raise
+        self._live[slot] = True
+        self.valid.narrow(0, slot, 1).fill_(1)
+        self._size += 1
+        return slot
+
+    def _check_live(self, slot: int) -> None:
+        if not 0 <= slot < self.width:
+            raise ValueError(f"slot {slot} out of range for a "
+                             f"width-{self.width} bank")
+        if not self.is_live(slot):
+            raise ValueError(f"slot {slot} is not live (evicted or "
+                             f"never admitted); use admit to fill it")
+
+    def update_spec(self, ingest: str = "natural", *, chunk: int = 1,
+                    pad_from: int | None = None):
+        """The frozen :class:`~repro_torch.core.solver.UpdateSpec`
+        keying this bank's updater (its cache and BUILD_COUNTS key)."""
+        from repro_torch.core import solver as solverlib
+        if self.width < 1:
+            raise ValueError("empty bank: admit factors before updating")
+        return solverlib.UpdateSpec(
+            n=self.n, grid=self.grid, policy=self.policy,
+            method=self.method, n0=self.n0, mode=self._phase1_mode,
+            lower=self.lower, transpose=self.transpose,
+            block_inv=self.block_inv, bank_width=self.width,
+            ingest=ingest, chunk=chunk, pad_from=pad_from,
+            structure=self.structure)
+
+    def _scatter(self, slot: int, L, ingest: str, *, chunk: int = 1,
+                 pad_from: int | None = None) -> None:
+        """Run the updater: the admission pipeline for one factor (or a
+        run of ``chunk``) written into the resident stacks in place.
+        The program is memoized on the bank per (ingest, width, chunk,
+        pad_from), so an update pays one dict probe, not an UpdateSpec
+        hash (the width is in the memo for append-only banks, whose
+        stacks grow)."""
+        from repro_torch.core import solver as solverlib
+        memo = (ingest, self.width, chunk, pad_from)
+        prog = self._updaters.get(memo)
+        if prog is None:
+            prog = solverlib.updater_for(
+                self.update_spec(ingest, chunk=chunk, pad_from=pad_from),
+                self.cache)
+            self._updaters[memo] = prog
+        prog.update(self.stacks(), slot, L)
+        self.updates_dispatched += 1
+
+    def place_factor(self, L) -> torch.Tensor:
+        """Put a natural-layout replacement factor on the bank's device,
+        so the ingestion copy is paid here and a following
+        :meth:`replace` / :meth:`admit` moves no host data — the
+        factor-side analogue of ``Solver.place_rhs``."""
+        return torch.as_tensor(L).to(self.grid.device)
 
     def replace(self, slot: int, L, *, pad_to: int | None = None) -> int:
-        raise NotImplementedError(_A7)
+        """Refresh live ``slot`` IN PLACE with a new natural-layout
+        (n, n) factor — on append-only banks too: the updater re-runs
+        the admission pipeline for this factor alone and copies every
+        role into the resident stacks.  No program is rebuilt, no
+        occupancy changes.  ``pad_to=n`` takes a smaller (d, d) factor
+        as :meth:`admit` does.  Returns the slot."""
+        L = torch.as_tensor(L)
+        pad_from = self._resolve_pad(L, pad_to)
+        self._check_square(L, 2, order=pad_from)
+        self._check_live(slot)
+        self._scatter(slot, L, "natural", pad_from=pad_from)
+        return slot
+
+    def replace_run(self, start: int, Ls, *, pad_to: int | None = None
+                    ) -> range:
+        """Refresh the CONTIGUOUS run of live slots ``start .. start +
+        u - 1`` with a (u, d, d) stack in ONE updater call
+        (``UpdateSpec.chunk = u``): one batched admission, one copy per
+        role.  Capacity banks only.  Returns the refreshed slots."""
+        if self.capacity is None:
+            raise ValueError(
+                "replace_run requires a capacity-allocated bank "
+                "(FactorBank(..., capacity=C))")
+        Ls = torch.as_tensor(Ls)
+        pad_from = self._resolve_pad(Ls, pad_to)
+        self._check_square(Ls, 3, order=pad_from)
+        u = int(Ls.shape[0])
+        if u < 1:
+            raise ValueError("replace_run needs at least one factor")
+        for slot in range(start, start + u):
+            self._check_live(slot)
+        if u == 1:
+            self._scatter(start, Ls[0], "natural", pad_from=pad_from)
+        else:
+            self._scatter(start, Ls, "natural", chunk=u, pad_from=pad_from)
+        return range(start, start + u)
+
+    def replace_cyclic(self, slot: int, L_cyc) -> int:
+        """:meth:`replace` for a factor already in cyclic storage: casts
+        (and phase 1) only.  Same restriction as :meth:`admit_cyclic`."""
+        self._check_cyclic_operator()
+        L_cyc = torch.as_tensor(L_cyc)
+        self._check_square(L_cyc, 2)
+        self._check_live(slot)
+        self._scatter(slot, L_cyc, "cyclic")
+        return slot
 
     def evict(self, slot: int) -> None:
-        raise NotImplementedError(_A7)
+        """Return live ``slot`` to the free list (capacity banks only).
+        Its stale data stays resident: a server gives its lane a zero
+        panel, the liveness vector gates it off the "rec" base cases,
+        and the next ``admit`` overwrites it in place."""
+        if self.capacity is None:
+            raise ValueError(
+                "evict requires a capacity-allocated bank "
+                "(FactorBank(..., capacity=C)); append-only banks have "
+                "no free slots")
+        self._check_live(slot)
+        self._live[slot] = False
+        self._gens[slot] += 1
+        self.valid.narrow(0, slot, 1).fill_(0)
+        bisect.insort(self._free, int(slot))
+        self._size -= 1
 
     # ------------------------------- storage -------------------------------
 
     def stacks(self) -> tuple:
         """The resident stacks — one (width, ...) tensor per role (sweep
         factor[, inverted diagonal blocks][, residual-dtype factor]).
-        Admitted chunks are fused on first use after an admission."""
+        A capacity bank returns its allocated stacks (even empty, so a
+        server can warm up before any factor exists); an append-only
+        bank fuses the chunks admitted since the last call."""
         if self._stacks is None and not self._chunks:
             raise ValueError("empty bank: admit factors before solving")
         if self._chunks:
@@ -210,3 +483,66 @@ class FactorBank:
                 for r in range(len(parts[0])))
             self._chunks = []
         return self._stacks
+
+    @property
+    def factors_cyclic(self) -> torch.Tensor:
+        """The storage-dtype (M, n, n) stacked cyclic factor."""
+        return self.stacks()[0]
+
+    @property
+    def factors_cyclic_residual(self) -> torch.Tensor | None:
+        """The residual-dtype (M, n, n) stacked copy (None unless the
+        policy refines)."""
+        return self.stacks()[-1] if self.policy.refines else None
+
+
+class BatchedTrsmSession:
+    """DEPRECATED multi-factor serving session: a thin shim over
+    :meth:`repro_torch.core.solver.Solver.from_bank`, kept for source
+    compatibility with the reference; results are the Solver's.
+
+        solver = repro_torch.api.Solver.from_bank(bank)
+        X = solver.solve(B_stack)
+    """
+
+    def __init__(self, bank: FactorBank):
+        from repro_torch.core import solver as solverlib
+        warnings.warn("BatchedTrsmSession is deprecated; use "
+                      "Solver.from_bank", DeprecationWarning, stacklevel=2)
+        self._solver = solverlib.Solver.from_bank(bank)
+
+    @property
+    def bank(self) -> FactorBank:
+        return self._solver.bank
+
+    @property
+    def n(self) -> int:
+        return self._solver.n
+
+    @property
+    def policy(self):
+        return self._solver.policy
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The I/O dtype (what ``solve`` returns)."""
+        return self._solver.dtype
+
+    def program_for(self, k: int):
+        return self._solver.program_for(k)
+
+    def place_rhs(self, B) -> torch.Tensor:
+        return self._solver.place_rhs(B)
+
+    def solve(self, B, *, donate: bool = True) -> torch.Tensor:
+        """Solve op(L_i) X_i = B_i for every slot: strictly the
+        (width, n, k) stack form."""
+        M = self.bank.width
+        if B.ndim != 3 or B.shape[0] != M or B.shape[1] != self.n:
+            raise ValueError(f"rhs stack must be ({M}, {self.n}, k), "
+                             f"got {tuple(B.shape)}")
+        return self._solver.solve(B, donate=donate)
+
+    def warmup(self, k: int) -> "BatchedTrsmSession":
+        self._solver.warmup(k)
+        return self

@@ -16,7 +16,11 @@ dtype, one launch per base case and n/n0 of them in sequence.  At
 p = 1 :func:`default_n0` is n: the whole solve is one base case.
 
 Every tensor carries a leading factor axis (the bank width M) where
-the reference maps one factor with ``vmap``.  The reference's
+the reference maps one factor with ``vmap``.  ``valid`` (a capacity
+bank's (M,) liveness vector, on the device) reaches every base case,
+which then runs the validity-gated kernel B6: an empty or evicted
+slot's lane solves to zeros without reading its factor.  ``None`` (an
+append-only bank, a one-shot solve) is B3 unchanged.  The reference's
 ``overlap`` prefetches each base case's L-gather; at p = 1 there is
 none to prefetch.
 """
@@ -33,7 +37,8 @@ from repro_torch.core.mm3d import mm3d_shard
 
 
 def _base_case(Lloc: torch.Tensor, Bloc: torch.Tensor, *, n0: int, k: int,
-               p1: int, p2: int, accum_dtype=None) -> torch.Tensor:
+               p1: int, p2: int, accum_dtype=None,
+               valid=None) -> torch.Tensor:
     """Solve an n0 x n0 subproblem by substitution (paper lines 5-9) at
     ``accum_dtype``: B is cast up, solved, and X cast back, as the
     reference does around ``solve_triangular``.  L keeps its storage
@@ -44,25 +49,26 @@ def _base_case(Lloc: torch.Tensor, Bloc: torch.Tensor, *, n0: int, k: int,
         raise NotImplementedError("the distributed base case (gather + "
                                   "all-to-all) is ROADMAP A12")
     acc = accum_dtype if accum_dtype is not None else Bloc.dtype
-    X = ops.trsm_substitution(Lloc, Bloc.to(acc), accum_dtype=acc)
+    X = ops.trsm_substitution(Lloc, Bloc.to(acc), accum_dtype=acc,
+                              valid=valid)
     return X.to(Bloc.dtype)
 
 
-def _rec(Lloc, Bloc, *, n, k, n0, p1, p2, accum_dtype=None):
+def _rec(Lloc, Bloc, *, n, k, n0, p1, p2, accum_dtype=None, valid=None):
     if n <= n0:
         return _base_case(Lloc, Bloc, n0=n, k=k, p1=p1, p2=p2,
-                          accum_dtype=accum_dtype)
+                          accum_dtype=accum_dtype, valid=valid)
     h = n // 2
     hl, hc = h // p1, h // (p1 * p2)
     L11 = Lloc[..., :hl, :hc]
     L21 = Lloc[..., hl:, :hc]
     L22 = Lloc[..., hl:, hc:]
     X1 = _rec(L11, Bloc[..., :hl, :], n=h, k=k, n0=n0, p1=p1, p2=p2,
-              accum_dtype=accum_dtype)
+              accum_dtype=accum_dtype, valid=valid)
     U = mm3d_shard(L21, X1, m=h, n=h, k=k, p1=p1, p2=p2,
                    accum_dtype=accum_dtype)
     X2 = _rec(L22, Bloc[..., hl:, :] - U, n=h, k=k, n0=n0, p1=p1, p2=p2,
-              accum_dtype=accum_dtype)
+              accum_dtype=accum_dtype, valid=valid)
     return torch.cat([X1, X2], dim=-2)
 
 
@@ -89,7 +95,8 @@ def rec_trsm_sharded(grid: TrsmGrid, n: int, k: int,
                      n0: int | None = None, accum_dtype=None):
     """Rec-TRSM for fixed shapes: ``(L, B) -> X`` over an (M, n, n)
     factor stack and (M, n, k) right-hand sides in cyclic storage (the
-    identity at p = 1).  ``accum_dtype``: precision of the MM updates
+    identity at p = 1), with an optional ``valid=`` liveness vector
+    for the base cases.  ``accum_dtype``: precision of the MM updates
     and of the base-case substitution (defaults to the operand
     dtype)."""
     n0 = n0 or default_n0(n, k, grid.p1, grid.p2)

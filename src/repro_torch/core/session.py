@@ -1,8 +1,10 @@
-"""Solve programs and the compiled-solver cache.
+"""Solve and update programs and the compiled-solver cache.
 
 * :class:`CompiledSolverCache` — an LRU of :class:`SolverProgram`s keyed
-  by :class:`repro_torch.core.solver.SolveSpec` (the frozen solve
-  description is the SOLE key type, DESIGN.md Sec. 10), with
+  by :class:`repro_torch.core.solver.SolveSpec` and of
+  :class:`UpdaterProgram`s keyed by
+  :class:`repro_torch.core.solver.UpdateSpec` (the two frozen
+  descriptions are the only key types, DESIGN.md Secs. 10-11), with
   single-flight builds.
 * :func:`_build_solver` builds the program for a spec: the B row gather
   (upper/transpose reversal folded in), the solve — the It-Inv sweep
@@ -16,6 +18,18 @@
   reference), and forms each refinement residual with the block-masked
   ``trmm`` kernel.  A structure that leaves out no block at the spec's
   n0 builds the dense program (:func:`structured_info`).
+* :func:`_build_updater` builds the in-place updater of a capacity bank
+  (DESIGN.md Sec. 11): one factor's (or a contiguous run's) admission
+  pipeline — gather with the operator reduction, policy casts,
+  structure mask, padding to ``blockdiag(L, I)``, phase 1 for "inv" —
+  written into the resident stacks.  The reference's donated scatter
+  is a ``copy_`` into ``stack[slot]`` (``stack.narrow(0, start, u)``
+  for a run): a Python-int view moves no data and uploads nothing, so
+  the device-resident slot ids the reference pins are not needed.
+* A "rec" program takes a capacity bank's liveness vector as an
+  operand (``valid=``), never as a constant captured at build time,
+  and hands it to every base case (kernel B6): occupancy changes
+  never rebuild a program.
 
 PyTorch runs eagerly, so a "program" is a Python function over device
 tensors; building it resolves every plan decision once, and its gather
@@ -68,15 +82,34 @@ class SolverProgram:
     the bank's job: ``FactorBank``).  A one-shot program works on one
     (n, k) right-hand side against ``prep(L_nat)``, its own admission
     of one (n, n) factor.  The solve works on its own copy of B, so the
-    caller's B is never written."""
+    caller's B is never written.  A banked program also takes
+    ``valid=``, a capacity bank's (M,) device liveness vector: "rec"
+    gates every base case with it (dead lanes solve to zeros), "inv"
+    has no use for it (an empty slot's zero Dt, or an evicted slot's
+    stale one against its zero panel, already gives zeros)."""
     key: object                  # the program's SolveSpec (cache key)
     solve: Callable
     prep: Callable | None = None
 
 
+@dataclasses.dataclass(frozen=True)
+class UpdaterProgram:
+    """The in-place bank updater for one
+    :class:`repro_torch.core.solver.UpdateSpec`:
+    ``update(stacks, slot, L)`` runs the admission pipeline on one
+    (n, n) factor — a (chunk, n, n) run when ``key.chunk > 1``, a
+    smaller (d, d) order when ``key.pad_from`` is set — and copies
+    every resident role (L_lo[, Dt][, L_hi]) into ``stacks`` at
+    ``slot`` (``slot .. slot + chunk - 1``), in place."""
+    key: object                  # the program's UpdateSpec (cache key)
+    update: Callable
+
+
 class CompiledSolverCache:
-    """LRU cache of :class:`SolverProgram`s, keyed by
-    :class:`repro_torch.core.solver.SolveSpec` — the sole key type.
+    """LRU cache of :class:`SolverProgram`s and
+    :class:`UpdaterProgram`s, keyed by
+    :class:`repro_torch.core.solver.SolveSpec` and
+    :class:`repro_torch.core.solver.UpdateSpec` — the only key types.
 
     Thread-safe.  Builds are single-flight per key: when two threads
     miss the same spec concurrently, exactly one runs ``build()`` and
@@ -93,10 +126,11 @@ class CompiledSolverCache:
         self.evictions = 0
 
     def get(self, key, build: Callable):
-        from repro_torch.core.solver import SolveSpec
-        if not isinstance(key, SolveSpec):
-            raise TypeError(f"CompiledSolverCache keys are SolveSpec "
-                            f"instances, got {type(key).__name__}")
+        from repro_torch.core.solver import SolveSpec, UpdateSpec
+        if not isinstance(key, (SolveSpec, UpdateSpec)):
+            raise TypeError(f"CompiledSolverCache keys are SolveSpec or "
+                            f"UpdateSpec instances, got "
+                            f"{type(key).__name__}")
         while True:
             with self._lock:
                 if key in self._entries:
@@ -209,6 +243,18 @@ def _factor_preps(grid: TrsmGrid, lower: bool, transpose: bool,
     return preps
 
 
+def _admission_preps(grid: TrsmGrid, n: int, n0: int | None, lower: bool,
+                     transpose: bool, policy: PrecisionPolicy,
+                     structure=None) -> tuple:
+    """A bank's natural-layout admission programs: ``_factor_preps``
+    with the structure enforced at the programs' block size — n0, or
+    for a "rec" bank with n0 unset the base case of every k, n at p = 1
+    (``rec_trsm.default_n0``), where the mask leaves out nothing."""
+    bs = n0 if n0 is not None else n
+    mask = (structure, bs) if structured_info(structure, n, bs) else ()
+    return _factor_preps(grid, lower, transpose, policy, *mask)
+
+
 @functools.lru_cache(maxsize=128)
 def _build_phase1(grid: TrsmGrid, n: int, n0: int, mode: str, accum,
                   block_inv):
@@ -283,10 +329,10 @@ def _build_solver(spec) -> SolverProgram:
         from repro_torch.core import rec_trsm
         rec = rec_trsm.rec_trsm_sharded(grid, n, k, n0, accum_dtype=accum)
 
-        def base_solve(L_lo, B):
+        def base_solve(L_lo, B, valid=None):
             B_cyc = gridlib.cyclic_matrix_device(
                 B.to(compute), p1, p1 * p2, reverse_rows=rev)
-            X_cyc = rec(L_lo, B_cyc)
+            X_cyc = rec(L_lo, B_cyc, valid=valid)
             return gridlib.cyclic_matrix_device(
                 X_cyc, p1, p1 * p2, inverse=True, reverse_rows=rev)
 
@@ -295,9 +341,12 @@ def _build_solver(spec) -> SolverProgram:
     else:
         raise ValueError(f"unknown method {spec.method!r}")
 
-    def program(factor, B):
+    def program(factor, B, valid=None):
         L_hi = factor[-1] if policy.refines else None
-        return refinelib.refined_solve(base_solve, sweep_factor(factor),
+        solve = base_solve
+        if valid is not None and spec.method == "rec":
+            solve = functools.partial(base_solve, valid=valid)
+        return refinelib.refined_solve(solve, sweep_factor(factor),
                                        L_hi, B, policy=policy, p1=p1,
                                        p2=p2, reverse=rev, **mask)
 
@@ -315,3 +364,57 @@ def _build_solver(spec) -> SolverProgram:
         return program(factor, B[None])[0]
 
     return SolverProgram(key=spec, solve=solve, prep=prep)
+
+
+def _pad_factor(L: torch.Tensor, n: int) -> torch.Tensor:
+    """``blockdiag(L, I)`` at order n for a (u, d, d) stack: the padded
+    tail rows are unit rows, so they solve to the (zero) padded RHS rows
+    exactly, and the zero coupling blocks leave the leading d x k block
+    of a solve as an unpadded order-d solve at the same n0 gives it."""
+    u, d = L.shape[0], L.shape[-1]
+    full = torch.zeros((u, n, n), dtype=L.dtype, device=L.device)
+    full[:, :d, :d] = L
+    full.diagonal(dim1=-2, dim2=-1)[:, d:] = 1
+    return full
+
+
+def _build_updater(uspec) -> UpdaterProgram:
+    """Build the in-place updater for a
+    :class:`repro_torch.core.solver.UpdateSpec` (which is also its cache
+    key and :data:`BUILD_COUNTS` key).  Natural ingestion runs the
+    admission gathers (operator reduction folded in, policy casts, the
+    structure's mask at the bank's n0); cyclic ingestion takes a
+    producer's cyclic-layout factor and only casts (at p = 1, lower and
+    not transposed, cyclic storage is the natural layout); "inv" then
+    inverts the diagonal blocks (phase 1, kernel B1)."""
+    grid, policy = uspec.grid, uspec.policy
+    if grid.device is None:
+        raise ValueError("a plan-only grid (plan_grid) cannot run an "
+                         "updater: build banks on make_trsm_mesh")
+    n, u = uspec.n, uspec.chunk
+    if uspec.ingest == "natural":
+        preps = _admission_preps(grid, n, uspec.n0, uspec.lower,
+                                 uspec.transpose, policy, uspec.structure)
+    else:
+        dts = (policy.storage,) + ((policy.residual,)
+                                   if policy.refines else ())
+        preps = tuple(functools.partial(torch.Tensor.to, dtype=dt)
+                      for dt in dts)
+    ph1 = None
+    if uspec.method == "inv":
+        ph1 = _build_phase1(grid, n, uspec.n0, uspec.mode,
+                            policy.accumulate, uspec.block_inv)
+
+    def update(stacks, slot: int, L):
+        L = torch.as_tensor(L).to(grid.device)
+        L = L.reshape((u,) + tuple(L.shape[-2:]))
+        if uspec.pad_from is not None:
+            L = _pad_factor(L, n)
+        parts = tuple(p(L) for p in preps)           # (L_lo[, L_hi])
+        if ph1 is not None:
+            parts = (parts[0], ph1(parts[0])) + parts[1:]
+        for stack, part in zip(stacks, parts):
+            stack.narrow(0, slot, u).copy_(part)
+
+    BUILD_COUNTS[uspec] += 1
+    return UpdaterProgram(key=uspec, update=update)

@@ -13,12 +13,16 @@
   a width-1 bank is the single-factor case.  After ``warmup`` the steady
   state is one cached program per RHS width that issues device work
   only.
+* :class:`UpdateSpec` — the frozen key of a capacity bank's in-place
+  updater (the second cache key type, DESIGN.md Sec. 11);
+  :func:`updater_for` fetches or builds it.
 * :class:`SolveServer` — continuous batching: per-factor request
   queues, first-fit packed fixed-width panels, one solve per wave
-  covering every factor, submit-order results.
+  covering every factor, submit-order results; on a capacity bank it
+  refuses inactive slots and strands requests whose slot was turned
+  over.
 
-Not ported yet: live bank mutation (ROADMAP A7), grids with p > 1
-(A12) and fleets (A11).
+Not ported yet: grids with p > 1 (ROADMAP A12) and fleets (A11).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core import errors as _errors
 from repro_torch.core import precision as preclib
 from repro_torch.core.bank import FactorBank
 from repro_torch.core.grid import TrsmGrid
@@ -260,6 +265,86 @@ class SolveSpec:
                    structure=structure, overlap=overlap).validate()
 
 
+@dataclasses.dataclass(frozen=True)
+class UpdateSpec:
+    """A frozen, hashable description of one in-place bank update
+    program — the second
+    :class:`~repro_torch.core.session.CompiledSolverCache` key type
+    (DESIGN.md Sec. 11).
+
+    Where a :class:`SolveSpec` keys the steady-state solve program, an
+    UpdateSpec keys the mutation program: the single-factor admission
+    pipeline (gather + policy casts + structure mask + phase 1) written
+    into the bank's resident (C, ...) stacks.  Every field that changes
+    the program is here: the factor order and plan, the policy, the
+    operator variant, the stack width C, the ingestion layout
+    (``"natural"`` runs the gather, ``"cyclic"`` takes a producer's
+    factor and only casts), ``chunk`` (a contiguous run of slots written
+    by one call) and ``pad_from`` (an incoming (d, d) factor embedded as
+    ``blockdiag(L, I)``, DESIGN.md Sec. 12).  ``overlap`` always
+    normalizes to None (admission has no sweep to pipeline), a dense
+    structure to None."""
+    n: int
+    grid: TrsmGrid
+    policy: PrecisionPolicy
+    method: str
+    n0: int | None
+    mode: str | None
+    lower: bool
+    transpose: bool
+    block_inv: Callable | None
+    bank_width: int              # C — the resident stack width
+    ingest: str = "natural"      # "natural" | "cyclic"
+    chunk: int = 1               # contiguous slots written per call
+    pad_from: int | None = None  # incoming factor order d (< n) or None
+    structure: FactorStructure | None = None
+    overlap: str | bool | None = None
+
+    def __post_init__(self):
+        if self.ingest not in ("natural", "cyclic"):
+            raise ValueError(f"unknown ingest {self.ingest!r}")
+        _normalize_overlap(self.overlap)       # validate the spelling
+        object.__setattr__(self, "overlap", None)
+        object.__setattr__(self, "structure",
+                           _normalize_structure(self.structure))
+        if self.structure is not None:
+            self.structure.validate_for(self.n, lower=self.lower,
+                                        transpose=self.transpose)
+            if self.ingest == "cyclic":
+                raise ValueError(
+                    "structured banks take natural ingestion only: the "
+                    "admission mask is applied in natural layout, "
+                    "before distribution")
+        if self.bank_width < 1:
+            raise ValueError(f"bank width must be >= 1, got "
+                             f"{self.bank_width}")
+        if not 1 <= self.chunk <= self.bank_width:
+            raise ValueError(f"chunk must be in [1, bank_width="
+                             f"{self.bank_width}], got {self.chunk}")
+        if self.pad_from is not None:
+            if not 1 <= self.pad_from < self.n:
+                raise ValueError(f"pad_from must be in [1, n={self.n}), "
+                                 f"got {self.pad_from}")
+            if self.ingest == "cyclic":
+                raise ValueError(
+                    "pad_from requires natural ingestion (a cyclic "
+                    "factor is already in the bucket-order storage "
+                    "layout; zero-pad before distribution instead)")
+
+
+def updater_for(uspec: UpdateSpec, cache=None):
+    """Fetch (or build) the in-place
+    :class:`~repro_torch.core.session.UpdaterProgram` for an update
+    spec — the spec IS the cache key (same LRU as the solve
+    programs)."""
+    from repro_torch.core import session
+    if not isinstance(uspec, UpdateSpec):
+        raise TypeError(f"updater_for takes an UpdateSpec, got "
+                        f"{type(uspec).__name__}")
+    cache = cache if cache is not None else session.default_cache()
+    return cache.get(uspec, lambda: session._build_updater(uspec))
+
+
 def solver_for(spec: SolveSpec, cache=None):
     """Fetch (or build) the :class:`~repro_torch.core.session.SolverProgram`
     for a concrete spec — the spec IS the cache key."""
@@ -346,10 +431,14 @@ class Solver:
                      dtype=None, precision=None, map_mode: str = "vmap",
                      k_hint: int | None = None, structure=None,
                      overlap: str | bool | None = "auto",
+                     capacity: int | None = None,
                      cache=None) -> "Solver":
         """A width-M solver over an (M, n, n) natural-layout stack,
         admitted in one batched admission.  ``method="auto"`` resolves
-        as in :meth:`from_factor`."""
+        as in :meth:`from_factor`.  ``capacity=C`` (>= M) makes the bank
+        live-mutable at width C: the programs are keyed on C, so later
+        ``replace_factor`` / ``evict_factor`` / ``admit_factor`` churn
+        never rebuilds one (DESIGN.md Sec. 11)."""
         _check_method(method, auto=True)
         Ls = torch.as_tensor(Ls)
         if dtype is not None:
@@ -368,8 +457,8 @@ class Solver:
                           dtype=None if precision is not None
                           else Ls.dtype,
                           precision=precision, map_mode=map_mode,
-                          structure=structure, overlap=overlap,
-                          cache=cache)
+                          capacity=capacity, structure=structure,
+                          overlap=overlap, cache=cache)
         bank.admit_stack(Ls)
         return cls(bank, cache=cache)
 
@@ -379,28 +468,47 @@ class Solver:
         return cls(bank, cache=cache)
 
     @classmethod
-    def from_spec(cls, spec: SolveSpec, factors, *, cache=None) -> "Solver":
+    def from_spec(cls, spec: SolveSpec, factors=None, *,
+                  capacity: int | None = None, cache=None) -> "Solver":
         """Spec-driven construction: build the admission bank from a
         spec's plan/execution fields and admit ``factors`` (one (n, n)
         factor or an (M, n, n) stack).  When the spec pins a
-        ``bank_width`` the admitted factor count must match it."""
+        ``bank_width`` the bank's width must match it: the spec is the
+        cache key.  ``capacity`` (defaulting to the spec's
+        ``bank_width`` when ``factors`` is omitted) allocates a
+        live-mutable bank at that width, to be filled by
+        ``admit_factor`` later — the declarative churn-serving entry
+        point."""
+        if spec.grid is None or spec.grid.device is None:
+            raise ValueError("spec has a plan-only grid; re-target it at "
+                             "a device grid (make_trsm_mesh) first")
         spec.validate()
+        if capacity is None and factors is None:
+            capacity = spec.bank_width
+        if capacity is not None and spec.bank_width is not None \
+                and capacity != spec.bank_width:
+            raise ValueError(
+                f"capacity={capacity} contradicts the spec's "
+                f"bank_width={spec.bank_width} (the spec is the cache "
+                f"key; the capacity IS the program's width)")
         bank = FactorBank(spec.grid, spec.n, method=spec.method,
                           n0=spec.n0, mode=spec.mode, lower=spec.lower,
                           transpose=spec.transpose,
                           block_inv=spec.block_inv, precision=spec.policy,
                           map_mode=spec.map_mode or "vmap",
-                          structure=spec.structure, overlap=spec.overlap,
-                          cache=cache)
-        factors = torch.as_tensor(factors)
-        if factors.ndim == 3:
-            bank.admit_stack(factors)
-        else:
-            bank.admit(factors)
+                          capacity=capacity, structure=spec.structure,
+                          overlap=spec.overlap, cache=cache)
+        if factors is not None:
+            factors = torch.as_tensor(factors)
+            if factors.ndim == 3:
+                bank.admit_stack(factors)
+            else:
+                bank.admit(factors)
         if spec.bank_width is not None and bank.width != spec.bank_width:
             raise ValueError(
                 f"spec pins bank_width={spec.bank_width} but "
-                f"{bank.size} factor(s) were admitted")
+                f"{bank.size} factor(s) were admitted; pass a matching "
+                f"stack (or a spec with bank_width=None)")
         return cls(bank, cache=cache)
 
     # ------------------------------ queries ------------------------------
@@ -411,8 +519,15 @@ class Solver:
 
     @property
     def width(self) -> int:
-        """The bank width the program is keyed on."""
+        """The bank width the program is keyed on: the capacity of a
+        capacity bank (free slots ride along as inert lanes), else the
+        live factor count."""
         return self.bank.width
+
+    @property
+    def occupancy(self) -> int:
+        """The number of LIVE resident factors (<= width)."""
+        return self.bank.size
 
     @property
     def grid(self) -> TrsmGrid:
@@ -439,6 +554,7 @@ class Solver:
         return self.bank.n0
 
     def live_slots(self) -> tuple:
+        """The live bank slots, ascending."""
         return self.bank.live_slots()
 
     def spec_for(self, k: int) -> SolveSpec:
@@ -498,17 +614,38 @@ class Solver:
         B, so it changes nothing."""
         B, squeeze = self._lift(torch.as_tensor(B,
                                                 device=self.grid.device))
-        X = self.program_for(B.shape[-1]).solve(self.bank.stacks(), B)
+        X = self.program_for(B.shape[-1]).solve(self.bank.stacks(), B,
+                                                valid=self.bank.valid)
         return X[0] if squeeze else X
 
     def warmup(self, k: int) -> "Solver":
         """Build (and run once on zeros) the program for RHS width k at
         the current bank width — its first run builds the kernels and
         uploads the gather indices — so the first real request is served
-        at steady-state cost."""
+        at steady-state cost.  A capacity bank can warm up EMPTY: its
+        program is keyed on the capacity, so it is the one every later
+        occupancy serves."""
         self.solve(torch.zeros((self.width, self.n, k), dtype=self.dtype,
                                device=self.grid.device))
         return self
+
+    # ------------------------- live bank mutation -------------------------
+
+    def admit_factor(self, L) -> int:
+        """Admit one natural-layout (n, n) factor; returns its slot.  On
+        a capacity bank this fills (and re-uses) free slots in place —
+        the program does not change."""
+        return self.bank.admit(L)
+
+    def replace_factor(self, slot: int, L) -> int:
+        """Refresh live ``slot`` in place through the bank's updater —
+        no program is rebuilt (DESIGN.md Sec. 11)."""
+        return self.bank.replace(slot, L)
+
+    def evict_factor(self, slot: int) -> None:
+        """Free live ``slot`` (capacity banks); its lane goes inert until
+        the next ``admit_factor`` re-uses it."""
+        self.bank.evict(slot)
 
 
 # ------------------------------ SolveServer ------------------------------
@@ -548,14 +685,20 @@ class SolveServer:
         server.submit(b)
         X, = server.drain()[0]
 
-    Append-only banks never turn a slot over, so no request can be
-    stranded by an eviction here."""
+    On a capacity bank, submits to an inactive (evicted or never
+    admitted) slot are refused, and a request whose slot was turned over
+    (evicted, even if re-admitted since) after its submit fails at
+    ``drain`` with :class:`~repro_torch.core.errors.StrandedRequestError`
+    (``cancel`` drops such requests).  Fleet routing is ROADMAP A11."""
 
     def __init__(self, solver: Solver, panel_k: int):
         self.solver = solver
         self.panel_k = panel_k
         self._queues: dict[int, collections.deque] = {}
         self._seq = 0
+        # slot generation at submit, per request: liveness alone cannot
+        # tell a request from before an evict + re-admit
+        self._req_gen: dict[int, int] = {}
         self._filler = None          # cached (n, panel_k) zeros
         self.requests_served = 0
         self.waves_solved = 0
@@ -576,10 +719,17 @@ class SolveServer:
 
     def submit(self, b, factor: int = 0) -> None:
         """Enqueue one RHS block — an (n,) vector or (n, j) columns —
-        for bank factor ``factor``; it is copied to the device here."""
+        for bank factor ``factor``; it is copied to the device here.
+        Submits to an inactive capacity slot are refused: its lane is an
+        inert zero panel."""
         if not 0 <= factor < self.solver.width:
             raise ValueError(f"unknown factor {factor}; bank holds "
                              f"{self.solver.width}")
+        bank = self.solver.bank
+        if not bank.is_live(factor):
+            raise ValueError(f"inactive slot {factor}: evicted or never "
+                             f"admitted (live slots: "
+                             f"{list(self.solver.live_slots())})")
         b = torch.as_tensor(b).to(self.solver.grid.device,
                                   self.solver.dtype)
         if b.ndim == 1:
@@ -592,10 +742,22 @@ class SolveServer:
                              f"{self.panel_k}")
         self._queues.setdefault(factor, collections.deque()).append(
             (self._seq, b))
+        self._req_gen[self._seq] = bank.slot_generation(factor)
         self._seq += 1
 
     def pending(self) -> int:
         return sum(len(q) for q in self._queues.values())
+
+    def cancel(self, factor: int) -> int:
+        """Drop every queued request for ``factor``; returns how many.
+        The recovery path when a slot was evicted with requests pending:
+        cancel it, then ``drain`` serves the rest."""
+        q = self._queues.pop(factor, None)
+        if not q:
+            return 0
+        for seq, _ in q:
+            self._req_gen.pop(seq, None)
+        return len(q)
 
     def _zeros(self) -> torch.Tensor:
         """The all-zero (n, panel_k) panel that idle factors ride along
@@ -638,15 +800,32 @@ class SolveServer:
 
     def drain(self) -> dict:
         """Serve all queued requests.  Returns {factor: [X, ...]} for
-        every bank slot (empty list if none were queued), each factor's
-        solutions in its own submit order."""
-        results: dict[int, dict] = {f: {} for f in
-                                    self.solver.live_slots()}
+        every LIVE bank slot (empty list if none were queued; inactive
+        capacity slots ride along as the zero panel and are left out),
+        each factor's solutions in its own submit order.  Requests whose
+        slot was evicted after their submit raise
+        :class:`~repro_torch.core.errors.StrandedRequestError`, even if
+        the slot was re-admitted since: they would be solved against
+        its new occupant."""
+        bank = self.solver.bank
+        live = self.solver.live_slots()
+        live_set = set(live)
+        dead = sorted(f for f, q in self._queues.items() if q and (
+            f not in live_set
+            or any(self._req_gen[seq] != bank.slot_generation(f)
+                   for seq, _ in q)))
+        if dead:
+            raise _errors.StrandedRequestError(
+                f"pending requests for slot(s) {dead} evicted after "
+                f"submission; drain before evicting a slot, or "
+                f"cancel(factor) to drop the stranded requests")
+        results: dict[int, dict] = {f: {} for f in live}
         while self.pending():
             waves = {f: _pack_wave(q, self.panel_k)
                      for f, q in self._queues.items() if q}
             for f, xs in self._solve_wave(waves).items():
                 for seq, x in xs:
                     results[f][seq] = x
+                    self._req_gen.pop(seq, None)
         return {f: [res[s] for s in sorted(res)]
                 for f, res in results.items()}

@@ -1,8 +1,9 @@
 """Public wrappers for the hand-written kernels.
 
 ``trmm`` (with ``block_mask=``, the masked kernel ``trmm_masked``),
-``tri_inv_blocks`` and ``trsm_substitution`` run the CUDA kernel on a
-CUDA tensor and the kernel's plain PyTorch version on a CPU tensor.
+``tri_inv_blocks`` and ``trsm_substitution`` (with ``valid=``, the
+validity-gated kernel B6) run the CUDA kernel on a CUDA tensor and the
+kernel's plain PyTorch version on a CPU tensor.
 ``block_inv_kernel`` is the drop-in hook for the solvers' ``block_inv=``
 parameter, and the port's default diagonal-block inverter.
 """

@@ -18,6 +18,13 @@ on CPU tensors.  The kernel carries X at the accumulate dtype (B must
 have it) and takes L as float32, float64, or bfloat16 widened on load
 to a float32 accumulation; bf16 to fp32 is exact, so the plain version
 widens L the same way and the values match.
+
+``valid=`` (an (m,) mask, kernel B6: the counterpart of the reference's
+``_trsm_valid_kernel``) gates each system of the stack: one flagged 0
+gets X = 0 and its L and B are never read, so a zero-filled or stale
+factor of an empty or evicted bank slot cannot divide by zero.  The
+kernel reads the mask on the device; its launches are counted apart
+(``trsm_substitution.valid_launches``) from B3's (``.launches``).
 """
 
 from __future__ import annotations
@@ -42,11 +49,21 @@ def _acc(dtype: torch.dtype) -> torch.dtype:
 
 
 def trsm_substitution_plain(L: torch.Tensor, B: torch.Tensor,
-                            accum_dtype=None) -> torch.Tensor:
+                            accum_dtype=None, valid=None) -> torch.Tensor:
     """X with tril(L) X = B by the row recurrence, for L (..., n0, n0)
     and B (..., n0, k): dots and subtractions at ``accum_dtype``
-    (default fp32, fp64 for fp64 B), X in B's dtype."""
+    (default fp32, fp64 for fp64 B), X in B's dtype.  ``valid`` (an (m,)
+    mask over a stack (m, n0, n0)) zeroes the X of every system flagged
+    0; such a system is solved against the identity, so nothing of its
+    L or B enters an operation."""
     acc = accum_dtype if accum_dtype is not None else _acc(B.dtype)
+    if valid is not None:
+        v = torch.as_tensor(valid, device=L.device).reshape(-1, 1, 1) != 0
+        eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+        X = trsm_substitution_plain(torch.where(v, L, eye),
+                                    torch.where(v, B, torch.zeros_like(B)),
+                                    acc)
+        return torch.where(v, X, torch.zeros_like(X))
     X = torch.zeros_like(B)
     for r in range(L.shape[-1]):
         d = (L[..., r:r + 1, :r].to(acc) @ X[..., :r, :].to(acc))[..., 0, :]
@@ -56,10 +73,11 @@ def trsm_substitution_plain(L: torch.Tensor, B: torch.Tensor,
 
 
 @functools.cache
-def _entry(suffix: str):
-    fn = getattr(build.library("trsm_block"), f"repro_trsm_{suffix}")
+def _entry(suffix: str, gated: bool = False):
+    name = f"repro_trsm_valid_{suffix}" if gated else f"repro_trsm_{suffix}"
+    fn = getattr(build.library("trsm_block"), name)
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [P, LL, LL, P, LL, LL, P, P, LL, I, I, P]
+    fn.argtypes = [P, LL, LL, P, LL, LL, P, P, LL, I, I] + [P] * (1 + gated)
     fn.restype = I
     return fn
 
@@ -87,11 +105,8 @@ def trsm_substitution(L: torch.Tensor, B: torch.Tensor, *,
     """Solve tril(L) X = B for L (n0, n0) and B (n0, k), or batches
     (m, n0, n0) and (m, n0, k).  Rows of L and B may be strided (the
     recursion passes quadrant views of a resident factor); columns must
-    be contiguous.  ``valid`` (the gated variant, kernel B6) is not
-    ported: ROADMAP B5."""
-    if valid is not None:
-        raise NotImplementedError("trsm_substitution(valid=) is the gated "
-                                  "kernel B6, ROADMAP B5")
+    be contiguous.  ``valid``: an (m,) mask on L's device (kernel B6);
+    a system flagged 0 gets X = 0 and its L and B are never read."""
     squeeze = L.ndim == 2
     if squeeze:
         L, B = L[None], B[None]
@@ -99,9 +114,16 @@ def trsm_substitution(L: torch.Tensor, B: torch.Tensor, *,
             or B.shape[:2] != L.shape[:2]:
         raise ValueError(f"trsm_substitution takes (m, n0, n0) and (m, n0, "
                          f"k), got {tuple(L.shape)} and {tuple(B.shape)}")
+    if valid is not None:
+        valid = torch.as_tensor(valid)
+        if valid.shape != (L.shape[0],):
+            raise ValueError(f"valid must be ({L.shape[0]},), one flag per "
+                             f"system, got {tuple(valid.shape)}")
+        if valid.device != L.device:
+            raise ValueError(f"valid on {valid.device}, L on {L.device}")
     acc = accum_dtype if accum_dtype is not None else _acc(B.dtype)
     if L.device.type == "cpu" and B.device.type == "cpu":
-        X = trsm_substitution_plain(L, B, acc)
+        X = trsm_substitution_plain(L, B, acc, valid)
         return X[0] if squeeze else X
     suffix = _check(L, B, acc)
     if L.device.type != "cuda":
@@ -113,15 +135,24 @@ def trsm_substitution(L: torch.Tensor, B: torch.Tensor, *,
         R = ROWS[B.dtype]
         blocks = m * -(-k // KT) * -(-n0 // R)   # CTAs: one flag each
         flags = torch.zeros(1 + blocks, dtype=torch.int32, device=B.device)
-        with torch.cuda.device(L.device):
-            status = _entry(suffix)(
-                L.data_ptr(), L.stride(0), L.stride(1),
+        args = (L.data_ptr(), L.stride(0), L.stride(1),
                 B.data_ptr(), B.stride(0), B.stride(1),
-                X.data_ptr(), flags.data_ptr(), m, n0, k,
-                torch.cuda.current_stream(L.device).cuda_stream)
+                X.data_ptr(), flags.data_ptr(), m, n0, k)
+        gated = valid is not None
+        if gated:
+            # a device-side cast: the mask is never read on the host
+            valid = valid.to(torch.int32).contiguous()
+            args += (valid.data_ptr(),)
+        with torch.cuda.device(L.device):
+            status = _entry(suffix, gated)(
+                *args, torch.cuda.current_stream(L.device).cuda_stream)
         build.check(status, "trsm_substitution")
-        trsm_substitution.launches += 1
+        if gated:
+            trsm_substitution.valid_launches += 1
+        else:
+            trsm_substitution.launches += 1
     return X[0] if squeeze else X
 
 
 trsm_substitution.launches = 0
+trsm_substitution.valid_launches = 0

@@ -417,3 +417,157 @@ def test_full_mask_block_sparse_is_dense_on_the_card(cuda, method):
     torch.cuda.synchronize()
     assert torch.equal(Xd, Xf)
     assert trmm.trmm_masked.launches == masked
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k,ldtype,dtype,strided", [
+    (4, 200, 40, torch.float32, torch.float32, False),
+    (5, 100, 7, torch.float64, torch.float64, False),
+    (4, 512, 16, torch.bfloat16, torch.float32, False),
+    (6, 256, 16, torch.float32, torch.float32, True),
+    (3, 130, 21, torch.float32, torch.float32, True)])
+def test_trsm_valid_kernel_matches_plain(cuda, m, n, k, ldtype, dtype,
+                                         strided):
+    """B6 against its plain version, ragged n and k and quadrant views of
+    a larger stack among them: the valid systems within B3's tolerance,
+    the invalid ones exact zeros; NaN planted in every invalid system's
+    L (its diagonal zeroed) and B changes no bit; an all-ones mask is
+    B3 bit for bit.  The gated launches are counted apart from B3's."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    big = 2 * n if strided else n
+    L, B = _system(g, cuda, m, big, k, dtype, ldtype)
+    L, B = L[:, big - n:, big - n:], B[:, big - n:]
+    v = torch.tensor([(z * 7 + 3) % 3 != 0 for z in range(m)],
+                     dtype=torch.int32, device=cuda)
+    live = v.bool()
+    assert 0 < int(v.sum()) < m
+    b3, b6 = (trsm_block.trsm_substitution.launches,
+              trsm_block.trsm_substitution.valid_launches)
+    got = trsm_block.trsm_substitution(L, B, valid=v)
+    assert (trsm_block.trsm_substitution.launches,
+            trsm_block.trsm_substitution.valid_launches) == (b3, b6 + 1)
+    want = trsm_block.trsm_substitution_plain(L, B, valid=v)
+    torch.cuda.synchronize()
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    scale = want.double().abs().max().item()
+    assert (got.double() - want.double()).abs().max().item() <= tol * scale
+    assert not got[~live].any()
+    Lp = L.clone()
+    Lp[~live] = float("nan")
+    Lp.diagonal(dim1=-2, dim2=-1)[~live] = 0
+    Bp = torch.where(live[:, None, None], B, torch.full_like(B, float("nan")))
+    assert torch.equal(trsm_block.trsm_substitution(Lp, Bp, valid=v), got)
+    assert torch.equal(
+        trsm_block.trsm_substitution(L, B, valid=torch.ones_like(v)),
+        trsm_block.trsm_substitution(L, B))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["inv", "rec"])
+def test_capacity_churn_on_the_card(cuda, method):
+    """A C = 4 capacity bank served through churn: warmed up empty (all
+    zeros), half filled, then waves with a replace (a placed factor), an
+    evict and a re-admit between them, all under sync-debug mode
+    "error"; BUILD_COUNTS stay put, every live lane's relres is within
+    1e-5 of its current factor, dead lanes are zero, and a "rec" bank's
+    base cases run B6 only."""
+    from repro_torch import api
+    from repro_torch.core import session
+    n, C, k = 512, 4, 16
+    g = torch.Generator(device=cuda).manual_seed(12)
+
+    def fresh():
+        L = torch.randn((n, n), generator=g, device=cuda).tril_()
+        L.diagonal().add_(n)
+        return L
+
+    spec = api.SolveSpec.auto(n, k, grid=api.make_trsm_mesh(1, 1),
+                              method=method, n0=128,
+                              precision="bf16_refine", bank_width=C)
+    solver = api.Solver.from_spec(spec, capacity=C)
+    X = solver.warmup(k).solve(torch.randn((C, n, k), generator=g,
+                                           device=cuda))
+    torch.cuda.synchronize()
+    assert torch.isfinite(X).all() and not X.any()
+    factors = {}
+    for _ in range(C // 2):
+        L = fresh()
+        factors[solver.admit_factor(L)] = L
+    uspec = solver.bank.update_spec()
+    builds = (session.BUILD_COUNTS[spec], session.BUILD_COUNTS[uspec])
+    Lnew, Lre = fresh(), fresh()
+    placed = solver.bank.place_factor(Lnew.cpu())
+    Bs = [torch.randn((C, n, k), generator=g, device=cuda)
+          for _ in range(3)]
+    b3, b6 = (trsm_block.trsm_substitution.launches,
+              trsm_block.trsm_substitution.valid_launches)
+    outs = []
+
+    def record(B):
+        outs.append((solver.solve(B), B, dict(factors)))
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        record(Bs[0])
+        solver.replace_factor(0, placed)
+        factors[0] = Lnew
+        record(Bs[1])
+        solver.evict_factor(1)
+        del factors[1]
+        record(Bs[2])
+        assert solver.admit_factor(Lre) == 1
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    factors[1] = Lre
+    record(Bs[0])
+    torch.cuda.synchronize()
+    assert (session.BUILD_COUNTS[spec],
+            session.BUILD_COUNTS[uspec]) == builds
+    for X, B, live in outs:
+        for s in range(C):
+            if s in live:
+                r = torch.linalg.norm(live[s].double() @ X[s].double()
+                                      - B[s].double()) \
+                    / torch.linalg.norm(B[s].double())
+                assert r.item() <= 1e-5, (s, r.item())
+            elif method == "rec" or s >= C // 2:
+                # B6 gates an evicted lane off; an empty "inv" lane
+                # sweeps its zero Dt
+                assert not X[s].any(), s
+    passes = solver.policy.refine_steps + 1
+    if method == "rec":
+        assert trsm_block.trsm_substitution.launches == b3
+        assert trsm_block.trsm_substitution.valid_launches - b6 \
+            == len(outs) * (n // 128) * passes
+    else:
+        assert trsm_block.trsm_substitution.valid_launches == b6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["inv", "rec"])
+def test_padded_admission_on_the_card(cuda, method):
+    """pad_to=n admits an order-d factor as blockdiag(L, I): the tail
+    solves to exact zeros, and the leading block equals an unpadded
+    order-d bank's of the same width (4) bit for bit.  (At width 1 the
+    cuBLAS GEMMs of the two orders differ in the last bits: ROADMAP C.)"""
+    from repro_torch import api
+    n, d, C, k = 1024, 512, 4, 16
+    g = torch.Generator(device=cuda).manual_seed(13)
+    T = torch.randn((d, d), generator=g, device=cuda).tril_()
+    T.diagonal().add_(d)
+    grid = api.make_trsm_mesh(1, 1)
+    kw = dict(method=method, n0=256 if method == "inv" else None,
+              precision="bf16_refine", capacity=C)
+    big, small = api.FactorBank(grid, n, **kw), api.FactorBank(grid, d, **kw)
+    assert big.admit(T, pad_to=n) == 0 and small.admit(T) == 0
+    B = torch.randn((d, k), generator=g, device=cuda)
+    Bb = torch.zeros((C, n, k), device=cuda)
+    Bb[0, :d] = B
+    Bs = torch.zeros((C, d, k), device=cuda)
+    Bs[0] = B
+    Xb = api.Solver.from_bank(big).solve(Bb)
+    Xs = api.Solver.from_bank(small).solve(Bs)
+    torch.cuda.synchronize()
+    assert torch.equal(Xb[0, :d], Xs[0])
+    assert not Xb[:, d:].any()

@@ -114,13 +114,20 @@ def test_trsm_substitution_never_reads_the_upper_triangle():
 
 def test_trsm_substitution_scope_and_no_fallback():
     L = torch.eye(8)
-    with pytest.raises(NotImplementedError, match="B5"):
-        ops.trsm_substitution(L, torch.ones(8, 2), valid=torch.ones(1))
+    # the gated variant (B6) is ported: on the CPU it is the plain
+    # version, one flag per system
+    X = ops.trsm_substitution(L, torch.ones(8, 2), valid=torch.ones(1))
+    assert torch.equal(X, torch.ones(8, 2))
+    with pytest.raises(ValueError, match="one flag per system"):
+        ops.trsm_substitution(L, torch.ones(8, 2), valid=torch.ones(2))
     # neither CPU nor CUDA: the wrapper raises, it does not run the
-    # plain version
+    # plain version, gated or not
     with pytest.raises(ValueError, match="CUDA or CPU"):
         ops.trsm_substitution(L.to("meta"), torch.ones(8, 2,
                                                        device="meta"))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        ops.trsm_substitution(L.to("meta"), torch.ones(8, 2, device="meta"),
+                              valid=torch.ones(1, device="meta"))
     with pytest.raises(TypeError):
         trsm_block._check(L.to("meta", torch.float64),
                           torch.ones(8, 2, device="meta"), torch.float32)

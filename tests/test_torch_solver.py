@@ -165,19 +165,23 @@ def test_width_m_solver_and_spec_front_door():
 
 def test_scope_of_the_slice_is_explicit():
     L, _ = _factor(16)
-    with pytest.raises(NotImplementedError, match="A7"):
-        api.FactorBank(CPU, 16, capacity=4)
+    # capacity banks are ported (tests/test_torch_bank.py)
+    assert api.FactorBank(CPU, 16, capacity=4).width == 4
     # "rec" banks are ported; "auto" depends on k, so a bank takes only
     # "inv" or "rec", as in the reference
     assert api.FactorBank(CPU, 16, method="rec").n0 is None
     with pytest.raises(ValueError, match="auto"):
         api.FactorBank(CPU, 16, method="auto")
+    # an append-only bank has no slot lifecycle and no padding, as in
+    # the reference; an empty one has no slot to replace
     bank = api.FactorBank(CPU, 16, n0=4)
-    for call in (lambda: bank.replace(0, L), lambda: bank.evict(0),
-                 lambda: bank.admit_cyclic(L), lambda: bank.admit(L,
-                                                                 pad_to=16)):
-        with pytest.raises(NotImplementedError, match="A7"):
+    for call, match in ((lambda: bank.replace(0, L), "out of range"),
+                        (lambda: bank.evict(0), "capacity-allocated"),
+                        (lambda: bank.admit(L, pad_to=16),
+                         "capacity-allocated")):
+        with pytest.raises(ValueError, match=match):
             call()
+    assert bank.admit_cyclic(L) == 0
     with pytest.raises(NotImplementedError, match="A12"):
         api.make_trsm_mesh(1, 2, device="cpu")
 

@@ -326,9 +326,8 @@ def test_structured_bank_rejects_cyclic_and_other_operators():
         with pytest.raises(ValueError, match="lower=True"):
             api.SolveSpec(n=32, k=4, grid=CPU, policy=api.PRESETS["fp32"],
                           n0=8, structure=st, **kw).validate()
-    # an unstructured bank's cyclic ingestion is still capacity work
-    with pytest.raises(NotImplementedError, match="A7"):
-        api.FactorBank(CPU, 32, n0=8).admit_cyclic(L)
+    # an unstructured bank's cyclic ingestion is ported (capacity banks)
+    assert api.FactorBank(CPU, 32, n0=8).admit_cyclic(L) == 0
 
 
 def test_level_scheduled_sweep_runs_only_the_kept_updates(monkeypatch):
