@@ -1,14 +1,26 @@
 #!/usr/bin/env python3
-"""Compare the SASS of the ungated ``trsm_chain_kernel`` instantiations
-(kernel B3) in ``src/repro_torch/kernels/csrc/trsm_block.cu`` with the
-same instantiations of an earlier version of that file, compiled with
-the flags of ``kernels/build.py``.  Needs nvcc and cuobjdump.
+"""Compare the SASS of the hand-written kernels in
+``src/repro_torch/kernels/csrc/`` with the same kernels of an earlier
+version of those sources, compiled with the flags of
+``kernels/build.py``.  Needs nvcc and cuobjdump.
 
-    git show <rev>:src/repro_torch/kernels/csrc/trsm_block.cu > old.cu
-    python3 chip_probes/sass_ungated.py old.cu
+    mkdir -p build/old_csrc
+    for f in tri_gemm.cuh tri_inv_block.cu trmm.cu trsm_block.cu; do
+        git show <rev>:src/repro_torch/kernels/csrc/$f > build/old_csrc/$f
+    done
+    python3 chip_probes/sass_ungated.py build/old_csrc
 
-Prints one line per instantiation and ``SASS_UNGATED_IDENTICAL True``
-when every ungated one is instruction for instruction the old one's.
+Every ``*.cu`` found in both directories is compiled twice.  A kernel
+is matched with the old kernel of the same mangled name; where there is
+none and its last template argument is a bool followed by a trailing
+``const int*`` parameter (a validity gate added since: B5's
+``tri_inv_leaf_kernel`` and ``tri_gemm_kernel``, B6's
+``trsm_chain_kernel``), the instantiation with the flag 0 is matched
+with the old kernel without that argument and parameter, and the one
+with the flag 1 is listed as gated.  Prints one line per kernel and
+``SASS_UNGATED_IDENTICAL True`` when every ungated kernel is, instruction
+for instruction, the old one.  The path hash in the mangled name of a
+kernel in an anonymous namespace is left out of the match.
 """
 
 import pathlib
@@ -18,13 +30,17 @@ import sys
 import tempfile
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+CSRC = ROOT / "src/repro_torch/kernels/csrc"
 CUDA = pathlib.Path("/usr/local/cuda/bin")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-cubin"]
+GATE = re.compile(r"^(.*)Lb([01])E(EEv.*)PKi$")
+# a kernel in an anonymous namespace carries a hash of its file's path
+ANON = re.compile(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+")
 
 
 def sass(src: pathlib.Path, out: pathlib.Path) -> dict:
-    """{kernel name: [instruction, ...]} of one source's cubin."""
+    """{mangled kernel name: [instruction, ...]} of one source's cubin."""
     subprocess.run([str(CUDA / "nvcc"), *FLAGS, "-o", str(out), str(src)],
                    check=True)
     text = subprocess.run([str(CUDA / "cuobjdump"), "-sass", str(out)],
@@ -33,7 +49,7 @@ def sass(src: pathlib.Path, out: pathlib.Path) -> dict:
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            cur = funcs.setdefault(m.group(1), [])
+            cur = funcs.setdefault(ANON.sub("ANON", m.group(1)), [])
             continue
         m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
         if m and cur is not None:
@@ -41,29 +57,30 @@ def sass(src: pathlib.Path, out: pathlib.Path) -> dict:
     return funcs
 
 
-def template_args(name: str) -> str:
-    m = re.search(r"trsm_chain_kernelI(.*?)EEEv", name)
-    return m.group(1) if m else name
-
-
 def main() -> int:
-    old_src = pathlib.Path(sys.argv[1])
+    old_dir = pathlib.Path(sys.argv[1])
+    same_all, compared = True, 0
     with tempfile.TemporaryDirectory() as tmp:
-        old = {template_args(k): v for k, v in
-               sass(old_src, pathlib.Path(tmp) / "old.cubin").items()}
-        new = sass(ROOT / "src/repro_torch/kernels/csrc/trsm_block.cu",
-                   pathlib.Path(tmp) / "new.cubin")
-    same_all = True
-    for name, body in new.items():
-        args = template_args(name)
-        if args.endswith("ELb1"):
-            print("gated", args, len(body), "instructions")
-            continue
-        base = args.removesuffix("ELb0")
-        same = old.get(base) == body
-        same_all &= same
-        print("ungated", args, "vs", base, len(body),
-              len(old.get(base, [])), "SAME" if same else "DIFFERENT")
+        for src in sorted(CSRC.glob("*.cu")):
+            if not (old_dir / src.name).exists():
+                continue
+            old = sass(old_dir / src.name,
+                       pathlib.Path(tmp) / f"old_{src.stem}.cubin")
+            new = sass(src, pathlib.Path(tmp) / f"new_{src.stem}.cubin")
+            for name, body in sorted(new.items()):
+                base, m = name, GATE.match(name)
+                if name not in old and m:
+                    if m.group(2) == "1":
+                        print(src.name, "gated", name, len(body),
+                              "instructions")
+                        continue
+                    base = m.group(1) + m.group(3)
+                same = old.get(base) == body
+                same_all &= same
+                compared += 1
+                print(src.name, "ungated", name, "vs", base, len(body),
+                      len(old.get(base, [])), "SAME" if same else "DIFFERENT")
+    same_all &= compared > 0
     print("SASS_UNGATED_IDENTICAL", same_all)
     return 0 if same_all else 1
 

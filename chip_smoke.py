@@ -29,7 +29,12 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    runs at a capacity bank's rec base case (16, 8192, 8192) x 16 with
    half its mask zero, on strided quadrant views and in fp64, each also
    with NaN planted in its invalid systems and with an all-ones mask
-   held bit for bit against B3.
+   held bit for bit against B3.  The validity-gated inversion (B5,
+   ``valid_inv_phase``) runs at a padded admission's phase 1 into the
+   order-8192 bucket, (2, 4096, 4096) fp32 with the identity tail's
+   block flagged, and at (16, 256, 256) fp32 and (4, 2048, 2048) fp64,
+   each also with NaN in its flagged blocks and with an all-ones mask
+   held bit for bit against B1.
 3. The slice at full size: a factor of order n = 8192 (the Kronecker
    factor of an 8192-wide layer, the hidden width of 70B-class models),
    L = tril(randn) + n I from seed 0, served through
@@ -76,11 +81,29 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    host sync around a replace, exact launches (a rec bank's base cases
    on B6 only), ms per wave, per update and per admission, and a
    profiler window of 10 steady waves.
-9. The card line, the kernels' JSON summary, then the last line
+9. The mixed-order fleet (``fleet_phase``): the reference CLI's
+   trsm-fleet configuration at n = 8192 (two tenants, orders 8192, 4096
+   and 2048, 2 factors per order each, bf16_refine), planned under the
+   H100 preset (the plan is printed, with whether it is the expected
+   8192 bucket holding 8192 and 4096 beside a 2048 bucket), admitted
+   (the order-4096 factors padded, phase 1 on B5) and served through a
+   fleet-mode SolveServer on the CLI's schedule: 192 requests in 24
+   waves, a replace after each, a tenant-c burst reclaiming the coldest
+   slot every third; a placed replace and its waves under sync-debug
+   mode "error"; 10 profiled waves; one live migration onto the plan at
+   dispatch_s = 1e-4 (one bucket of capacity 12, rebuilt, every
+   resident re-admitted) and 4 more waves.  relres per request <= 1e-5,
+   padded tails zero, a stale handle refused, no build but the rebuilt
+   bucket's, a padded slot's Dt equal to B1's, B5 once per padded
+   phase-1 run; ms per fleet wave, device ms per wave, ms per padded
+   and unpadded admission, per replace, for the migration, the fleet's
+   stats table, and the host time of one bucket-wave dispatch beside
+   the planner's nominal 50 us.
+10. The card line, the kernels' JSON summary, then the last line
    ``{"ok": true, "device": {...}}``.  Each kernel's launches are those
    of its main path's run: B1 and B2 the inv configuration at the
    default n0, B3 the rec one, B4 the first structured one, B6 the rec
-   churn phase.
+   churn phase, B5 the fleet phase.
 """
 
 import gc
@@ -122,6 +145,18 @@ CHURN_REQUESTS = 256
 CHURN_UPDATES = 32
 CHURN_RELRES = 1e-5
 SYNC_GUARD_WAVE = 10        # this wave, the replace after it, the next
+# fleet: the reference CLI's trsm-fleet configuration (two tenants, orders
+# [n, n/2, n/4], 2 factors per order each; --requests and --updates as
+# the churn's, scaled to 24 waves), bf16_refine, and the plan the H100
+# preset gives it (bucket n, member orders, capacity, method, n0)
+FLEET_PER_ORDER = 4
+FLEET_REQUESTS = 192
+FLEET_WAVES = 24
+FLEET_AFTER_WAVES = 4
+FLEET_RELRES = 1e-5
+FLEET_MIGRATE_DISPATCH_S = 1e-4
+FLEET_EXPECTED_PLAN = [[N, [N, N // 2], 8, "inv", N // 2],
+                       [N // 4, [N // 4], 4, "inv", N // 8]]
 
 
 class SmokeFailure(RuntimeError):
@@ -280,7 +315,88 @@ def kernel_phase(device, timer):
     records["trsm_substitution"] = substitution_phase(device, timer, g)
     records["trmm_masked"] = masked_phase(device, timer, g)
     records["trsm_substitution_valid"] = valid_phase(device, timer, g)
+    records["tri_inv_blocks_valid"] = valid_inv_phase(device, timer, g)
     return records
+
+
+def valid_inv_phase(device, timer, g):
+    """tri_inv_blocks(valid=) (B5) against its plain version: a padded
+    admission's phase 1 into the order-8192 bucket, (2, 4096, 4096) fp32
+    with block 1 (the identity tail) flagged 0, as bf16_refine inverts
+    it (the main path's case, whose record this returns); (16, 256, 256)
+    fp32 with half the mask zero; (4, 2048, 2048) fp64 with 2 valid.
+    Blocks are tril(randn) + n0 I, as B1's.  Each case also checks that
+    the flagged blocks come out exactly zero, that NaN planted in every
+    flagged block's L changes no bit, and that an all-ones mask gives
+    B1's output bit for bit, and times B1 on the same stack.  The library
+    call is solve_triangular(L, I) on the valid blocks only
+    (index_select'ed outside the timed region); the bound counts the
+    valid blocks' triangles read once and the whole output written, and
+    the valid blocks' n0^3 / 3 flops."""
+    from repro_torch.kernels import tri_inv_block
+    main = None
+    for m, n0, dtype, mask in ((2, 4096, torch.float32, [1, 0]),
+                               (16, 256, torch.float32, [1, 0] * 8),
+                               (4, 2048, torch.float64, [0, 1, 1, 0])):
+        v = torch.tensor(mask, dtype=torch.int32, device=device)
+        live = v.bool()
+        Ls = (torch.randn((m, n0, n0), generator=g, device=device,
+                          dtype=torch.float64).tril_()
+              + n0 * torch.eye(n0, device=device,
+                               dtype=torch.float64)).to(dtype)
+        got = tri_inv_block.tri_inv_blocks(Ls, valid=v)
+        want = tri_inv_block.tri_inv_blocks_plain(Ls, valid=v)
+        abs_err, rel_err = errors(got, want)
+        low_err = lower_rel_error(got[live], want[live])
+        tol = 1e-4 if dtype == torch.float32 else 1e-10
+        what = (f"tri_inv_blocks(valid=) {tuple(Ls.shape)} {dtype}, "
+                f"{int(live.sum())} of {m} valid")
+        check(rel_err <= tol, f"{what}: max_rel_err {rel_err} > {tol}")
+        check(low_err <= tol, f"{what}: strictly lower part off by "
+                              f"{low_err} of its max > {tol}")
+        check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+        check(not got[~live].any(), f"{what}: a flagged block is not zero")
+        Lp = Ls.clone()
+        Lp[~live] = float("nan")
+        poisoned_equal = torch.equal(
+            tri_inv_block.tri_inv_blocks(Lp, valid=v), got)
+        check(poisoned_equal, f"{what}: NaN in a flagged block reached the "
+                              f"output")
+        del Lp
+        all_ones_equal = torch.equal(
+            tri_inv_block.tri_inv_blocks(Ls, valid=torch.ones_like(v)),
+            tri_inv_block.tri_inv_blocks(Ls))
+        check(all_ones_equal, f"{what}: an all-ones mask is not B1")
+        reps = 5 if n0 >= 2048 else 20
+        k_ms = timer.ms(lambda: tri_inv_block.tri_inv_blocks(Ls, valid=v),
+                        reps)
+        b1_ms = timer.ms(lambda: tri_inv_block.tri_inv_blocks(Ls), reps)
+        p_ms = timer.ms(lambda: tri_inv_block.tri_inv_blocks_plain(
+            Ls, valid=v), reps)
+        idx = torch.nonzero(live).flatten()
+        L_lib = Ls.index_select(0, idx)
+        I = torch.eye(n0, device=device, dtype=dtype).expand_as(L_lib)
+        lib_ms = timer.ms(lambda: torch.linalg.solve_triangular(
+            L_lib, I, upper=False), reps)
+        del L_lib, I
+        nv = int(live.sum())
+        nbytes = (nv * n0 * (n0 + 1) // 2 + m * n0 * n0) * Ls.element_size()
+        b_ms, b_by = bound(nbytes, nv * n0**3 / 3, dtype)
+        rec = dict(kernel="tri_inv_blocks_valid", data="tril(randn) + n0 I",
+                   shape=list(Ls.shape), mask=mask, valid_blocks=nv,
+                   dtype=str(dtype).removeprefix("torch."),
+                   max_abs_err=abs_err, max_rel_err=rel_err,
+                   lower_rel_err=low_err, tol=tol,
+                   poisoned_bit_equal=poisoned_equal,
+                   all_ones_equal_b1=all_ones_equal,
+                   kernel_ms=k_ms, b1_unmasked_ms=b1_ms, plain_ms=p_ms,
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        print(json.dumps(rec), flush=True)
+        if main is None:
+            main = rec
+        del Ls, got, want
+    torch.cuda.empty_cache()
+    return main
 
 
 def substitution_phase(device, timer, g):
@@ -555,15 +671,18 @@ def valid_phase(device, timer, g):
 
 def counters():
     """kernel -> (wrapper, counter attribute): each wrapper adds one to
-    its counter where it launches its kernel; B6 is the gated launch of
-    the substitution wrapper, counted apart."""
+    its counter where it launches its kernel; B6 and B5 are the gated
+    launches of the substitution and inversion wrappers, counted
+    apart."""
     from repro_torch.kernels import tri_inv_block, trmm, trsm_block
     return {"tri_inv_blocks": (tri_inv_block.tri_inv_blocks, "launches"),
             "trmm": (trmm.trmm, "launches"),
             "trsm_substitution": (trsm_block.trsm_substitution, "launches"),
             "trmm_masked": (trmm.trmm_masked, "launches"),
             "trsm_substitution_valid": (trsm_block.trsm_substitution,
-                                        "valid_launches")}
+                                        "valid_launches"),
+            "tri_inv_blocks_valid": (tri_inv_block.tri_inv_blocks,
+                                     "valid_launches")}
 
 
 def read_counts() -> dict:
@@ -635,11 +754,13 @@ def serve(api, L, L64, method, precision, n0, seed, structure=None):
     # inv: B1 once at admission, B2 per sweep step; rec: B3 per base case
     want = {"inv": {"tri_inv_blocks": 1, "trmm": per_solve * solves,
                     "trsm_substitution": 0, "trmm_masked": masked,
-                    "trsm_substitution_valid": 0},
+                    "trsm_substitution_valid": 0,
+                    "tri_inv_blocks_valid": 0},
             "rec": {"tri_inv_blocks": 0, "trmm": 0,
                     "trsm_substitution": per_solve * solves,
                     "trmm_masked": masked,
-                    "trsm_substitution_valid": 0}}[method]
+                    "trsm_substitution_valid": 0,
+                    "tri_inv_blocks_valid": 0}}[method]
     check(launches == want, f"{config}: launches {launches}, want {want} "
                             f"({per_solve} per solve x {solves} solves)")
     stats = dict(config=config,
@@ -711,11 +832,13 @@ def other_entry_points(api, L, L64, seed):
         # sweep step for "inv", B3 per base case for "rec"
         want = {"inv": {"tri_inv_blocks": 1, "trmm": N // r_n0,
                         "trsm_substitution": 0, "trmm_masked": 0,
-                        "trsm_substitution_valid": 0},
+                        "trsm_substitution_valid": 0,
+                    "tri_inv_blocks_valid": 0},
                 "rec": {"tri_inv_blocks": 0, "trmm": 0,
                         "trsm_substitution": N // r_n0,
                         "trmm_masked": 0,
-                        "trsm_substitution_valid": 0}}[resolved]
+                        "trsm_substitution_valid": 0,
+                    "tri_inv_blocks_valid": 0}}[resolved]
         check(launches == want, f"one-shot trsm {method} ({resolved}, "
                                 f"n0={r_n0}): launches {launches}, want "
                                 f"{want}")
@@ -939,7 +1062,8 @@ def churn_phase(api, method, seed):
     replace with a ``place_factor``'d factor, and the replace itself, run
     under sync-debug mode "error"; no program or updater is built from
     the first wave to the last; the launches are exact (rec: B6 per base
-    case, never B3; inv: B1 per updater call, B2 per sweep step, no B6).
+    case, never B3; inv: B1 per updater call but the padded admission's,
+    which is B5's, B2 per sweep step, no B6).
     Then 10 steady waves under the profiler.  Returns (launches,
     stats)."""
     from repro_torch.core import session
@@ -1158,10 +1282,12 @@ def churn_phase(api, method, seed):
     per_solve = N // key.n0 * passes
     want = {"rec": {"tri_inv_blocks": 0, "trmm": 0, "trsm_substitution": 0,
                     "trmm_masked": 0,
-                    "trsm_substitution_valid": per_solve * solves},
-            "inv": {"tri_inv_blocks": bank.updates_dispatched,
+                    "trsm_substitution_valid": per_solve * solves,
+                    "tri_inv_blocks_valid": 0},
+            "inv": {"tri_inv_blocks": bank.updates_dispatched - 1,
                     "trmm": per_solve * solves, "trsm_substitution": 0,
-                    "trmm_masked": 0, "trsm_substitution_valid": 0}}[method]
+                    "trmm_masked": 0, "trsm_substitution_valid": 0,
+                    "tri_inv_blocks_valid": 1}}[method]
     check(launches == want, f"{what}: launches {launches}, want {want} "
                             f"({per_solve} per solve x {solves} solves)")
     check(not Xp[d:].any(), f"{what}: the padded tail is not zero")
@@ -1221,6 +1347,357 @@ def churn_phase(api, method, seed):
     return launches, stats
 
 
+def fleet_phase(api, seed):
+    """The mixed-order fleet (FLEET_*): the reference CLI's trsm-fleet
+    configuration at n = 8192 — two tenants, orders [n, n/2, n/4] with
+    2 factors per order each (manifest {8192: 4, 4096: 4, 2048: 4}),
+    bf16_refine, panel_k = 16 — planned by ``api.plan_fleet`` under the
+    H100 preset and served through ``api.SolverFleet`` and a fleet-mode
+    ``api.SolveServer``.  Warmed up empty, 12 admissions (the order-4096
+    ones padded into the 8192 bucket, phase 1 on B5), then the CLI's
+    schedule: 192 requests of widths 1..16 in 24 waves, after each wave
+    an in-place ``replace``, every third update a tenant-c burst admit
+    that cycles through the orders and reclaims the coldest slot across
+    tenants; one replace with a ``place_factor``'d factor and the waves
+    around it under sync-debug mode "error".  Then 10 steady waves under
+    the profiler, one ``apply_plan`` onto the plan for the live manifest
+    at dispatch_s = 1e-4 (2048 merges too: the 8192 bucket is rebuilt at
+    capacity 12 and every resident re-admitted, the smaller orders
+    padded on B5), and 4 more waves.  Checks: every request's relres in
+    fp64 against the factor its handle held when served <= 1e-5; every
+    padded lane's tail exactly zero; a stale handle refused; no program
+    or updater built from the first wave to the last but the rebuilt
+    bucket's (built inside the migration and its warmup); a padded
+    slot's Dt equal to B1 on its padded stack; B5 launched once per
+    padded phase-1 run and B1 once per unpadded one; B2 six times per
+    bucket solve; no other kernel.  Returns (launches, stats)."""
+    from repro_torch.core import inv_trsm, session
+    from repro_torch.kernels import tri_inv_block, trmm
+    grid = api.make_trsm_mesh(1, 1)
+    dev = grid.device
+    orders = [N, N // 2, N // 4]
+    fresh, g = factor_maker(dev, seed)
+    rng = np.random.default_rng(seed)
+    what = f"fleet bf16_refine n={N}"
+    plan = api.plan_fleet({d: FLEET_PER_ORDER for d in orders}, grid,
+                          k=PANEL_K, precision="bf16_refine")
+    got_plan = [[b.n, list(b.orders), b.capacity, b.method, b.n0]
+                for b in plan.buckets]
+    print(plan.table(), flush=True)
+    print(json.dumps(dict(fleet_plan=got_plan, dispatch_s=plan.dispatch_s,
+                          as_expected=got_plan == FLEET_EXPECTED_PLAN)),
+          flush=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    gemm0 = trmm.gemm.launches
+    phase1 = {"padded": 0, "unpadded": 0}
+    waves = []                # (bucket n, X, {slot: order}) per solve
+    solves = [0]
+
+    def watch(key, solver):
+        """Record every solve of a bucket's solver: its X and which
+        order each live slot holds."""
+        solve = solver.solve
+
+        def capture(B, **kw):
+            X = solve(B, **kw)
+            b = fleet.bucket(key)
+            waves.append((key[0], X, {h.slot: h.order
+                                      for h in b.handles.values()}))
+            solves[0] += 1
+            return X
+
+        solver.solve = capture
+
+    fleet = api.SolverFleet(grid, plan)
+    for key in fleet.buckets:
+        watch(key, fleet.solver(key))
+    t0 = time.perf_counter()
+    server = api.SolveServer(fleet, PANEL_K).warmup()          # EMPTY
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def kind(h):
+        return "padded" if h.order < h.bucket[0] else "unpadded"
+
+    handles, current = {}, {}           # (tenant, tag) -> handle, factor
+    admit_ms = {"padded": [], "unpadded": []}
+    for tenant in ("tenant-a", "tenant-b"):
+        for d in orders:
+            for j in range(FLEET_PER_ORDER // 2):
+                tag = f"layer{orders.index(d)}-{j}"
+                L = fresh(d)
+                h, ms = timed(lambda: fleet.admit(L, tenant=tenant, tag=tag))
+                handles[(tenant, tag)] = h
+                current[(tenant, tag)] = L
+                admit_ms[kind(h)].append(ms)
+                phase1[kind(h)] += 1
+    check(sorted(fleet.manifest().items())
+          == sorted((d, FLEET_PER_ORDER) for d in orders),
+          f"{what}: manifest {fleet.manifest()}")
+
+    checks = dict(requests=0, worst=0.0, padded_tails=0, waves=0)
+    pending = []
+
+    def settle():
+        """relres per request against the factor its handle held when
+        served; every padded lane's tail rows exactly zero."""
+        while pending:
+            outs, reqs, first = pending.pop(0)
+            for n_b, X, slots in waves[first:]:
+                checks["waves"] += 1
+                for slot, d in slots.items():
+                    if d < n_b:
+                        check(not X[slot, d:].any(), f"{what}: bucket "
+                              f"{n_b} slot {slot} (order {d}) has a "
+                              f"nonzero padded tail")
+                        checks["padded_tails"] += 1
+            by_key = {}
+            for key, b, L in reqs:
+                by_key.setdefault(key, ([], L))[0].append(b)
+            for key, (bs, L) in by_key.items():
+                xs = outs.get(key, [])
+                check(len(xs) == len(bs), f"{what}: {key} got {len(xs)} "
+                                          f"of {len(bs)} solutions")
+                for x, b in zip(xs, bs):
+                    check(tuple(x.shape) == tuple(b.shape),
+                          f"{what}: {key} solution {tuple(x.shape)}")
+                for r in request_relres(L, xs, bs):
+                    check(r <= FLEET_RELRES, f"{what}: {key} relres {r} > "
+                                             f"{FLEET_RELRES}")
+                    checks["worst"] = max(checks["worst"], r)
+                    checks["requests"] += 1
+
+    def wave(reqs, timed_wave=True):
+        first = len(waves)
+        torch.cuda.synchronize() if timed_wave else None
+        t = time.perf_counter()
+        for key, b, _ in reqs:
+            server.submit(b, tenant=key[0], tag=key[1])
+        outs = server.drain()
+        ms = None
+        if timed_wave:
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+        pending.append((outs, reqs, first))
+        return ms
+
+    builds0 = sum(session.BUILD_COUNTS.values())
+    widths = rng.integers(1, PANEL_K + 1, FLEET_REQUESTS)
+    per_wave = FLEET_REQUESTS // FLEET_WAVES
+    keys = list(handles)
+    replaced = reclaimed = 0
+    wave_ms, replace_ms = [], {"padded": [], "unpadded": []}
+    burst_ms = {"padded": [], "unpadded": []}
+    guard = None              # the guarded wave's index, once chosen
+    stale_refused = False
+    reqs = []
+    for i, w in enumerate(widths):
+        key = keys[i % len(keys)]
+        h = handles[key]
+        reqs.append((key, torch.randn((h.order, int(w)), generator=g,
+                                      device=dev), current[key]))
+        if (i + 1) % per_wave:
+            continue
+        index = (i + 1) // per_wave - 1
+        tkey = keys[replaced % len(keys)]
+        target = handles[tkey]
+        if guard is None and index >= SYNC_GUARD_WAVE \
+                and kind(target) == "padded" and (replaced + 1) % 3:
+            guard = index
+            host = torch.Generator().manual_seed(seed + 1)
+            Lh = torch.randn((target.order, target.order),
+                             generator=host).tril_()
+            Lh.diagonal().add_(target.order)
+            placed = fleet.place_factor(Lh)
+            del Lh
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            ms = wave(reqs, timed_wave=guard is None or index > guard + 1)
+            if index == guard:
+                fleet.replace(target, placed)
+            if guard is not None and index == guard + 1:
+                torch.cuda.set_sync_debug_mode(0)
+        except BaseException:
+            torch.cuda.set_sync_debug_mode(0)
+            raise
+        reqs = []
+        if ms is not None:
+            wave_ms.append(ms)
+        if index == guard:
+            current[tkey] = placed
+        else:
+            L = fresh(target.order)
+            _, ms = timed(lambda: fleet.replace(target, L))
+            replace_ms[kind(target)].append(ms)
+            current[tkey] = L
+        phase1[kind(target)] += 1
+        replaced += 1
+        if replaced % 3 == 0:
+            check(index != guard, f"{what}: the guarded update is a burst")
+            d = orders[reclaimed % len(orders)]
+            L = fresh(d)
+            before = set(map(id, fleet.handles()))
+            hot, ms = timed(lambda: fleet.admit(
+                L, tenant="tenant-c", tag=f"burst{reclaimed}"))
+            burst_ms[kind(hot)].append(ms)
+            phase1[kind(hot)] += 1
+            reclaimed += 1
+            live = set(map(id, fleet.handles()))
+            victims = [(kt, hh) for kt, hh in handles.items()
+                       if id(hh) in before and id(hh) not in live]
+            check(len(victims) == 1, f"{what}: burst {reclaimed} reclaimed "
+                                     f"{len(victims)} slots")
+            vkey, victim = victims[0]
+            if not stale_refused:
+                try:
+                    fleet.replace(victim, current[vkey])
+                except KeyError as e:
+                    stale_refused = "stale handle" in str(e)
+                check(stale_refused, f"{what}: a stale handle was served")
+            del handles[vkey]
+            handles[("tenant-c", hot.tag)] = hot
+            current[("tenant-c", hot.tag)] = L
+            keys = list(handles)
+        if index != guard:            # settling reads values back
+            settle()
+    check(guard is not None, f"{what}: no wave was guarded")
+    check(not server.pending() and server.requests_served == FLEET_REQUESTS,
+          f"{what}: served {server.requests_served}")
+    builds = sum(session.BUILD_COUNTS.values())
+    check(builds == builds0, f"{what}: {builds - builds0} program(s) built "
+                             f"during the waves")
+    stats_table = fleet.format_stats()
+    print(stats_table, flush=True)
+
+    # 10 steady waves under the profiler: one 16-column request per
+    # live handle, both buckets drained per wave
+    panels = [[(key, torch.randn((h.order, PANEL_K), generator=g,
+                                 device=dev)) for key, h in handles.items()]
+              for _ in range(12)]
+
+    def run(i):
+        for key, b in panels[i]:
+            server.submit(b, tenant=key[0], tag=key[1])
+        server.drain()
+
+    n_before = len(waves)
+    prof = profile_calls(run, f"{what} {len(fleet.buckets)} buckets", 10,
+                         unit="wave")
+    del panels
+    # host time of one bucket-wave dispatch: a bucket solve's enqueue
+    dispatch_ms = {}
+    for key in fleet.buckets:
+        solver = fleet.solver(key)
+        Bp = solver.place_rhs(torch.zeros((solver.width, key[0], PANEL_K),
+                                          device=dev))
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(20):
+            t = time.perf_counter()
+            solver.solve(Bp)
+            ts.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        dispatch_ms[key[0]] = float(np.median(ts))
+    del waves[n_before:]
+
+    # live migration onto the plan for the live manifest at 1e-4
+    new_plan = api.plan_fleet(fleet.manifest(), grid, k=PANEL_K,
+                              precision="bf16_refine",
+                              dispatch_s=FLEET_MIGRATE_DISPATCH_S)
+    print(new_plan.table(), flush=True)
+    moved_to = {}
+    res, migrate_ms = timed(lambda: fleet.apply_plan(
+        new_plan, on_move=lambda o, n: moved_to.__setitem__(id(o), n)))
+    for key, h in list(handles.items()):
+        if id(h) in moved_to:
+            handles[key] = moved_to[id(h)]
+            phase1[kind(handles[key])] += 1
+    check(len(fleet.buckets) == 1 and fleet.buckets[0][0] == N
+          and [k[0] for k in res["rebuilt"]] == [N]
+          and [k[0] for k in res["closed"]] == [N // 4]
+          and len(res["moved"]) == 2 * len(orders) * FLEET_PER_ORDER // 2,
+          f"{what}: migration {dict((k, len(v)) for k, v in res.items())} "
+          f"onto {new_plan.table()}")
+    check(fleet.plan.buckets[0].capacity == 3 * FLEET_PER_ORDER,
+          f"{what}: merged capacity {fleet.plan.buckets[0].capacity}")
+    watch(fleet.buckets[0], fleet.solver(fleet.buckets[0]))
+    b_mig = sum(session.BUILD_COUNTS.values())
+    _, mig_warmup_ms = timed(lambda: fleet.warmup(PANEL_K))
+    built_in_migration = sum(session.BUILD_COUNTS.values()) - builds
+    for _ in range(FLEET_AFTER_WAVES):
+        reqs = []
+        for j in range(per_wave):
+            key = keys[j % len(keys)]
+            h = handles[key]
+            w = int(rng.integers(1, PANEL_K + 1))
+            reqs.append((key, torch.randn((h.order, w), generator=g,
+                                          device=dev), current[key]))
+        wave_ms.append(wave(reqs))
+        settle()
+    # the rebuilt bucket's updaters (one per order) and its program
+    check(built_in_migration == len(orders) + 1,
+          f"{what}: {built_in_migration} builds in the migration")
+    check(sum(session.BUILD_COUNTS.values()) == b_mig + 1,
+          f"{what}: a program was built after the migration's warmup")
+    launches = read_counts()
+    want = {"tri_inv_blocks": phase1["unpadded"],
+            "tri_inv_blocks_valid": phase1["padded"],
+            "trmm": N // (N // 2) * 3 * solves[0],
+            "trsm_substitution": 0, "trmm_masked": 0,
+            "trsm_substitution_valid": 0}
+    check(launches == want, f"{what}: launches {launches}, want {want}")
+    check(trmm.gemm.launches == gemm0, f"{what}: a bucket of width >= "
+                                       f"{2} took the ordered products")
+
+    # a padded slot's Dt against B1 on its padded stack: one order-4096
+    # and one order-2048 slot of the merged bucket
+    b = fleet.bucket(fleet.buckets[0])
+    L_lo, Dt = b.bank.stacks()[:2]
+    dt_equal = {}
+    for d in orders[1:]:
+        slot = next(h.slot for h in b.handles.values() if h.order == d)
+        want_dt = inv_trsm.invert_diag_blocks(
+            L_lo[slot:slot + 1], n0=b.bank.n0,
+            block_inv=tri_inv_block.tri_inv_blocks,
+            accum_dtype=torch.float32)
+        dt_equal[d] = torch.equal(Dt[slot:slot + 1], want_dt)
+        check(dt_equal[d], f"{what}: the padded order-{d} slot's Dt is not "
+                           f"B1's on its padded stack")
+    stats = dict(
+        fleet=what, plan=got_plan, plan_as_expected=got_plan
+        == FLEET_EXPECTED_PLAN, requests_served=server.requests_served,
+        checked_requests=checks["requests"], waves=checks["waves"],
+        padded_tails_checked=checks["padded_tails"],
+        worst_relres=checks["worst"], relres_bound=FLEET_RELRES,
+        empty_warmup_s=warmup_s,
+        admit_ms_padded=admit_ms["padded"],
+        admit_ms_unpadded=admit_ms["unpadded"],
+        ms_per_fleet_wave_median=float(np.median(wave_ms)),
+        ms_per_fleet_wave_mean=float(np.mean(wave_ms)),
+        replace_ms_padded_median=float(np.median(replace_ms["padded"])),
+        replace_ms_unpadded_median=float(np.median(replace_ms["unpadded"])),
+        burst_admit_ms=burst_ms, replaces=replaced, reclaims=fleet.reclaims,
+        stale_handle_refused=stale_refused, sync_guarded_wave=guard,
+        migration_ms=migrate_ms, migration_warmup_ms=mig_warmup_ms,
+        moved=len(res["moved"]), built_in_migration=built_in_migration,
+        phase1_runs=phase1, padded_dt_equal_b1=dt_equal,
+        host_dispatch_ms_per_bucket_wave=dispatch_ms,
+        nominal_dispatch_ms=plan.dispatch_s * 1e3, launches=launches,
+        device_ms_per_wave=prof["device_ms_per_wave"],
+        device_busy_share=prof["device_busy_share"])
+    print(json.dumps(stats), flush=True)
+    return launches, stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1277,6 +1754,9 @@ def main() -> int:
                                                           seed=100 + i)
         gc.collect()                  # the bank goes before the next one
         torch.cuda.empty_cache()
+    main_launches["fleet"], _ = fleet_phase(api, seed=120)    # phase 9
+    gc.collect()
+    torch.cuda.empty_cache()
 
     kernels = []
     for name, method, source, replaces in (
@@ -1292,7 +1772,10 @@ def main() -> int:
              "src/repro/kernels/trmm.py:50"),
             ("trsm_substitution_valid", "churn rec",
              "src/repro_torch/kernels/csrc/trsm_block.cu",
-             "src/repro/kernels/trsm_block.py:44")):
+             "src/repro/kernels/trsm_block.py:44"),
+            ("tri_inv_blocks_valid", "fleet",
+             "src/repro_torch/kernels/csrc/tri_inv_block.cu",
+             "src/repro/kernels/tri_inv_block.py:67")):
         rec = records[name]
         launches = main_launches[method][name]
         check(launches > 0, f"{name} never launched on the {method} main "

@@ -33,11 +33,21 @@
   structure=...)`` masks the factor at admission, sweeps only its kept
   blocks and forms the refinement residual with the block-masked
   ``trmm`` kernel.
+* :func:`plan_fleet`, :class:`SolverFleet` — the mixed-order,
+  multi-tenant tier (DESIGN.md Sec. 12): the planner buckets an order
+  spectrum (:class:`FleetPlan`, :class:`BucketPlan`), the fleet admits
+  each factor into its bucket, zero-padded (phase 1 on the
+  validity-gated ``tri_inv_blocks`` kernel), hands back a
+  :class:`FleetHandle`, reclaims the coldest slot across tenants and
+  live-migrates onto a new plan; ``SolveServer(fleet, panel_k)`` routes
+  requests by (tenant, order[, tag]).
 * :func:`trsm` — one-shot solve.
 """
 
 from repro_torch.core import trsm  # noqa: F401
 from repro_torch.core.bank import FactorBank  # noqa: F401
+from repro_torch.core.fleet import (  # noqa: F401
+    BucketPlan, FleetHandle, FleetPlan, SolverFleet, plan_fleet)
 from repro_torch.core.errors import (  # noqa: F401
     DeadlineUnmeetable, Overloaded, ServingError, StrandedRequestError)
 from repro_torch.core.grid import TrsmGrid, make_trsm_mesh  # noqa: F401

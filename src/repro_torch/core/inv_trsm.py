@@ -30,26 +30,32 @@ from repro_torch.core.precision import matmul_as
 
 
 def invert_diag_blocks(L: torch.Tensor, *, n0: int, block_inv: Callable,
-                       accum_dtype=None) -> torch.Tensor:
+                       accum_dtype=None, valid=None) -> torch.Tensor:
     """Phase 1: (M, n, n) factors -> Dt (M, m, n0, n0), the inverted
     diagonal blocks.
 
     When ``accum_dtype`` is wider than the operand dtype the inversion
     runs at the accumulate precision (cast up, invert, cast back): the
     inverse re-enters the sweep at compute precision, but its entries
-    are formed at full accuracy (``bf16_refine`` inverts in fp32)."""
+    are formed at full accuracy (``bf16_refine`` inverts in fp32).
+
+    ``valid`` (an (M * m,) mask over the blocks, factor-major) is passed
+    through to the hook as ``block_inv(blocks, valid=valid)``: a block
+    flagged 0 comes out as zeros without being read (kernel B5)."""
     M, n, _ = L.shape
     m = n // n0
     D = blocked.diag_blocks(L, n0).reshape(M * m, n0, n0)
+    gate = {} if valid is None else dict(valid=valid)
     if accum_dtype is not None and accum_dtype != L.dtype:
-        Dt = block_inv(D.to(accum_dtype)).to(L.dtype)
+        Dt = block_inv(D.to(accum_dtype), **gate).to(L.dtype)
     else:
-        Dt = block_inv(D.contiguous())
+        Dt = block_inv(D.contiguous(), **gate)
     return Dt.reshape(M, m, n0, n0)
 
 
 def sweep(L: torch.Tensor, Dt: torch.Tensor, B: torch.Tensor, *, n0: int,
-          accum_dtype=None, spans=None) -> torch.Tensor:
+          accum_dtype=None, spans=None,
+          fixed_order: bool = False) -> torch.Tensor:
     """Phase 2 against ALREADY-INVERTED diagonal blocks: L (M, n, n),
     Dt (M, m, n0, n0), B (M, n, k) at the compute dtype -> X (M, n, k).
 
@@ -65,7 +71,12 @@ def sweep(L: torch.Tensor, Dt: torch.Tensor, B: torch.Tensor, *, n0: int,
     blocks [lo, hi), and a column whose span is None issues no update
     GEMM.  Admission masked the factor, so a block row inside a span
     that does not depend on column i multiplies exact zeros.  The solve
-    step is the same for every column."""
+    step is the same for every column.
+
+    ``fixed_order`` forms each update with ``ops.gemm``, whose sums run
+    in an order that does not depend on the number of trailing rows, in
+    place of cuBLAS; it needs the kernel's own partial-sum dtype (fp32,
+    fp64 for fp64 operands) as ``accum_dtype``."""
     from repro_torch.kernels import ops
     M, n, k = B.shape
     m = n // n0
@@ -83,7 +94,9 @@ def sweep(L: torch.Tensor, Dt: torch.Tensor, B: torch.Tensor, *, n0: int,
         if span is not None:
             # update (l. 7-8): the block rows of the span only
             below = slice(span[0] * n0, span[1] * n0)
-            Bcur[:, below] -= matmul_as(L[:, below, rows], Xi, acc, ct)
+            Lb = L[:, below, rows]
+            Bcur[:, below] -= ops.gemm(Lb, Xi) if fixed_order \
+                else matmul_as(Lb, Xi, acc, ct)
     return X
 
 

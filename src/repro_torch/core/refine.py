@@ -27,8 +27,8 @@ from repro_torch.core.precision import PrecisionPolicy, matmul_as
 
 def apply_cyclic_operator(L_cyc: torch.Tensor, X: torch.Tensor, *, p1: int,
                           p2: int, reverse: bool, accum_dtype=None,
-                          block_mask=None, bt: int | None = None
-                          ) -> torch.Tensor:
+                          block_mask=None, bt: int | None = None,
+                          fixed_order: bool = False) -> torch.Tensor:
     """``op(A) @ X`` (natural layout in and out) from the resident cyclic
     factor: one gather of X's rows by the factor's COLUMN map, the GEMM
     against the resident factor with partial sums at ``accum_dtype``
@@ -41,13 +41,21 @@ def apply_cyclic_operator(L_cyc: torch.Tensor, X: torch.Tensor, *, p1: int,
     kernel, tril(L_cyc) @ X over the kept blocks only; a structure
     forbids the reversal, so the gathers are the identity.  Its partial
     sums are fp32 (fp64 for fp64 operands) and its result has the
-    factor's dtype, the residual dtype."""
+    factor's dtype, the residual dtype.
+
+    ``fixed_order`` forms tril(L_cyc) @ X with ``ops.gemm`` (the
+    resident factor is lower triangular), whose row sums run in an order
+    that does not depend on n, in place of cuBLAS: a padded slot's
+    leading rows then get the unpadded factor's bits."""
     Xg = gridlib.cyclic_rows_device(X, p1 * p2, reverse=reverse)
     acc = accum_dtype if accum_dtype is not None else X.dtype
     if block_mask is not None:
         from repro_torch.kernels import ops
         Y = ops.trmm(L_cyc, Xg.to(L_cyc.dtype), block_mask=block_mask,
                      bt=bt).to(acc)
+    elif fixed_order:
+        from repro_torch.kernels import ops
+        Y = ops.gemm(L_cyc, Xg.to(L_cyc.dtype), lower=True).to(acc)
     else:
         Y = matmul_as(L_cyc, Xg.to(L_cyc.dtype), acc, acc)
     return gridlib.cyclic_rows_device(Y, p1, inverse=True, reverse=reverse)
@@ -55,15 +63,17 @@ def apply_cyclic_operator(L_cyc: torch.Tensor, X: torch.Tensor, *, p1: int,
 
 def refined_solve(base_solve, L_lo, L_hi, B, *, policy: PrecisionPolicy,
                   p1: int, p2: int, reverse: bool, block_mask=None,
-                  bt: int | None = None) -> torch.Tensor:
+                  bt: int | None = None,
+                  fixed_order: bool = False) -> torch.Tensor:
     """The refined solve body.
 
     ``base_solve(L_sweep, B) -> X`` is the compute-precision sweep
     (natural layout in/out).  ``L_lo`` is what the sweep consumes,
     ``L_hi`` the resident cyclic factor at residual precision (None when
     the policy does not refine).  ``block_mask``/``bt`` (a structured
-    factor's) send each residual to the block-masked kernel.  Returns X
-    at ``policy.io_dtype``."""
+    factor's) send each residual to the block-masked kernel, and
+    ``fixed_order`` to ``ops.gemm`` (``apply_cyclic_operator``).
+    Returns X at ``policy.io_dtype``."""
     io = policy.io_dtype
     B = B.to(io)
     X = base_solve(L_lo, B.to(policy.compute))
@@ -74,7 +84,8 @@ def refined_solve(base_solve, L_lo, L_hi, B, *, policy: PrecisionPolicy,
     for _ in range(policy.refine_steps):
         r = B - apply_cyclic_operator(L_hi, X, p1=p1, p2=p2,
                                       reverse=reverse, accum_dtype=res,
-                                      block_mask=block_mask, bt=bt)
+                                      block_mask=block_mask, bt=bt,
+                                      fixed_order=fixed_order)
         d = base_solve(L_lo, r.to(policy.compute))
         X = X + d.to(res)
     return X

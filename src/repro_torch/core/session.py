@@ -30,6 +30,17 @@
   operand (``valid=``), never as a constant captured at build time,
   and hands it to every base case (kernel B6): occupancy changes
   never rebuild a program.
+* A padded updater (``UpdateSpec.pad_from``) runs phase 1 on the
+  validity-gated inversion kernel (B5) with a mask, built on the device
+  once per updater, that flags every diagonal block lying wholly in the
+  identity tail; those blocks then get the identity they would invert
+  to, so the resident Dt is B1's on the whole padded stack.
+* A spec with ``fixed_order`` (a capacity bank's: on the card one
+  narrower than ``solver.FIXED_ORDER_WIDTH``) forms its trailing
+  updates and refinement residuals with ``ops.gemm``, whose sums run
+  in an order that does not depend on n, in place of cuBLAS, whose
+  kernel (and order) follows the shape: a padded slot's leading block
+  is then the unpadded solve's bit for bit.
 
 PyTorch runs eagerly, so a "program" is a Python function over device
 tensors; building it resolves every plan decision once, and its gather
@@ -305,14 +316,23 @@ def _build_solver(spec) -> SolverProgram:
             info.mask_array(), dtype=torch.int32, device=grid.device),
             bt=n0)
 
+    fixed = dict(fixed_order=True) if spec.fixed_order else {}
     if spec.method == "inv":
         gridlib.check_divisibility(n, k, n0, grid)
+        if spec.fixed_order and (policy.storage != compute or accum != (
+                torch.float64 if compute == torch.float64
+                else torch.float32)):
+            raise ValueError(
+                f"fixed_order updates take the tri-GEMM's own partial "
+                f"sums: policy {policy.name} stores {policy.storage}, "
+                f"computes {compute} and accumulates {accum}")
 
         def base_solve(L_pair, B):
             B_cyc = gridlib.cyclic_rows_device(B.to(compute), p1,
                                                reverse=rev)
             X_cyc = inv_trsm.sweep(L_pair[0], L_pair[1], B_cyc, n0=n0,
-                                   accum_dtype=accum, spans=spans)
+                                   accum_dtype=accum, spans=spans,
+                                   **fixed)
             return gridlib.cyclic_rows_device(X_cyc, p1, inverse=True,
                                               reverse=rev)
 
@@ -348,7 +368,7 @@ def _build_solver(spec) -> SolverProgram:
             solve = functools.partial(base_solve, valid=valid)
         return refinelib.refined_solve(solve, sweep_factor(factor),
                                        L_hi, B, policy=policy, p1=p1,
-                                       p2=p2, reverse=rev, **mask)
+                                       p2=p2, reverse=rev, **mask, **fixed)
 
     BUILD_COUNTS[spec] += 1
     if banked:
@@ -378,6 +398,19 @@ def _pad_factor(L: torch.Tensor, n: int) -> torch.Tensor:
     return full
 
 
+def pad_block_mask(n: int, d: int, n0: int, reverse: bool) -> list:
+    """One flag per diagonal block of an order-d factor padded to
+    ``blockdiag(L, I)`` at order n, after the operator reduction: 0 for
+    a block that lies wholly in the identity tail, 1 otherwise.  The
+    reversal gather (``_needs_reversal``) runs after the padding, so it
+    moves the tail to the top: block z is pad iff z n0 >= d without it,
+    iff (z + 1) n0 <= n - d with it."""
+    m = n // n0
+    if reverse:
+        return [int((z + 1) * n0 > n - d) for z in range(m)]
+    return [int(z * n0 < d) for z in range(m)]
+
+
 def _build_updater(uspec) -> UpdaterProgram:
     """Build the in-place updater for a
     :class:`repro_torch.core.solver.UpdateSpec` (which is also its cache
@@ -386,7 +419,11 @@ def _build_updater(uspec) -> UpdaterProgram:
     structure's mask at the bank's n0); cyclic ingestion takes a
     producer's cyclic-layout factor and only casts (at p = 1, lower and
     not transposed, cyclic storage is the natural layout); "inv" then
-    inverts the diagonal blocks (phase 1, kernel B1)."""
+    inverts the diagonal blocks (phase 1, kernel B1).  A padded updater
+    with the default hook inverts with B5 instead: the blocks of the
+    identity tail (:func:`pad_block_mask`, uploaded here, once) are
+    never read, and their Dt is set to the identity they would invert
+    to."""
     grid, policy = uspec.grid, uspec.policy
     if grid.device is None:
         raise ValueError("a plan-only grid (plan_grid) cannot run an "
@@ -401,9 +438,21 @@ def _build_updater(uspec) -> UpdaterProgram:
         preps = tuple(functools.partial(torch.Tensor.to, dtype=dt)
                       for dt in dts)
     ph1 = None
+    gate = {}
     if uspec.method == "inv":
         ph1 = _build_phase1(grid, n, uspec.n0, uspec.mode,
                             policy.accumulate, uspec.block_inv)
+        # a caller's own block_inv hook takes no mask: it inverts every
+        # block, the identity tail's to the identity
+        if uspec.pad_from is not None and uspec.block_inv is None:
+            flags = pad_block_mask(n, uspec.pad_from, uspec.n0,
+                                   _needs_reversal(uspec.lower,
+                                                   uspec.transpose)) * u
+            valid = torch.tensor(flags, dtype=torch.int32,
+                                 device=grid.device)
+            # added to the diagonal of every gated (all-zero) block
+            pad_eye = (1 - valid).to(policy.storage)[:, None]
+            gate = dict(valid=valid)
 
     def update(stacks, slot: int, L):
         L = torch.as_tensor(L).to(grid.device)
@@ -412,7 +461,11 @@ def _build_updater(uspec) -> UpdaterProgram:
             L = _pad_factor(L, n)
         parts = tuple(p(L) for p in preps)           # (L_lo[, L_hi])
         if ph1 is not None:
-            parts = (parts[0], ph1(parts[0])) + parts[1:]
+            Dt = ph1(parts[0], **gate)
+            if gate:
+                Dt.view(-1, uspec.n0, uspec.n0).diagonal(
+                    dim1=-2, dim2=-1).add_(pad_eye)
+            parts = (parts[0], Dt) + parts[1:]
         for stack, part in zip(stacks, parts):
             stack.narrow(0, slot, u).copy_(part)
 

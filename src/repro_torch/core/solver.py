@@ -20,9 +20,10 @@
   queues, first-fit packed fixed-width panels, one solve per wave
   covering every factor, submit-order results; on a capacity bank it
   refuses inactive slots and strands requests whose slot was turned
-  over.
+  over.  Over a :class:`~repro_torch.core.fleet.SolverFleet` it routes
+  requests by ``(tenant, order[, tag])`` to the planned buckets.
 
-Not ported yet: grids with p > 1 (ROADMAP A12) and fleets (A11).
+Not ported yet: grids with p > 1 (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -154,6 +155,14 @@ class SolveSpec:
       key.
     * ``overlap`` — "auto"/"on"/True normalize to "on", "off"/False to
       ``None``.
+    * ``fixed_order`` — the program forms its trailing updates and
+      refinement residuals on the hand-written tri-GEMM, whose sums run
+      in an order that does not depend on n, in place of cuBLAS; a
+      capacity bank narrower than :data:`FIXED_ORDER_WIDTH` on the card,
+      and every capacity bank on the CPU, sets it
+      (:meth:`Solver.spec_for`), so that a padded slot solves as the
+      unpadded factor does, bit for bit.  The port's own field: the
+      reference's XLA products need no such choice.
     """
     n: int
     k: int | None
@@ -169,9 +178,13 @@ class SolveSpec:
     map_mode: str | None = None
     structure: FactorStructure | None = None
     overlap: str | bool | None = "auto"
+    fixed_order: bool = False
 
     def __post_init__(self):
         _check_method(self.method)
+        if self.fixed_order and self.bank_width is None:
+            raise ValueError("fixed_order is a banked program's choice "
+                             "(set bank_width)")
         object.__setattr__(self, "overlap",
                            _normalize_overlap(self.overlap))
         if self.bank_width is not None and self.bank_width < 1:
@@ -361,6 +374,19 @@ def solver_for(spec: SolveSpec, cache=None):
 
 
 # -------------------------------- Solver --------------------------------
+
+# Capacity banks on the card narrower than this serve with
+# ``SolveSpec.fixed_order``.  cuBLAS chooses its kernel, and with it the
+# order of its sums, by shape, and at width 1 its products over an
+# order-n and an order-d stack sum the common rows in different orders,
+# which breaks the padding contract (``FactorBank.admit(pad_to=)``) in
+# the last bits.  Wider banks keep cuBLAS: there the two orders measured
+# bit-equal on the H100 (widths 2, 4 and 16; PERF.md), and the tri-GEMM
+# is several times slower.  On the CPU, torch's fp32 batched product
+# sums by shape at every width, so every CPU capacity bank takes the
+# fixed order.
+FIXED_ORDER_WIDTH = 2
+
 
 class Solver:
     """ONE serving class for resident triangular factors — any bank
@@ -570,7 +596,10 @@ class Solver:
                          lower=b.lower, transpose=b.transpose,
                          block_inv=b.block_inv, bank_width=b.width,
                          map_mode=b.map_mode, structure=b.structure,
-                         overlap=b.overlap)
+                         overlap=b.overlap,
+                         fixed_order=b.capacity is not None and (
+                             b.width < FIXED_ORDER_WIDTH
+                             or b.grid.device.type == "cpu"))
 
     def program_for(self, k: int):
         """The :class:`~repro_torch.core.session.SolverProgram` for RHS
@@ -689,11 +718,32 @@ class SolveServer:
     admitted) slot are refused, and a request whose slot was turned over
     (evicted, even if re-admitted since) after its submit fails at
     ``drain`` with :class:`~repro_torch.core.errors.StrandedRequestError`
-    (``cancel`` drops such requests).  Fleet routing is ROADMAP A11."""
+    (``cancel`` drops such requests).
 
-    def __init__(self, solver: Solver, panel_k: int):
-        self.solver = solver
+    Constructed over a :class:`~repro_torch.core.fleet.SolverFleet`
+    instead of a Solver, the server routes submits by ``(tenant,
+    order)`` through the fleet's planned buckets (DESIGN.md Sec. 12):
+    one lazy inner server per bucket, the RHS zero-padded to the bucket
+    order on the device at submit, the solution sliced back to the
+    request's true (d, j) at drain:
+
+        server = SolveServer(fleet, panel_k=16)
+        server.submit(b, tenant="modelA", tag="layer0")
+        outs = server.drain()          # {(tenant, tag): [X, ...]}
+    """
+
+    def __init__(self, solver, panel_k: int):
+        from repro_torch.core.fleet import SolverFleet
+        self.fleet = solver if isinstance(solver, SolverFleet) else None
+        self.solver = None if self.fleet is not None else solver
         self.panel_k = panel_k
+        if self.fleet is not None:
+            # bucket key -> lazy inner server; (bucket key, slot) ->
+            # FIFO of (tenant, tag, order) for slicing drained panels
+            self._servers: dict = {}
+            self._routes: dict = {}
+            # what the inner servers of rebuilt buckets served
+            self._retired = [0, 0]
         self._queues: dict[int, collections.deque] = {}
         self._seq = 0
         # slot generation at submit, per request: liveness alone cannot
@@ -717,11 +767,62 @@ class SolveServer:
         """Alias of ``waves_solved`` (a width-1 wave is one panel)."""
         return self.waves_solved
 
-    def submit(self, b, factor: int = 0) -> None:
+    def _server_for(self, key) -> "SolveServer":
+        """The inner server of a bucket, made on first use and again
+        when :meth:`SolverFleet.apply_plan` rebuilt the bucket (a
+        server of the old bank with requests still queued would serve
+        them against it: that raises)."""
+        solver = self.fleet.solver(key)
+        srv = self._servers.get(key)
+        if srv is not None and srv.solver is not solver:
+            if srv.pending():
+                raise _errors.StrandedRequestError(
+                    f"bucket {key[0]} was rebuilt with {srv.pending()} "
+                    f"request(s) queued on its old bank; drain before "
+                    f"apply_plan")
+            self._retired[0] += srv.requests_served
+            self._retired[1] += srv.waves_solved
+            srv = None
+        if srv is None:
+            srv = self._servers[key] = SolveServer(solver, self.panel_k)
+        return srv
+
+    def _submit_fleet(self, b, tenant, tag) -> None:
+        b = torch.as_tensor(b)
+        if b.ndim == 1:
+            b = b[:, None]
+        if b.ndim != 2:
+            raise ValueError(f"rhs must be (d, j), got {tuple(b.shape)}")
+        h = self.fleet.lookup(tenant if tenant is not None else "default",
+                              order=int(b.shape[0]), tag=tag)
+        srv = self._server_for(h.bucket)
+        b = b.to(srv.solver.grid.device, srv.solver.dtype)
+        n_b = h.bucket[0]
+        if b.shape[0] < n_b:             # zero rows, made on the device
+            b = torch.nn.functional.pad(b, (0, 0, 0, n_b - b.shape[0]))
+        srv.submit(b, factor=h.slot)
+        self._routes.setdefault((h.bucket, h.slot),
+                                collections.deque()) \
+            .append((h.tenant, h.tag, h.order))
+
+    def submit(self, b, factor: int = 0, *, tenant: str | None = None,
+               tag: object = None) -> None:
         """Enqueue one RHS block — an (n,) vector or (n, j) columns —
         for bank factor ``factor``; it is copied to the device here.
         Submits to an inactive capacity slot are refused: its lane is an
-        inert zero panel."""
+        inert zero panel.
+
+        In fleet mode the request is addressed by ``(tenant, order)``
+        (and ``tag`` when the tenant holds several factors of one
+        order): the RHS row count is the order, the fleet routes it to
+        the planned bucket, and the panel is zero-padded to the bucket
+        order (the padded factor's identity tail maps the zero rows to
+        exact-zero solution rows)."""
+        if self.fleet is not None:
+            return self._submit_fleet(b, tenant, tag)
+        if tenant is not None or tag is not None:
+            raise ValueError("tenant=/tag= addressing needs a fleet "
+                             "server (SolveServer(SolverFleet, ...))")
         if not 0 <= factor < self.solver.width:
             raise ValueError(f"unknown factor {factor}; bank holds "
                              f"{self.solver.width}")
@@ -746,12 +847,20 @@ class SolveServer:
         self._seq += 1
 
     def pending(self) -> int:
+        if self.fleet is not None:
+            return sum(s.pending() for s in self._servers.values())
         return sum(len(q) for q in self._queues.values())
 
     def cancel(self, factor: int) -> int:
         """Drop every queued request for ``factor``; returns how many.
         The recovery path when a slot was evicted with requests pending:
-        cancel it, then ``drain`` serves the rest."""
+        cancel it, then ``drain`` serves the rest.  A fleet server has
+        no flat slot space and refuses."""
+        if self.fleet is not None:
+            raise ValueError(
+                "cancel is slot-addressed; a fleet server has no flat "
+                "slot space (drain, or cancel on the bucket's own "
+                "server)")
         q = self._queues.pop(factor, None)
         if not q:
             return 0
@@ -795,8 +904,26 @@ class SolveServer:
         return out
 
     def warmup(self) -> "SolveServer":
+        if self.fleet is not None:
+            self.fleet.warmup(self.panel_k)
+            return self
         self.solver.warmup(self.panel_k)
         return self
+
+    def _drain_fleet(self) -> dict:
+        results: dict[tuple, list] = {}
+        for key, srv in self._servers.items():
+            for slot, xs in srv.drain().items():
+                route = self._routes.get((key, slot))
+                for X in xs:
+                    tenant, tag, d = route.popleft()
+                    results.setdefault((tenant, tag), []).append(
+                        X[:d] if d < X.shape[0] else X)
+        self.requests_served = self._retired[0] + sum(
+            s.requests_served for s in self._servers.values())
+        self.waves_solved = self._retired[1] + sum(
+            s.waves_solved for s in self._servers.values())
+        return results
 
     def drain(self) -> dict:
         """Serve all queued requests.  Returns {factor: [X, ...]} for
@@ -806,7 +933,14 @@ class SolveServer:
         slot was evicted after their submit raise
         :class:`~repro_torch.core.errors.StrandedRequestError`, even if
         the slot was re-admitted since: they would be solved against
-        its new occupant."""
+        its new occupant.
+
+        In fleet mode: drains every bucket's inner server (one wave per
+        bucket, not per order) and returns ``{(tenant, tag): [X, ...]}``,
+        each solution sliced back to its request's true (d, j); the
+        padded tail rows are exact zeros and are dropped here."""
+        if self.fleet is not None:
+            return self._drain_fleet()
         bank = self.solver.bank
         live = self.solver.live_slots()
         live_set = set(live)

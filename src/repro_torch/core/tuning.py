@@ -35,6 +35,15 @@ def default_machine() -> cm.Machine:
     return cm.h100()
 
 
+def default_dispatch_s(fallback: float) -> float:
+    """Per-program dispatch overhead in the units of the planners'
+    steady costs.  The port loads no calibration, so this is always
+    ``fallback`` (the fleet planner's nominal constant): the same
+    budget the reference prices with when it has no calibration, not a
+    time measured on the card."""
+    return fallback
+
+
 def steps_s(machine: cm.Machine, n: int, n0: int) -> float:
     """The machine's launch time for the n/n0 dependent steps of a
     solve (It-Inv sweep steps or Rec-TRSM base cases); 0 for a machine

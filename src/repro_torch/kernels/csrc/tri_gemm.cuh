@@ -28,6 +28,14 @@
 // several block rows (bt < BM), each element is also gated by its own
 // block's entry on load.  The unmasked instantiation is B1's and B2's
 // kernel and must compile to the same code whatever the MASK path does.
+//
+// The GATED instantiation (kernel B5's doubling levels, tri_inv_block.cu)
+// takes an int32 flag per matrix of the stack, in its own kernel
+// parameter: batch entry z belongs to matrix z / nq, and a CTA whose
+// matrix is flagged 0 returns before it loads anything, so that
+// matrix's operands are never read and its C is never written.  The
+// ungated instantiations (GATED = false: B1, B2, B4) must compile to the
+// code they had before the flag existed.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -142,9 +150,11 @@ __device__ __forceinline__ void k_step(
 
 // BM x BN output tile per block, BK-deep k-steps, TM x TN outputs per
 // thread.
-template <typename T, int BM, int BN, int BK, int TM, int TN, bool MASK>
+template <typename T, int BM, int BN, int BK, int TM, int TN, bool MASK,
+          bool GATED>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
-    tri_gemm_kernel(const TriGemmArgs<T> p, const BlockMask bm) {
+    tri_gemm_kernel(const TriGemmArgs<T> p, const BlockMask bm,
+                    const int* __restrict__ valid) {
   using A_t = typename Acc<T>::type;
   __shared__ A_t As[BK][BM + 1];
   __shared__ A_t Bs[BK][BN + 1];
@@ -153,6 +163,9 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
   const int tx = tid % (BN / TN), ty = tid / (BN / TN);
   const int r0 = blockIdx.y * BM, c0 = blockIdx.x * BN;
   const int64_t zb = blockIdx.z / p.nq, zq = blockIdx.z % p.nq;
+  if constexpr (GATED) {
+    if (valid[zb] == 0) return;  // uniform across the CTA: one matrix
+  }
   const T* A = p.a + zb * p.a_sb + zq * p.a_sq;
   const T* B = p.b + zb * p.b_sb + zq * p.b_sq;
   T* C = p.c + zb * p.c_sb + zq * p.c_sq;
@@ -248,15 +261,17 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
   }
 }
 
-template <typename T, int BM, int BN, int BK, int TM, int TN, bool MASK>
+template <typename T, int BM, int BN, int BK, int TM, int TN, bool MASK,
+          bool GATED>
 cudaError_t launch_tiles(const TriGemmArgs<T>& p, const BlockMask& bm,
-                         int64_t batch, cudaStream_t stream) {
+                         const int* valid, int64_t batch,
+                         cudaStream_t stream) {
   const int64_t gx = (p.N + BN - 1) / BN, gy = (p.M + BM - 1) / BM;
   if (batch < 1 || batch > 65535 || gy > 65535 || gx > 65535)
     return cudaErrorInvalidConfiguration;
   dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)batch);
-  tri_gemm_kernel<T, BM, BN, BK, TM, TN, MASK>
-      <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(p, bm);
+  tri_gemm_kernel<T, BM, BN, BK, TM, TN, MASK, GATED>
+      <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(p, bm, valid);
   return cudaGetLastError();
 }
 
@@ -265,19 +280,23 @@ cudaError_t launch_tiles(const TriGemmArgs<T>& p, const BlockMask& bm,
 // shared memory): an n = 4096 operand spreads over 512 blocks, and the
 // longest row tile, which bounds the launch, walks 16 dependent k-steps
 // instead of the 128 of 32 x 16 x 32 tiles (PERF.md has both times).
-// Everything else takes 64 x 64 tiles.
-template <typename T, bool MASK = false>
+// Everything else takes 64 x 64 tiles.  GATED takes ``valid``, one flag
+// per matrix of the stack (batch / nq of them).
+template <typename T, bool MASK = false, bool GATED = false>
 cudaError_t launch_tri_gemm(const TriGemmArgs<T>& p, int64_t batch,
                             cudaStream_t stream,
-                            const BlockMask& bm = BlockMask{nullptr, 0, 0}) {
+                            const BlockMask& bm = BlockMask{nullptr, 0, 0},
+                            const int* valid = nullptr) {
   if (p.M < 1 || p.N < 1 || p.K < 1 || p.nq < 1) return cudaErrorInvalidValue;
   if (MASK && (bm.mask == nullptr || bm.bt < 1 || bm.nb < 1))
     return cudaErrorInvalidValue;
+  if (GATED && valid == nullptr) return cudaErrorInvalidValue;
   constexpr int kSkinnyBK = sizeof(typename Acc<T>::type) == 8 ? 128 : 256;
   if (p.N <= 16)
-    return launch_tiles<T, 8, 16, kSkinnyBK, 1, 1, MASK>(p, bm, batch,
+    return launch_tiles<T, 8, 16, kSkinnyBK, 1, 1, MASK, GATED>(
+        p, bm, valid, batch, stream);
+  return launch_tiles<T, 64, 64, 16, 4, 4, MASK, GATED>(p, bm, valid, batch,
                                                          stream);
-  return launch_tiles<T, 64, 64, 16, 4, 4, MASK>(p, bm, batch, stream);
 }
 
 }  // namespace repro

@@ -27,6 +27,24 @@
 // inverse of tril(L): the upper triangle of the input is never read and
 // the upper triangle of the output is written as zeros.  Not yet done:
 // tensor cores for bf16, and pipelining within a level.
+//
+// The GATED instantiations (kernel B5, repro_tri_inv_leaf_valid_* and
+// repro_tri_gemm_valid_*) replace the validity-gated Pallas kernel
+// (_tri_inv_valid_kernel of the same file): the same inversion with an
+// (m,) int32 mask read on the device.  A block flagged 0 comes out as
+// zeros and none of its L is read, so no reciprocal is taken of its
+// diagonal.  Its home is padded admission: a factor of order d padded
+// to blockdiag(L, I) at order n has diagonal blocks that are wholly
+// the identity tail, and those need no inversion.  A gated leaf CTA
+// writes zeros over its sub-block's whole row strip [jS, jS+S) x
+// [0, n0), the part left of the sub-block included (in an ungated
+// block the levels write it), and reads nothing; every level's CTAs
+// of a gated block return before their first load (tri_gemm.cuh's
+// GATED flag), so they write neither the scratch T nor the output.
+// What bounds it: the valid blocks' flops, as B1; the gated blocks cost
+// one write of zeros.  An unflagged block runs B1's arithmetic in B1's
+// order, so an all-ones mask gives B1's output bit for bit, and the
+// ungated instantiations compile to the code they had before.
 #include "tri_gemm.cuh"
 
 namespace {
@@ -38,10 +56,10 @@ __host__ __device__ constexpr int leaf_max() {
   return sizeof(typename repro::Acc<T>::type) == 8 ? 32 : 64;
 }
 
-template <typename T>
+template <typename T, bool GATED>
 __global__ void __launch_bounds__(256)
     tri_inv_leaf_kernel(const T* __restrict__ L, T* __restrict__ out, int n0,
-                        int S) {
+                        int S, const int* __restrict__ valid) {
   using A_t = typename repro::Acc<T>::type;
   constexpr int kL = leaf_max<T>();
   __shared__ A_t Am[kL][kL + 1];
@@ -50,6 +68,14 @@ __global__ void __launch_bounds__(256)
   const int per = n0 / S;
   const int64_t b = blockIdx.x / per;
   const int j = blockIdx.x % per;
+  if constexpr (GATED) {
+    if (valid[b] == 0) {  // uniform across the CTA: one block
+      T* strip = out + b * n0 * n0 + (int64_t)j * S * n0;
+      for (int64_t e = threadIdx.x; e < (int64_t)S * n0; e += blockDim.x)
+        strip[e] = repro::from_acc<T>(A_t(0));
+      return;
+    }
+  }
   const int64_t base = b * n0 * n0 + (int64_t)j * S * n0 + (int64_t)j * S;
   const T* Lb = L + base;
   T* Ob = out + base;
@@ -96,24 +122,27 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <typename T>
-int leaf(const void* L, void* out, long long m, int n0, int S, void* stream) {
+template <typename T, bool GATED>
+int leaf(const void* L, void* out, long long m, int n0, int S,
+         const void* valid, void* stream) {
   if (S < 1 || S > leaf_max<T>() || n0 % S || m < 1)
     return (int)cudaErrorInvalidValue;
+  if (GATED && valid == nullptr) return (int)cudaErrorInvalidValue;
   const long long blocks = m * (n0 / S);
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
-  tri_inv_leaf_kernel<T><<<(unsigned)blocks, 256, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(L), static_cast<T*>(out), n0, S);
+  tri_inv_leaf_kernel<T, GATED><<<(unsigned)blocks, 256, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(L), static_cast<T*>(out), n0, S,
+      static_cast<const int*>(valid));
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool GATED>
 int gemm(const void* a, long long lda, long long a_sb, long long a_sq,
          const void* b, long long ldb, long long b_sb, long long b_sq,
          void* c, long long ldc, long long c_sb, long long c_sq, int M,
          int N, int K, int nq, long long batch, int tri_a, int tri_b,
-         int negate, void* stream) {
+         int negate, const void* valid, void* stream) {
   repro::TriGemmArgs<T> p;
   p.a = static_cast<const T*>(a);
   p.lda = lda; p.a_sb = a_sb; p.a_sq = a_sq;
@@ -124,17 +153,20 @@ int gemm(const void* a, long long lda, long long a_sb, long long a_sq,
   p.M = M; p.N = N; p.K = K;
   p.nq = nq;
   p.tri_a = tri_a; p.tri_b = tri_b; p.negate = negate;
-  return (int)repro::launch_tri_gemm<T>(p, batch,
-                                        static_cast<cudaStream_t>(stream));
+  return (int)repro::launch_tri_gemm<T, false, GATED>(
+      p, batch, static_cast<cudaStream_t>(stream),
+      repro::BlockMask{nullptr, 0, 0}, static_cast<const int*>(valid));
 }
 
 }  // namespace
 
+// The _valid entries (B5) also take a contiguous (m,) int32 mask on the
+// device; in repro_tri_gemm_valid_* batch entry z reads flag z / nq.
 #define REPRO_TRI_INV(SUFFIX, T)                                            \
   extern "C" int repro_tri_inv_leaf_##SUFFIX(const void* L, void* out,     \
                                              long long m, int n0, int S,   \
                                              void* stream) {               \
-    return leaf<T>(L, out, m, n0, S, stream);                              \
+    return leaf<T, false>(L, out, m, n0, S, nullptr, stream);              \
   }                                                                        \
   extern "C" int repro_tri_gemm_##SUFFIX(                                  \
       const void* a, long long lda, long long a_sb, long long a_sq,       \
@@ -142,9 +174,24 @@ int gemm(const void* a, long long lda, long long a_sb, long long a_sq,
       void* c, long long ldc, long long c_sb, long long c_sq, int M,      \
       int N, int K, int nq, long long batch, int tri_a, int tri_b,        \
       int negate, void* stream) {                                          \
-    return gemm<T>(a, lda, a_sb, a_sq, b, ldb, b_sb, b_sq, c, ldc, c_sb,  \
-                   c_sq, M, N, K, nq, batch, tri_a, tri_b, negate,         \
-                   stream);                                                \
+    return gemm<T, false>(a, lda, a_sb, a_sq, b, ldb, b_sb, b_sq, c, ldc, \
+                          c_sb, c_sq, M, N, K, nq, batch, tri_a, tri_b,   \
+                          negate, nullptr, stream);                        \
+  }                                                                        \
+  extern "C" int repro_tri_inv_leaf_valid_##SUFFIX(                        \
+      const void* L, void* out, long long m, int n0, int S,               \
+      const void* valid, void* stream) {                                   \
+    return leaf<T, true>(L, out, m, n0, S, valid, stream);                 \
+  }                                                                        \
+  extern "C" int repro_tri_gemm_valid_##SUFFIX(                            \
+      const void* a, long long lda, long long a_sb, long long a_sq,       \
+      const void* b, long long ldb, long long b_sb, long long b_sq,       \
+      void* c, long long ldc, long long c_sb, long long c_sq, int M,      \
+      int N, int K, int nq, long long batch, int tri_a, int tri_b,        \
+      int negate, const void* valid, void* stream) {                       \
+    return gemm<T, true>(a, lda, a_sb, a_sq, b, ldb, b_sb, b_sq, c, ldc,  \
+                         c_sb, c_sq, M, N, K, nq, batch, tri_a, tri_b,    \
+                         negate, valid, stream);                           \
   }
 
 REPRO_TRI_INV(f32, float)

@@ -31,6 +31,15 @@
 // run one after another with no overlap of loads and math.  Not yet
 // done: splitting the k-loop across blocks, cp.async/TMA pipelining,
 // wgmma.
+//
+// repro_gemm_* is the same tiles for a row-strided A, dense (tri_a = 0)
+// or lower triangular (tri_a = 1): C[b] = op(A[b]) @ X[b], the trailing
+// updates and the refinement residual of a narrow capacity bank.  It
+// replaces no TPU kernel; it is there for its summation order.  Each
+// output element sums its k-steps in one fixed order whatever M and K
+// are, so the products of an order-d factor padded into an order-n
+// bank give the unpadded products' bits (cuBLAS picks its kernel, and
+// with it the order of the sums, by shape).
 #include "tri_gemm.cuh"
 
 namespace {
@@ -61,6 +70,24 @@ int trmm(const void* L, long long l_sb, const void* X, long long x_sb,
 }
 
 template <typename T>
+int gemm(const void* A, long long a_sb, long long lda, const void* X,
+         long long x_sb, void* C, long long batch, int M, int K, int N,
+         int tri_a, void* stream) {
+  repro::TriGemmArgs<T> p;
+  p.a = static_cast<const T*>(A);
+  p.lda = lda; p.a_sb = a_sb; p.a_sq = 0;
+  p.b = static_cast<const T*>(X);
+  p.ldb = N; p.b_sb = x_sb; p.b_sq = 0;
+  p.c = static_cast<T*>(C);
+  p.ldc = N; p.c_sb = (int64_t)M * N; p.c_sq = 0;
+  p.M = M; p.N = N; p.K = K;
+  p.nq = 1;
+  p.tri_a = tri_a; p.tri_b = 0; p.negate = 0;
+  return (int)repro::launch_tri_gemm<T>(p, batch,
+                                        static_cast<cudaStream_t>(stream));
+}
+
+template <typename T>
 int trmm_masked(const void* L, long long l_sb, const void* X,
                 long long x_sb, void* C, long long batch, int n, int k,
                 const void* mask, int bt, void* stream) {
@@ -84,6 +111,20 @@ int trmm_masked(const void* L, long long l_sb, const void* X,
 REPRO_TRMM(f32, float)
 REPRO_TRMM(bf16, __nv_bfloat16)
 REPRO_TRMM(f64, double)
+
+#define REPRO_GEMM(SUFFIX, T)                                              \
+  extern "C" int repro_gemm_##SUFFIX(const void* A, long long a_sb,       \
+                                     long long lda, const void* X,        \
+                                     long long x_sb, void* C,             \
+                                     long long batch, int M, int K,       \
+                                     int N, int tri_a, void* stream) {    \
+    return gemm<T>(A, a_sb, lda, X, x_sb, C, batch, M, K, N, tri_a,       \
+                   stream);                                                \
+  }
+
+REPRO_GEMM(f32, float)
+REPRO_GEMM(bf16, __nv_bfloat16)
+REPRO_GEMM(f64, double)
 
 #define REPRO_TRMM_MASKED(SUFFIX, T)                                       \
   extern "C" int repro_trmm_masked_##SUFFIX(                               \

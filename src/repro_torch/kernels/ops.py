@@ -1,8 +1,10 @@
 """Public wrappers for the hand-written kernels.
 
 ``trmm`` (with ``block_mask=``, the masked kernel ``trmm_masked``),
-``tri_inv_blocks`` and ``trsm_substitution`` (with ``valid=``, the
-validity-gated kernel B6) run the CUDA kernel on a CUDA tensor and the
+``tri_inv_blocks`` (with ``valid=``, the validity-gated kernel B5),
+``trsm_substitution`` (with ``valid=``, the validity-gated kernel B6)
+and ``gemm`` (the tri-GEMM's tiles as a product summed in one order
+whatever the shape) run the CUDA kernel on a CUDA tensor and the
 kernel's plain PyTorch version on a CPU tensor.
 ``block_inv_kernel`` is the drop-in hook for the solvers' ``block_inv=``
 parameter, and the port's default diagonal-block inverter.
@@ -13,16 +15,17 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.tri_inv_block import tri_inv_blocks  # noqa: F401
-from repro_torch.kernels.trmm import trmm, trmm_masked  # noqa: F401
+from repro_torch.kernels.trmm import gemm, trmm, trmm_masked  # noqa: F401
 from repro_torch.kernels.trsm_block import trsm_substitution  # noqa: F401
 
 
-def block_inv_kernel(blocks: torch.Tensor) -> torch.Tensor:
+def block_inv_kernel(blocks: torch.Tensor, valid=None) -> torch.Tensor:
     """Hook matching the ``block_inv`` signature of the solvers:
     (m, n0, n0) -> batched inverses.  A power-of-two n0 (1 included)
     goes to :func:`tri_inv_blocks`; another n0 runs the plain doubling
     on a CPU tensor and raises on any other device, since B1 takes
-    powers of two only.
+    powers of two only.  ``valid`` (an (m,) mask on the blocks' device)
+    zeroes every block flagged 0 without reading it (kernel B5).
 
     Degenerate blocks are rejected eagerly: a zero-sized batch or a
     0x0 / non-square block would otherwise reach a launch with a
@@ -42,9 +45,14 @@ def block_inv_kernel(blocks: torch.Tensor) -> torch.Tensor:
             f"batches cannot be inverted — check n0 / grid divisibility "
             f"upstream")
     if n0 & (n0 - 1) == 0:
-        return tri_inv_blocks(blocks.contiguous())
+        return tri_inv_blocks(blocks.contiguous(), valid)
     if blocks.device.type != "cpu":
         raise ValueError(f"the tri_inv_blocks kernel takes a power-of-two "
                          f"block size, got n0={n0} on {blocks.device}")
     from repro_torch.core import blocked
-    return blocked.tri_inv_batched(blocks)
+    if valid is None:
+        return blocked.tri_inv_batched(blocks)
+    v = torch.as_tensor(valid, device=blocks.device).reshape(-1, 1, 1) != 0
+    eye = torch.eye(n0, dtype=blocks.dtype, device=blocks.device)
+    inv = blocked.tri_inv_batched(torch.where(v, blocks, eye))
+    return torch.where(v, inv, torch.zeros_like(inv))

@@ -19,6 +19,16 @@ def tri_inv_blocks_ref(Ls: torch.Tensor) -> torch.Tensor:
                                          eye.expand_as(Ls), upper=False)
 
 
+def tri_inv_blocks_valid_ref(Ls: torch.Tensor, valid) -> torch.Tensor:
+    """Batched inversion of the blocks flagged 1 in ``valid`` and zeros
+    for the blocks flagged 0 (inverted as the identity in their place,
+    so their L never enters the solve)."""
+    v = torch.as_tensor(valid, device=Ls.device).reshape(-1, 1, 1) != 0
+    eye = torch.eye(Ls.shape[-1], dtype=Ls.dtype, device=Ls.device)
+    inv = tri_inv_blocks_ref(torch.where(v, Ls, eye))
+    return torch.where(v, inv, torch.zeros_like(inv))
+
+
 def trsm_ref(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """X with tril(L) X = B."""
     return torch.linalg.solve_triangular(torch.tril(L), B, upper=False)

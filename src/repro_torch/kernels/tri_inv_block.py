@@ -19,6 +19,14 @@ triangular products addressed into the output in place.
 
 Both versions compute the inverse of ``tril(L)``: the input's upper
 triangle is never read and the output's is zero.
+
+``valid=`` (an (m,) mask, kernel B5: the counterpart of the reference's
+``_tri_inv_valid_kernel``) gates each block of the stack: one flagged 0
+comes out as zeros, and none of its L is read, so no reciprocal of its
+diagonal is taken.  Padded admission flags the diagonal blocks that lie
+wholly in a padded factor's identity tail.  The kernel reads the mask
+on the device; its launches are counted apart
+(``tri_inv_blocks.valid_launches``) from B1's (``.launches``).
 """
 
 from __future__ import annotations
@@ -42,12 +50,18 @@ def _acc(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-def tri_inv_blocks_plain(Ls: torch.Tensor) -> torch.Tensor:
+def tri_inv_blocks_plain(Ls: torch.Tensor, valid=None) -> torch.Tensor:
     """(m, n0, n0) -> inverses of the tril of each block, by the TPU
-    kernel's doubling levels (n0 a power of two)."""
+    kernel's doubling levels (n0 a power of two).  ``valid`` (an (m,)
+    mask) zeroes every block flagged 0; such a block is inverted as the
+    identity in its place, so nothing of its L enters an operation."""
     dt, acc = Ls.dtype, _acc(Ls.dtype)
     n0 = Ls.shape[-1]
     eye = torch.eye(n0, dtype=dt, device=Ls.device)
+    if valid is not None:
+        v = torch.as_tensor(valid, device=Ls.device).reshape(-1, 1, 1) != 0
+        A = tri_inv_blocks_plain(torch.where(v, Ls, eye))
+        return torch.where(v, A, torch.zeros_like(A))
     L = torch.tril(Ls)
     A = L * (1.0 - eye) + torch.diag_embed(1.0 / torch.diagonal(
         L, dim1=-2, dim2=-1))
@@ -92,40 +106,47 @@ def _schedule(Ls, out, scratch, leaf, gemm) -> None:
 
 
 @functools.cache
-def _entries(dtype: torch.dtype):
+def _entries(dtype: torch.dtype, gated: bool = False):
     lib = build.library("tri_inv_block")
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    leaf = getattr(lib, f"repro_tri_inv_leaf_{_SUFFIX[dtype]}")
-    leaf.argtypes = [P, P, LL, I, I, P]
+    suffix = ("valid_" if gated else "") + _SUFFIX[dtype]
+    leaf = getattr(lib, f"repro_tri_inv_leaf_{suffix}")
+    leaf.argtypes = [P, P, LL, I, I] + [P] * (1 + gated)
     leaf.restype = I
-    gemm = getattr(lib, f"repro_tri_gemm_{_SUFFIX[dtype]}")
-    gemm.argtypes = [P, LL, LL, LL] * 3 + [I, I, I, I, LL, I, I, I, P]
+    gemm = getattr(lib, f"repro_tri_gemm_{suffix}")
+    gemm.argtypes = [P, LL, LL, LL] * 3 + [I, I, I, I, LL, I, I, I] \
+        + [P] * (1 + gated)
     gemm.restype = I
     return leaf, gemm
 
 
-def _cuda_launchers(dtype: torch.dtype, stream: int):
-    leaf_fn, gemm_fn = _entries(dtype)
+def _cuda_launchers(dtype: torch.dtype, stream: int, valid=None):
+    """The leaf and level launchers of B1, or of B5 when ``valid`` (a
+    contiguous int32 mask on the device) is given."""
+    leaf_fn, gemm_fn = _entries(dtype, valid is not None)
+    gate = () if valid is None else (valid.data_ptr(),)
 
     def leaf(Ls, out, S):
         m, n0, _ = Ls.shape
         build.check(leaf_fn(Ls.data_ptr(), out.data_ptr(), m, n0, S,
-                            stream), "tri_inv_blocks leaf")
+                            *gate, stream), "tri_inv_blocks leaf")
 
     def gemm(a, b, c, s, nq, batch, *, tri_a, tri_b, negate):
         args = []
         for t, off, ld, sb, sq in (a, b, c):
             args += [t.data_ptr() + off * t.element_size(), ld, sb, sq]
         build.check(gemm_fn(*args, s, s, s, nq, batch, int(tri_a),
-                            int(tri_b), int(negate), stream),
+                            int(tri_b), int(negate), *gate, stream),
                     "tri_inv_blocks level")
 
     return leaf, gemm
 
 
-def tri_inv_blocks(Ls: torch.Tensor) -> torch.Tensor:
+def tri_inv_blocks(Ls: torch.Tensor, valid=None) -> torch.Tensor:
     """Invert a contiguous stack (m, n0, n0) of lower-triangular blocks,
-    n0 a power of two; the result has the input's dtype."""
+    n0 a power of two; the result has the input's dtype.  ``valid``: an
+    (m,) mask on Ls's device (kernel B5); a block flagged 0 comes out as
+    zeros and its L is never read."""
     if Ls.ndim != 3 or Ls.shape[1] != Ls.shape[2]:
         raise ValueError(f"tri_inv_blocks takes an (m, n0, n0) stack, got "
                          f"{tuple(Ls.shape)}")
@@ -133,8 +154,15 @@ def tri_inv_blocks(Ls: torch.Tensor) -> torch.Tensor:
     if m < 1 or n0 < 1 or n0 & (n0 - 1):
         raise ValueError(f"need m >= 1 and n0 a power of two, got "
                          f"{tuple(Ls.shape)}")
+    if valid is not None:
+        valid = torch.as_tensor(valid)
+        if valid.shape != (m,):
+            raise ValueError(f"valid must be ({m},), one flag per block, "
+                             f"got {tuple(valid.shape)}")
+        if valid.device != Ls.device:
+            raise ValueError(f"valid on {valid.device}, Ls on {Ls.device}")
     if Ls.device.type == "cpu":
-        return tri_inv_blocks_plain(Ls)
+        return tri_inv_blocks_plain(Ls, valid)
     if Ls.device.type != "cuda":
         raise ValueError(f"tri_inv_blocks runs on CUDA or CPU tensors, "
                          f"got {Ls.device}")
@@ -146,15 +174,23 @@ def tri_inv_blocks(Ls: torch.Tensor) -> torch.Tensor:
     if m * max(n0 // (2 * LEAF[Ls.dtype]), 1) > 65535:
         raise ValueError(f"{m} blocks of order {n0} exceed one launch's "
                          f"batch of 65535 sub-blocks")
+    if valid is not None:
+        # a device-side cast: the mask is never read on the host
+        valid = valid.to(torch.int32).contiguous()
     out = torch.empty_like(Ls)
     # the widest level's T: m * n0/(2s) blocks of s x s, s <= n0/2
     scratch = torch.empty(max(m * n0 * n0 // 4, 1), dtype=Ls.dtype,
                           device=Ls.device)
     with torch.cuda.device(Ls.device):
         stream = torch.cuda.current_stream(Ls.device).cuda_stream
-        _schedule(Ls, out, scratch, *_cuda_launchers(Ls.dtype, stream))
-    tri_inv_blocks.launches += 1
+        _schedule(Ls, out, scratch,
+                  *_cuda_launchers(Ls.dtype, stream, valid))
+    if valid is None:
+        tri_inv_blocks.launches += 1
+    else:
+        tri_inv_blocks.valid_launches += 1
     return out
 
 
 tri_inv_blocks.launches = 0
+tri_inv_blocks.valid_launches = 0

@@ -13,6 +13,12 @@ CPU tensors.
 
 Partial sums are fp32 for fp32 and bf16 operands (double for fp64);
 the result has X's dtype.
+
+:func:`gemm` is the same tiles for a row-strided A, dense or lower
+triangular: no TPU kernel's port, but a product whose sums run in one
+order whatever the shape, which the trailing updates and residuals of a
+capacity bank need (``SolveSpec.fixed_order``) so that a padded slot
+solves as the unpadded factor does, bit for bit.
 """
 
 from __future__ import annotations
@@ -50,6 +56,73 @@ def trmm_masked_plain(L: torch.Tensor, X: torch.Tensor, block_mask,
     Lm = torch.where(elem, torch.tril(L),
                      torch.zeros((), dtype=L.dtype, device=L.device))
     return torch.matmul(Lm.to(acc), X.to(acc)).to(X.dtype)
+
+
+def gemm_plain(A: torch.Tensor, X: torch.Tensor,
+               lower: bool = False) -> torch.Tensor:
+    """C = A @ X (tril(A) @ X when ``lower``) with fp32 (fp64) partial
+    sums in X's dtype, each output element summed over k in ascending
+    order, one rank-1 term at a time: the order does not depend on A's
+    shape, as the CPU's BLAS order does."""
+    acc = _acc(X.dtype)
+    A = (torch.tril(A) if lower else A).to(acc)
+    X = X.to(acc)
+    C = torch.zeros(A.shape[:-1] + X.shape[-1:], dtype=acc,
+                    device=X.device)
+    for k in range(A.shape[-1]):
+        C += A[..., :, k:k + 1] * X[..., k:k + 1, :]
+    return C.to(X.dtype)
+
+
+@functools.cache
+def _gemm_entry(dtype: torch.dtype):
+    fn = getattr(build.library("trmm"), "repro_gemm_" + _SUFFIX[dtype])
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [P, LL, LL, P, LL, P, LL, I, I, I, I, P]
+    fn.restype = I
+    return fn
+
+
+def gemm(A: torch.Tensor, X: torch.Tensor, *,
+         lower: bool = False) -> torch.Tensor:
+    """C = A @ X, or tril(A) @ X when ``lower``, for A (b, M, K) with
+    contiguous columns (its row and batch strides are free: a block
+    column of a resident stack passes without a copy) and X (b, K, N)
+    contiguous: fp32 (fp64) partial sums in a fixed k order that does
+    not depend on M or K, the result in X's dtype.  On the card the
+    tri-GEMM's tiles (tri_a = ``lower``, so a lower A skips the tiles
+    above its diagonal as B2 does), on the CPU :func:`gemm_plain`."""
+    if A.device.type == "cpu" and X.device.type == "cpu":
+        return gemm_plain(A, X, lower)
+    if A.device != X.device or A.device.type != "cuda":
+        raise ValueError(f"gemm runs on CUDA or CPU tensors, got "
+                         f"{A.device} and {X.device}")
+    if A.dtype != X.dtype or A.dtype not in _SUFFIX:
+        raise TypeError(f"gemm takes matching float32/bfloat16/float64 "
+                        f"operands, got {A.dtype} and {X.dtype}")
+    if A.ndim != 3 or X.ndim != 3 or A.shape[0] != X.shape[0] \
+            or A.shape[2] != X.shape[1] or min(A.shape) < 1 \
+            or X.shape[2] < 1:
+        raise ValueError(f"gemm takes (b, M, K) @ (b, K, N), got "
+                         f"{tuple(A.shape)} and {tuple(X.shape)}")
+    if A.stride(-1) != 1 or not X.is_contiguous():
+        raise ValueError(f"gemm takes A with unit column stride and a "
+                         f"contiguous X, got strides {A.stride()} and "
+                         f"{X.stride()}")
+    b, M, K = A.shape
+    N = X.shape[2]
+    C = torch.empty((b, M, N), dtype=X.dtype, device=X.device)
+    with torch.cuda.device(A.device):
+        status = _gemm_entry(A.dtype)(
+            A.data_ptr(), A.stride(0), A.stride(1), X.data_ptr(),
+            X.stride(0), C.data_ptr(), b, M, K, N, int(lower),
+            torch.cuda.current_stream(A.device).cuda_stream)
+    build.check(status, "gemm")
+    gemm.launches += 1
+    return C
+
+
+gemm.launches = 0
 
 
 @functools.cache

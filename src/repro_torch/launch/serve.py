@@ -18,6 +18,16 @@
         --bank 16 --n 256 --panel-k 16 --requests 256 --updates 32 \
         [--method inv|rec] [--precision bf16_refine]
 
+    # a mixed-order multi-tenant fleet: the planner buckets the order
+    # spectrum [n, n/2, n/4], two tenants' factors land in the planned
+    # buckets (padded where merged), requests route by (tenant, order),
+    # a factor is refreshed in place after every wave and every third
+    # update a third tenant's burst reclaims the coldest slot across
+    # tenants (DESIGN.md Sec. 12)
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload trsm-fleet \
+        --n 256 --panel-k 16 --requests 96 --updates 12 \
+        [--precision bf16_refine] [--fleet-stats] [--cache-stats]
+
 Factors are L = tril(randn) + n I from seeded device generators;
 requests have random widths 1..panel_k.  ``--method rec`` serves
 through the recursive baseline (its base cases on the substitution
@@ -28,6 +38,9 @@ and ms per panel (wave); ``trsm-churn`` also ms per update and the
 program builds during the churn (0 and 0 in the steady state).  On a
 "rec" churn bank every base case runs the validity-gated substitution
 kernel (B6), which solves the empty and evicted lanes to zeros.
+``trsm-fleet`` prints the plan's bucket table and requests, bucket-waves,
+refreshes, reclaims and the program builds during the run (0 in the
+steady state), and with ``--fleet-stats`` the fleet's stats table.
 The other workloads of ``repro.launch.serve`` are not ported yet.
 """
 
@@ -40,7 +53,7 @@ import numpy as np
 import torch
 
 # workload -> the ROADMAP item that ports it
-_NOT_PORTED = {"lm": "A15", "trsm-fleet": "A11", "trsm-traffic": "A10"}
+_NOT_PORTED = {"lm": "A15", "trsm-traffic": "A10"}
 
 
 def _print_cache_stats():
@@ -219,11 +232,93 @@ def serve_trsm_churn(args):
         _print_cache_stats()
 
 
+def serve_trsm_fleet(args):
+    """Mixed-order multi-tenant serving through the fleet tier: the
+    planner buckets the order spectrum, two tenants' factors land in
+    the planned buckets, requests route by (tenant, order), churn
+    refreshes factors in place, and over-subscribed buckets reclaim
+    their coldest slot across tenants (DESIGN.md Sec. 12)."""
+    from repro_torch import api
+    from repro_torch.core import session
+    grid = api.make_trsm_mesh(1, 1, device=args.device)
+    rng = np.random.default_rng(0)
+    n = args.n
+    orders = [n, n // 2, n // 4]        # the tenants' order spectrum
+    makers = {d: _factor_maker(d, args, grid.device)[0] for d in orders}
+    gen = torch.Generator(device=grid.device).manual_seed(1)
+    # two tenants, two factors per order each
+    manifest = {d: 4 for d in orders}
+    plan = api.plan_fleet(manifest, grid, k=args.panel_k,
+                          precision=args.precision)
+    print(plan.table())
+    fleet = api.SolverFleet(grid, plan)
+    handles = {}
+    for tenant in ("tenant-a", "tenant-b"):
+        for d in orders:
+            for j in range(2):
+                tag = f"layer{orders.index(d)}-{j}"
+                handles[(tenant, tag)] = fleet.admit(
+                    makers[d](), tenant=tenant, tag=tag)
+    server = api.SolveServer(fleet, args.panel_k).warmup()
+    keys = [fleet.solver(key).spec_for(args.panel_k)
+            for key in fleet.buckets]
+    builds0 = sum(session.BUILD_COUNTS[k] for k in keys)
+
+    widths = rng.integers(1, args.panel_k + 1, args.requests)
+    per_wave = max(args.requests // max(args.updates, 1), 1)
+    names = list(handles)
+    replaced = reclaimed = 0
+    _sync(grid.device)
+    t0 = time.perf_counter()
+    for i, w in enumerate(widths):
+        tenant, tag = names[i % len(names)]
+        h = handles[(tenant, tag)]
+        server.submit(torch.randn((h.order, int(w)), generator=gen,
+                                  device=grid.device),
+                      tenant=tenant, tag=tag)
+        if (i + 1) % per_wave == 0:
+            server.drain()
+            # churn between waves: refresh one factor in place; every
+            # third update over-subscribes a bucket so the fleet
+            # reclaims its coldest slot across tenants
+            tenant, tag = names[replaced % len(names)]
+            h = handles[(tenant, tag)]
+            fleet.replace(h, makers[h.order]())
+            replaced += 1
+            if replaced % 3 == 0:
+                d = orders[reclaimed % len(orders)]
+                hot = fleet.admit(makers[d](), tenant="tenant-c",
+                                  tag=f"burst{reclaimed}")
+                reclaimed += 1
+                # drop the handles the reclaim made stale
+                live = set(map(id, fleet.handles()))
+                handles = {kt: hh for kt, hh in handles.items()
+                           if id(hh) in live}
+                handles[("tenant-c", hot.tag)] = hot
+                names = list(handles)
+    server.drain()
+    _sync(grid.device)
+    dt_total = time.perf_counter() - t0
+    rebuilt = sum(session.BUILD_COUNTS[k] for k in keys) - builds0
+    st = fleet.stats()
+    print(f"served {server.requests_served} mixed-order requests "
+          f"({len(orders)} orders, {len(fleet.buckets)} planned "
+          f"bucket(s)) in {server.waves_solved} bucket-waves, "
+          f"{dt_total:.3f}s; {replaced} in-place refreshes, "
+          f"{st['reclaims']} cross-tenant reclaims; rebuilds solve="
+          f"{rebuilt} (steady state: 0) on {grid.device} n={n} "
+          f"precision={plan.buckets[0].policy.name}")
+    if args.fleet_stats:
+        print(fleet.format_stats())
+    if args.cache_stats:
+        _print_cache_stats()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", default="trsm",
                     choices=["trsm", "trsm-bank", "trsm-churn",
-                             *_NOT_PORTED])
+                             "trsm-fleet", *_NOT_PORTED])
     ap.add_argument("--n", type=int, default=256)
     ap.add_argument("--n0", type=int, default=None)
     ap.add_argument("--panel-k", type=int, default=16)
@@ -243,6 +338,10 @@ def main(argv=None):
                     metavar="dense|banded[:BW]|block-sparse",
                     help="factor block structure for the trsm workload "
                          "(level-scheduled sweep; DESIGN.md Sec. 14)")
+    ap.add_argument("--fleet-stats", action="store_true",
+                    help="print fleet-wide serving stats (per-bucket "
+                         "occupancy, admits, reclaims, hit rate) after "
+                         "the drain (trsm-fleet workload)")
     ap.add_argument("--cache-stats", action="store_true",
                     help="print compiled-solver cache stats after the "
                          "drain")
@@ -255,7 +354,8 @@ def main(argv=None):
     if args.workload != "trsm" and args.method == "auto":
         ap.error("a bank takes --method inv or rec (auto depends on k)")
     {"trsm": serve_trsm, "trsm-bank": serve_trsm_bank,
-     "trsm-churn": serve_trsm_churn}[args.workload](args)
+     "trsm-churn": serve_trsm_churn,
+     "trsm-fleet": serve_trsm_fleet}[args.workload](args)
 
 
 if __name__ == "__main__":

@@ -14,6 +14,8 @@ strictly lower part the same share of that part's largest entry; the
 substitution 1e-4 (fp32) and 1e-10 (fp64) of max|X|: its dots are
 sequential FMA chains, the plain version's cuBLAS sums in another
 order, and the recurrence carries each difference into later rows.
+The validity-gated inversion (B5) is held as the inverse, and the
+ordered product (``ops.gemm``) as trmm.
 """
 
 import pytest
@@ -549,8 +551,8 @@ def test_capacity_churn_on_the_card(cuda, method):
 def test_padded_admission_on_the_card(cuda, method):
     """pad_to=n admits an order-d factor as blockdiag(L, I): the tail
     solves to exact zeros, and the leading block equals an unpadded
-    order-d bank's of the same width (4) bit for bit.  (At width 1 the
-    cuBLAS GEMMs of the two orders differ in the last bits: ROADMAP C.)"""
+    order-d bank's of the same width (4) bit for bit.  (Every width:
+    test_padded_solve_is_bit_identical_at_every_width.)"""
     from repro_torch import api
     n, d, C, k = 1024, 512, 4, 16
     g = torch.Generator(device=cuda).manual_seed(13)
@@ -571,3 +573,163 @@ def test_padded_admission_on_the_card(cuda, method):
     torch.cuda.synchronize()
     assert torch.equal(Xb[0, :d], Xs[0])
     assert not Xb[:, d:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("m,n0,mask", [(3, 16, (1, 0, 1)),
+                                       (2, 256, (1, 0)),
+                                       (4, 128, (0, 1, 1, 0))])
+def test_tri_inv_valid_kernel_matches_plain(cuda, dtype, m, n0, mask):
+    """B5 against its plain version: the valid blocks within B1's
+    tolerance, the flagged ones exact zeros; NaN planted in every
+    flagged block changes no bit; an all-ones mask is B1 bit for bit.
+    The gated launches are counted apart from B1's."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    Ls = (torch.randn((m, n0, n0), generator=g, device=cuda).tril_()
+          + n0 * torch.eye(n0, device=cuda)).to(dtype)
+    v = torch.tensor(mask, dtype=torch.int32, device=cuda)
+    live = v.bool()
+    b1, b5 = (tri_inv_block.tri_inv_blocks.launches,
+              tri_inv_block.tri_inv_blocks.valid_launches)
+    got = tri_inv_block.tri_inv_blocks(Ls, valid=v)
+    assert (tri_inv_block.tri_inv_blocks.launches,
+            tri_inv_block.tri_inv_blocks.valid_launches) == (b1, b5 + 1)
+    want = tri_inv_block.tri_inv_blocks_plain(Ls, valid=v)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    scale = want.double().abs().max().item()
+    assert (got.double() - want.double()).abs().max().item() <= tol * scale
+    low = torch.tril(want[live].double(), -1).abs().max().item()
+    assert torch.tril((got[live] - want[live]).double(), -1).abs().max() \
+        .item() <= tol * low
+    assert not got[~live].any()
+    Lp = Ls.clone()
+    Lp[~live] = float("nan")
+    assert torch.equal(tri_inv_block.tri_inv_blocks(Lp, valid=v), got)
+    assert torch.equal(
+        tri_inv_block.tri_inv_blocks(Ls, valid=torch.ones_like(v)),
+        tri_inv_block.tri_inv_blocks(Ls))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lower,transpose", [(True, False), (True, True),
+                                             (False, False), (False, True)])
+def test_padded_dt_is_b1_on_the_card(cuda, lower, transpose):
+    """A padded admission runs phase 1 on B5 (one gated launch, no B1),
+    and the slot's resident Dt equals B1 on the whole padded, reduced
+    stack under torch.equal: the identity tail's blocks, never read,
+    come out as the identity B1 inverts them to."""
+    from repro_torch import api
+    from repro_torch.core import inv_trsm
+    n, d, n0 = 1024, 512, 256
+    g = torch.Generator(device=cuda).manual_seed(16)
+    T = torch.randn((d, d), generator=g, device=cuda).tril_()
+    T.diagonal().add_(d)
+    if not lower:
+        T = T.T.contiguous()
+    bank = api.FactorBank(api.make_trsm_mesh(1, 1), n, n0=n0,
+                          precision="bf16_refine", lower=lower,
+                          transpose=transpose, capacity=2)
+    b1, b5 = (tri_inv_block.tri_inv_blocks.launches,
+              tri_inv_block.tri_inv_blocks.valid_launches)
+    slot = bank.admit(T, pad_to=n)
+    assert (tri_inv_block.tri_inv_blocks.launches,
+            tri_inv_block.tri_inv_blocks.valid_launches) == (b1, b5 + 1)
+    L_lo, Dt = bank.stacks()[:2]
+    want = inv_trsm.invert_diag_blocks(
+        L_lo[slot:slot + 1], n0=n0, block_inv=tri_inv_block.tri_inv_blocks,
+        accum_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(Dt[slot:slot + 1], want)
+
+
+_PAD_CASES = [(1024, 512, "inv", 256, prec, lo, tr)
+              for prec in ("fp32", "bf16_refine")
+              for lo, tr in ((True, False), (True, True), (False, False),
+                             (False, True))] \
+    + [(1024, 512, "rec", None, prec, True, False)
+       for prec in ("fp32", "bf16_refine")] \
+    + [(8192, 4096, method, n0, prec, True, False)
+       for method, n0 in (("inv", 4096), ("rec", None))
+       for prec in ("fp32", "bf16_refine")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 2, 4, 16])
+@pytest.mark.parametrize("n,d,method,n0,precision,lower,transpose",
+                         _PAD_CASES)
+def test_padded_solve_is_bit_identical_at_every_width(
+        cuda, C, n, d, method, n0, precision, lower, transpose):
+    """The padding contract (FactorBank.admit(pad_to=)) at every bank
+    width: an order-d factor padded into an order-n capacity bank of
+    width C solves its leading d x 16 block bit for bit as the same
+    factor in an order-d bank of width C, at the same n0 ("rec": n0 =
+    n), and its tail to exact zeros.  At width 1 the banks serve with
+    fixed_order (the products on ops.gemm: cuBLAS sums a width-1
+    product by shape); wider banks keep cuBLAS."""
+    from repro_torch import api
+    k = 16
+    g = torch.Generator(device=cuda).manual_seed(17)
+    T = torch.randn((d, d), generator=g, device=cuda).tril_()
+    T.diagonal().add_(d)
+    if not lower:
+        T = T.T.contiguous()
+    b = torch.randn((d, k), generator=g, device=cuda)
+    grid = api.make_trsm_mesh(1, 1)
+    kw = dict(method=method, n0=n0, precision=precision, lower=lower,
+              transpose=transpose, capacity=C)
+    big, small = api.FactorBank(grid, n, **kw), api.FactorBank(grid, d, **kw)
+    big.admit(T, pad_to=n)
+    small.admit(T)
+    Bb = torch.zeros((C, n, k), device=cuda)
+    Bb[0, :d] = b
+    Bs = torch.zeros((C, d, k), device=cuda)
+    Bs[0] = b
+    sb, ss = api.Solver.from_bank(big), api.Solver.from_bank(small)
+    assert sb.spec_for(k).fixed_order == ss.spec_for(k).fixed_order \
+        == (C == 1)
+    launches = trmm.gemm.launches
+    Xb, Xs = sb.solve(Bb)[0], ss.solve(Bs)[0]
+    torch.cuda.synchronize()
+    if C > 1 or precision == "bf16_refine":
+        assert (trmm.gemm.launches > launches) == (C == 1)
+    assert torch.equal(Xb[:d], Xs)
+    assert not Xb[d:].any()
+    op = T.T if transpose else T              # the operator solved
+    r = torch.linalg.norm(op.double() @ Xs.double() - b.double()) \
+        / torch.linalg.norm(b.double())
+    assert r.item() <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("lower", [False, True])
+def test_gemm_kernel_matches_plain_and_sums_in_one_order(cuda, dtype,
+                                                         lower):
+    """ops.gemm on a row-strided block column against its plain version
+    within trmm's tolerance, and the rows it shares with a shorter (or,
+    lower triangular, a smaller) operand bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(18)
+    n, r, k = 512, 128, 16
+    L = torch.randn((2, n, n), generator=g, device=cuda).to(dtype)
+    A = L if lower else L[:, r:, :r]             # a strided view
+    X = torch.randn((2, A.shape[-1], k), generator=g,
+                    device=cuda).to(dtype)
+    launches = trmm.gemm.launches
+    got = trmm.gemm(A, X, lower=lower)
+    assert trmm.gemm.launches == launches + 1
+    want = trmm.gemm_plain(A, X, lower)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    scale = want.double().abs().max().item()
+    assert (got.double() - want.double()).abs().max().item() \
+        <= tol * scale
+    if lower:
+        part = trmm.gemm(L[:, :r, :r].contiguous(),
+                         X[:, :r].contiguous(), lower=True)
+    else:
+        part = trmm.gemm(A[:, :r], X)
+    assert torch.equal(got[:, :r], part)

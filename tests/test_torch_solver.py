@@ -206,7 +206,7 @@ def test_serve_cli_runs_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "served 6 solve requests" in out and "hit_rate" in out
     with pytest.raises(SystemExit):
-        serve.main(["--workload", "trsm-fleet", "--device", "cpu"])
+        serve.main(["--workload", "trsm-traffic", "--device", "cpu"])
 
 
 def test_port_imports_neither_jax_nor_repro():
