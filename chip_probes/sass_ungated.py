@@ -17,10 +17,14 @@ none and its last template argument is a bool followed by a trailing
 ``tri_inv_leaf_kernel`` and ``tri_gemm_kernel``, B6's
 ``trsm_chain_kernel``), the instantiation with the flag 0 is matched
 with the old kernel without that argument and parameter, and the one
-with the flag 1 is listed as gated.  Prints one line per kernel and
-``SASS_UNGATED_IDENTICAL True`` when every ungated kernel is, instruction
-for instruction, the old one.  The path hash in the mangled name of a
-kernel in an anonymous namespace is left out of the match.
+with the flag 1 is listed as gated.  A kernel with no counterpart in the
+old build (every kernel of a source the old directory lacks, such as
+B2's ``trmm_tri.cu``) is listed as new; an old kernel that no new
+kernel matches is listed as gone.  Prints one line per kernel and
+``SASS_UNGATED_IDENTICAL True`` when every matched kernel is,
+instruction for instruction, the old one and none is gone.  The path
+hash in the mangled name of a kernel in an anonymous namespace is left
+out of the match.
 """
 
 import pathlib
@@ -62,11 +66,12 @@ def main() -> int:
     same_all, compared = True, 0
     with tempfile.TemporaryDirectory() as tmp:
         for src in sorted(CSRC.glob("*.cu")):
-            if not (old_dir / src.name).exists():
-                continue
-            old = sass(old_dir / src.name,
-                       pathlib.Path(tmp) / f"old_{src.stem}.cubin")
             new = sass(src, pathlib.Path(tmp) / f"new_{src.stem}.cubin")
+            old = {}
+            if (old_dir / src.name).exists():
+                old = sass(old_dir / src.name,
+                           pathlib.Path(tmp) / f"old_{src.stem}.cubin")
+            matched = set()
             for name, body in sorted(new.items()):
                 base, m = name, GATE.match(name)
                 if name not in old and m:
@@ -75,11 +80,18 @@ def main() -> int:
                               "instructions")
                         continue
                     base = m.group(1) + m.group(3)
-                same = old.get(base) == body
+                if base not in old:
+                    print(src.name, "new", name, len(body), "instructions")
+                    continue
+                matched.add(base)
+                same = old[base] == body
                 same_all &= same
                 compared += 1
                 print(src.name, "ungated", name, "vs", base, len(body),
-                      len(old.get(base, [])), "SAME" if same else "DIFFERENT")
+                      len(old[base]), "SAME" if same else "DIFFERENT")
+            for name in sorted(set(old) - matched):
+                same_all = False
+                print(src.name, "gone", name)
     same_all &= compared > 0
     print("SASS_UNGATED_IDENTICAL", same_all)
     return 0 if same_all else 1

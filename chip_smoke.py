@@ -22,7 +22,11 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    follows), the kernel's, the plain version's and one PyTorch
    library call's time (CUDA events, median over runs, L2 flushed
    before each run), and the least time the card could take (bytes over
-   3.35 TB/s or flops over the dtype's peak, the larger).  The
+   3.35 TB/s or flops over the dtype's peak, the larger).  trmm (B2,
+   ``trmm_phase``) also runs over the (16, 4096, 4096) and (8, 4096,
+   4096) x 16 bf16 stacks of the churn bank and the fleet's bucket, and
+   every B2 case checks that two launches give the same bits and that
+   NaN above the diagonal changes none.  The
    block-masked trmm (B4) runs at the structured residual's shape and
    three more (``masked_phase``), each also with NaN planted in its
    skipped blocks.  The validity-gated substitution (B6, ``valid_phase``)
@@ -285,38 +289,71 @@ def kernel_phase(device, timer):
         print(json.dumps(rec), flush=True)
         if (m, n0, dtype) == (2, 4096, torch.float32):
             records["tri_inv_blocks"] = rec
-    # trmm: the solve step X_i = Dt_i @ B_i at the sweep's shapes
-    for n0, dtype in ((4096, torch.bfloat16), (4096, torch.float32),
-                      (256, torch.bfloat16)):
-        Dt = torch.randn((1, n0, n0), generator=g,
-                         device=device).tril_().to(dtype)
-        X = torch.randn((1, n0, PANEL_K), generator=g, device=device,
-                        dtype=torch.float32).to(dtype)
-        got, want = trmm.trmm(Dt, X), trmm.trmm_plain(Dt, X)
-        abs_err, rel_err = errors(got, want)
-        # bf16: exact products, fp32 sums, one output rounding (2^-8)
-        tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
-        check(rel_err <= tol, f"trmm {tuple(Dt.shape)} @ {tuple(X.shape)} "
-                              f"{dtype}: max_rel_err {rel_err} > {tol}")
-        k_ms = timer.ms(lambda: trmm.trmm(Dt, X), 50)
-        p_ms = timer.ms(lambda: trmm.trmm_plain(Dt, X), 50)
-        lib_ms = timer.ms(lambda: torch.matmul(Dt, X), 50)
-        nbytes = (n0 * (n0 + 1) // 2 + 2 * n0 * PANEL_K) * Dt.element_size()
-        b_ms, b_by = bound(nbytes, n0 * (n0 + 1) * PANEL_K, dtype)
-        rec = dict(kernel="trmm", data="tril(randn) @ randn",
-                   shape=[list(Dt.shape), list(X.shape)],
-                   dtype=str(dtype).removeprefix("torch."),
-                   max_abs_err=abs_err, max_rel_err=rel_err, tol=tol,
-                   kernel_ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                   bound_ms=b_ms, bound_by=b_by)
-        print(json.dumps(rec), flush=True)
-        if (n0, dtype) == (4096, torch.bfloat16):
-            records["trmm"] = rec
+    records["trmm"] = trmm_phase(device, timer, g)
     records["trsm_substitution"] = substitution_phase(device, timer, g)
     records["trmm_masked"] = masked_phase(device, timer, g)
     records["trsm_substitution_valid"] = valid_phase(device, timer, g)
     records["tri_inv_blocks_valid"] = valid_inv_phase(device, timer, g)
     return records
+
+
+def trmm_phase(device, timer, g):
+    """trmm (B2) against its plain version: the solve step X_i = Dt_i @
+    B_i at the sweep's shapes, (1, 4096, 4096) x 16 in bf16 (the main
+    path's case, whose record this returns) and fp32 and (1, 256, 256) x
+    16 in bf16, then over the stacks the banks multiply, (16, 4096,
+    4096) x 16 (the C = 16 churn bank) and (8, 4096, 4096) x 16 (the
+    fleet's C = 8 bucket), bf16.  Dt is a dense tril(randn), so each of
+    the L tiles left of the diagonal adds as much to C as the diagonal
+    tile does.  Each case also checks that a second launch gives the
+    same bits and that NaN planted strictly above Dt's diagonal changes
+    no bit of C.  The library call is torch.matmul on the same (full)
+    operands; the bound counts the triangles and X read once and C
+    written once, and the triangles' flops."""
+    from repro_torch.kernels import trmm
+    main = None
+    for b, n0, dtype in ((1, 4096, torch.bfloat16), (1, 4096, torch.float32),
+                         (1, 256, torch.bfloat16), (16, 4096, torch.bfloat16),
+                         (8, 4096, torch.bfloat16)):
+        Dt = torch.randn((b, n0, n0), generator=g,
+                         device=device).tril_().to(dtype)
+        X = torch.randn((b, n0, PANEL_K), generator=g, device=device,
+                        dtype=torch.float32).to(dtype)
+        got, want = trmm.trmm(Dt, X), trmm.trmm_plain(Dt, X)
+        abs_err, rel_err = errors(got, want)
+        what = f"trmm {tuple(Dt.shape)} @ {tuple(X.shape)} {dtype}"
+        # bf16: exact products, fp32 sums, one output rounding (2^-8)
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+        check(rel_err <= tol, f"{what}: max_rel_err {rel_err} > {tol}")
+        twice_equal = torch.equal(trmm.trmm(Dt, X), got)
+        check(twice_equal, f"{what}: two launches differ")
+        upper = torch.ones((n0, n0), dtype=torch.bool,
+                           device=device).triu_(1)
+        poisoned = Dt.masked_fill(upper, float("nan"))
+        poisoned_equal = torch.equal(trmm.trmm(poisoned, X), got)
+        check(poisoned_equal, f"{what}: NaN above the diagonal reached C")
+        del poisoned, upper, want
+        reps = 20 if b > 1 else 50
+        k_ms = timer.ms(lambda: trmm.trmm(Dt, X), reps)
+        p_ms = timer.ms(lambda: trmm.trmm_plain(Dt, X), reps)
+        lib_ms = timer.ms(lambda: torch.matmul(Dt, X), reps)
+        nbytes = b * (n0 * (n0 + 1) // 2 + 2 * n0 * PANEL_K) \
+            * Dt.element_size()
+        b_ms, b_by = bound(nbytes, b * n0 * (n0 + 1) * PANEL_K, dtype)
+        rec = dict(kernel="trmm", data="tril(randn) @ randn",
+                   shape=[list(Dt.shape), list(X.shape)],
+                   dtype=str(dtype).removeprefix("torch."),
+                   max_abs_err=abs_err, max_rel_err=rel_err, tol=tol,
+                   two_launches_bit_equal=twice_equal,
+                   nan_above_diagonal_bit_equal=poisoned_equal,
+                   kernel_ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                   bound_ms=b_ms, bound_by=b_by)
+        print(json.dumps(rec), flush=True)
+        if main is None:
+            main = rec
+        del Dt, X, got
+    torch.cuda.empty_cache()
+    return main
 
 
 def valid_inv_phase(device, timer, g):
@@ -1762,7 +1799,7 @@ def main() -> int:
     for name, method, source, replaces in (
             ("tri_inv_blocks", "inv", "src/repro_torch/kernels/csrc/"
              "tri_inv_block.cu", "src/repro/kernels/tri_inv_block.py:63"),
-            ("trmm", "inv", "src/repro_torch/kernels/csrc/trmm.cu",
+            ("trmm", "inv", "src/repro_torch/kernels/csrc/trmm_tri.cu",
              "src/repro/kernels/trmm.py:32"),
             ("trsm_substitution", "rec",
              "src/repro_torch/kernels/csrc/trsm_block.cu",

@@ -1,24 +1,22 @@
-// Batched triangular matrix-matrix product  C[b] = tril(L[b]) @ X[b],
-// and its block-masked variant.
+// Batched triangular matrix-matrix products on tri_gemm.cuh's tiles: the
+// block-masked trmm (B4) and the ordered product.  The unmasked trmm
+// (B2) has its own kernel in trmm_tri.cu.
 //
-// repro_trmm_* replaces the Pallas TPU kernel src/repro/kernels/trmm.py
-// (trmm / _trmm_kernel): the It-Inv-TRSM solve step X_i = Dt_i @ B_i,
-// with Dt_i the inverted lower-triangular diagonal block.
-//
-// repro_trmm_masked_* replaces _trmm_masked_kernel of the same file:
-// the same product with an (n/bt, n/bt) int32 block mask shared by the
-// batch, every block whose entry is 0 skipped and never read.  It forms
-// the refinement residual tril(L_hi) @ X of a structured factor, with
-// the structure's mask at bt = n0.  Bound by bytes like the unmasked
-// product, but only the kept blocks are read: a row tile walks the runs
-// of kept blocks of its block row (tri_gemm.cuh's MASK instantiation),
-// so a banded factor's row tile visits only its band.
+// repro_trmm_masked_* replaces _trmm_masked_kernel of
+// src/repro/kernels/trmm.py: C[b] = tril(L[b]) @ X[b] with an
+// (n/bt, n/bt) int32 block mask shared by the batch, every block whose
+// entry is 0 skipped and never read.  It forms the refinement residual
+// tril(L_hi) @ X of a structured factor, with the structure's mask at
+// bt = n0.  Bound by bytes like the unmasked product, but only the kept
+// blocks are read: a row tile walks the runs of kept blocks of its block
+// row (tri_gemm.cuh's MASK instantiation), so a banded factor's row tile
+// visits only its band.
 //
 // What bounds it on the H100: bytes.  At the main path's shape
-// (L 4096 x 4096, X 4096 x 16) it does 2 * n^2/2 * k = 2.7e8 flops on
-// 16 MiB (bf16) of the triangle: 16 flops per byte, far below the
-// card's ~20 (fp32 CUDA cores) to ~295 (bf16 tensor cores) flops per
-// byte, so the least time is the triangle's read at 3.35 TB/s.
+// (L 8192 x 8192 fp32, X 8192 x 16) it does 2 flops per element of the
+// kept triangle on 4 bytes of it, far below the card's ~20 (fp32 CUDA
+// cores) flops per byte, so the least time is the kept blocks' read at
+// 3.35 TB/s.
 //
 // What the design does about it: the grid is (column tiles, row tiles,
 // batch) and the k-loop of a row tile stops at the diagonal, so tiles
@@ -29,8 +27,8 @@
 // stored in X's dtype; ragged k is masked.  Still far from the bound:
 // the work of row tile i grows with i, and the last row tile's k-steps
 // run one after another with no overlap of loads and math.  Not yet
-// done: splitting the k-loop across blocks, cp.async/TMA pipelining,
-// wgmma.
+// done: balancing the triangle and pipelining the loads, as trmm_tri.cu
+// does for B2 (B4's own redesign is a later item of ROADMAP B).
 //
 // repro_gemm_* is the same tiles for a row-strided A, dense (tri_a = 0)
 // or lower triangular (tri_a = 1): C[b] = op(A[b]) @ X[b], the trailing
@@ -59,14 +57,6 @@ repro::TriGemmArgs<T> trmm_args(const void* L, long long l_sb,
   p.nq = 1;
   p.tri_a = 1; p.tri_b = 0; p.negate = 0;
   return p;
-}
-
-template <typename T>
-int trmm(const void* L, long long l_sb, const void* X, long long x_sb,
-         void* C, long long batch, int n, int k, void* stream) {
-  return (int)repro::launch_tri_gemm<T>(
-      trmm_args<T>(L, l_sb, X, x_sb, C, n, k), batch,
-      static_cast<cudaStream_t>(stream));
 }
 
 template <typename T>
@@ -99,18 +89,6 @@ int trmm_masked(const void* L, long long l_sb, const void* X,
 }
 
 }  // namespace
-
-#define REPRO_TRMM(SUFFIX, T)                                              \
-  extern "C" int repro_trmm_##SUFFIX(const void* L, long long l_sb,       \
-                                     const void* X, long long x_sb,       \
-                                     void* C, long long batch, int n,     \
-                                     int k, void* stream) {               \
-    return trmm<T>(L, l_sb, X, x_sb, C, batch, n, k, stream);             \
-  }
-
-REPRO_TRMM(f32, float)
-REPRO_TRMM(bf16, __nv_bfloat16)
-REPRO_TRMM(f64, double)
 
 #define REPRO_GEMM(SUFFIX, T)                                              \
   extern "C" int repro_gemm_##SUFFIX(const void* A, long long a_sb,       \

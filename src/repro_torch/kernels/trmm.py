@@ -5,16 +5,17 @@ inverted lower-triangular diagonal block, so the product skips every
 tile above the diagonal.  B4 (:func:`trmm_masked`, or :func:`trmm` with
 ``block_mask=``) also skips every (bt x bt) block whose entry in a block
 mask is 0, and never reads it: the refinement residual of a structured
-factor, with the structure's mask at bt = n0.  Both launch the
-hand-written CUDA kernels of ``csrc/trmm.cu`` (replacing the Pallas
-kernels of ``repro.kernels.trmm``) on CUDA tensors and run their plain
-PyTorch versions, :func:`trmm_plain` and :func:`trmm_masked_plain`, on
-CPU tensors.
+factor, with the structure's mask at bt = n0.  Both launch
+hand-written CUDA kernels (replacing the Pallas kernels of
+``repro.kernels.trmm``) on CUDA tensors, B2 from ``csrc/trmm_tri.cu``
+and B4 from ``csrc/trmm.cu``, and run their plain PyTorch versions,
+:func:`trmm_plain` and :func:`trmm_masked_plain`, on CPU tensors.
 
 Partial sums are fp32 for fp32 and bf16 operands (double for fp64);
-the result has X's dtype.
+the result has X's dtype.  B2's sum order depends only on an output's
+row and its k-steps, never on n, the batch or the operands' alignment.
 
-:func:`gemm` is the same tiles for a row-strided A, dense or lower
+:func:`gemm` is B4's tiles for a row-strided A, dense or lower
 triangular: no TPU kernel's port, but a product whose sums run in one
 order whatever the shape, which the trailing updates and residuals of a
 capacity bank need (``SolveSpec.fixed_order``) so that a padded slot
@@ -127,8 +128,9 @@ gemm.launches = 0
 
 @functools.cache
 def _entry(dtype: torch.dtype, masked: bool = False):
-    name = "repro_trmm_masked_" if masked else "repro_trmm_"
-    fn = getattr(build.library("trmm"), name + _SUFFIX[dtype])
+    lib, name = ("trmm", "repro_trmm_masked_") if masked \
+        else ("trmm_tri", "repro_trmm_")
+    fn = getattr(build.library(lib), name + _SUFFIX[dtype])
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [P, LL, P, LL, P, LL, I, I] + ([P, I] if masked
                                                  else []) + [P]

@@ -35,8 +35,11 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float64])
-@pytest.mark.parametrize("b,n,k", [(1, 256, 16), (2, 200, 7), (1, 96, 40)])
+@pytest.mark.parametrize("b,n,k", [(1, 256, 16), (2, 200, 7), (1, 96, 40),
+                                   (1, 4096, 16), (16, 1024, 16)])
 def test_trmm_kernel_matches_plain(cuda, dtype, b, n, k):
+    """Ragged and unaligned shapes, the main path's solve step (one
+    4096 x 4096 block, 16 columns) and a 16-wide stack."""
     g = torch.Generator(device=cuda).manual_seed(0)
     L = torch.randn((b, n, n), generator=g, device=cuda).to(dtype)
     X = torch.randn((b, n, k), generator=g, device=cuda).to(dtype)
@@ -46,6 +49,99 @@ def test_trmm_kernel_matches_plain(cuda, dtype, b, n, k):
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.double(), want.double(), rtol=tol,
                                atol=tol * n ** 0.5)
+
+
+_DTYPES = [torch.float32, torch.bfloat16, torch.float64]
+
+
+def _offset_copy(t):
+    """``t`` copied into a storage one element past the allocator's
+    aligned base: a view whose base breaks 16-byte alignment."""
+    flat = torch.empty((t.numel() + 1,), dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_trmm_kernel_takes_misaligned_views(cuda, dtype):
+    """Dt[:, i] @ B[:, rows] on storages offset by one element, so the
+    base pointers are not 16-byte aligned: the element-load path, held
+    against the plain version and bit for bit against the 16-byte path
+    on contiguous copies (the same sums in the same order)."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    Dt = _offset_copy(torch.randn((2, 4, 64, 64), generator=g,
+                                  device=cuda).to(dtype))
+    B = _offset_copy(torch.randn((2, 256, 16), generator=g,
+                                 device=cuda).to(dtype))
+    L, X = Dt[:, 1], B[:, 64:128]
+    assert L.data_ptr() % 16 and X.data_ptr() % 16
+    got = trmm.trmm(L, X)
+    want = trmm.trmm_plain(L, X)
+    aligned = trmm.trmm(L.contiguous(), X.contiguous())
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.double(), want.double(), rtol=tol,
+                               atol=tol * 8)
+    assert torch.equal(got, aligned)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_trmm_kernel_two_launches_are_bit_equal(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(22)
+    L = torch.randn((4, 1024, 1024), generator=g, device=cuda).to(dtype)
+    X = torch.randn((4, 1024, 16), generator=g, device=cuda).to(dtype)
+    first, second = trmm.trmm(L, X), trmm.trmm(L, X)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("b,n,k", [(1, 512, 16), (2, 200, 7)])
+def test_trmm_kernel_never_reads_above_the_diagonal(cuda, dtype, b, n, k):
+    """NaN planted strictly above L's diagonal changes no bit of C."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    L = torch.randn((b, n, n), generator=g, device=cuda).to(dtype)
+    X = torch.randn((b, n, k), generator=g, device=cuda).to(dtype)
+    upper = torch.ones((n, n), dtype=torch.bool, device=cuda).triu(1)
+    poisoned = L.masked_fill(upper, float("nan"))
+    want, got = trmm.trmm(L, X), trmm.trmm(poisoned, X)
+    torch.cuda.synchronize()
+    assert torch.isfinite(want).all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_trmm_kernel_rows_do_not_depend_on_n(cuda, dtype):
+    """The leading r rows of tril(L) @ X are bit-equal to the product of
+    the leading r x r triangle: a row's sums run in one order whatever
+    n is."""
+    g = torch.Generator(device=cuda).manual_seed(24)
+    n, r = 512, 128
+    L = torch.randn((2, n, n), generator=g, device=cuda).to(dtype)
+    X = torch.randn((2, n, 16), generator=g, device=cuda).to(dtype)
+    full = trmm.trmm(L, X)
+    part = trmm.trmm(L[:, :r, :r].contiguous(), X[:, :r].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(full[:, :r], part)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_trmm_kernel_batch_entry_does_not_depend_on_the_stack(cuda, dtype):
+    """One batch entry launched alone is bit-equal to the same entry
+    inside a stack of 16."""
+    g = torch.Generator(device=cuda).manual_seed(25)
+    L = torch.randn((16, 512, 512), generator=g, device=cuda).to(dtype)
+    X = torch.randn((16, 512, 16), generator=g, device=cuda).to(dtype)
+    stack = trmm.trmm(L, X)
+    alone = trmm.trmm(L[5], X[5])
+    torch.cuda.synchronize()
+    assert torch.equal(stack[5], alone)
 
 
 @pytest.mark.gpu
