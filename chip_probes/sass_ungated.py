@@ -5,26 +5,25 @@ version of those sources, compiled with the flags of
 ``kernels/build.py``.  Needs nvcc and cuobjdump.
 
     mkdir -p build/old_csrc
-    for f in tri_gemm.cuh tri_inv_block.cu trmm.cu trsm_block.cu; do
-        git show <rev>:src/repro_torch/kernels/csrc/$f > build/old_csrc/$f
-    done
+    git archive <rev> src/repro_torch/kernels/csrc \
+        | tar -x -C build/old_csrc --strip-components=4
     python3 chip_probes/sass_ungated.py build/old_csrc
 
 Every ``*.cu`` found in both directories is compiled twice.  A kernel
 is matched with the old kernel of the same mangled name; where there is
 none and its last template argument is a bool followed by a trailing
 ``const int*`` parameter (a validity gate added since: B5's
-``tri_inv_leaf_kernel`` and ``tri_gemm_kernel``, B6's
-``trsm_chain_kernel``), the instantiation with the flag 0 is matched
-with the old kernel without that argument and parameter, and the one
-with the flag 1 is listed as gated.  A kernel with no counterpart in the
-old build (every kernel of a source the old directory lacks, such as
-B2's ``trmm_tri.cu``) is listed as new; an old kernel that no new
-kernel matches is listed as gone.  Prints one line per kernel and
-``SASS_UNGATED_IDENTICAL True`` when every matched kernel is,
-instruction for instruction, the old one and none is gone.  The path
-hash in the mangled name of a kernel in an anonymous namespace is left
-out of the match.
+``tri_inv_leaf_kernel`` and ``tri_gemm_kernel``), the instantiation
+with the flag 0 is matched with the old kernel without that argument
+and parameter, and the one with the flag 1 is listed as gated.  Every
+kernel of a source the old directory lacks (B3 and B6's
+``trsm_chain.cu``, say) is listed as new, as is any other kernel with
+no counterpart in the old build; an old kernel of a source both
+directories hold that no new kernel matches is listed as gone.  Prints
+one line per kernel and ``SASS_UNGATED_IDENTICAL True`` when every
+matched kernel is, instruction for instruction, the old one and none is
+gone.  The path hash in the mangled name of a kernel in an anonymous
+namespace is left out of the match.
 """
 
 import pathlib
@@ -67,10 +66,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         for src in sorted(CSRC.glob("*.cu")):
             new = sass(src, pathlib.Path(tmp) / f"new_{src.stem}.cubin")
-            old = {}
-            if (old_dir / src.name).exists():
-                old = sass(old_dir / src.name,
-                           pathlib.Path(tmp) / f"old_{src.stem}.cubin")
+            if not (old_dir / src.name).exists():
+                for name, body in sorted(new.items()):
+                    print(src.name, "new", name, len(body), "instructions")
+                continue
+            old = sass(old_dir / src.name,
+                       pathlib.Path(tmp) / f"old_{src.stem}.cubin")
             matched = set()
             for name, body in sorted(new.items()):
                 base, m = name, GATE.match(name)

@@ -33,7 +33,9 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    runs at a capacity bank's rec base case (16, 8192, 8192) x 16 with
    half its mask zero, on strided quadrant views and in fp64, each also
    with NaN planted in its invalid systems and with an all-ones mask
-   held bit for bit against B3.  The validity-gated inversion (B5,
+   held bit for bit against B3; the substitution's records (B3, B6) also
+   carry the kernel's registers per thread and resident CTAs per SM
+   (``trsm_block.kernel_info``).  The validity-gated inversion (B5,
    ``valid_inv_phase``) runs at a padded admission's phase 1 into the
    order-8192 bucket, (2, 4096, 4096) fp32 with the identity tail's
    block flagged, and at (16, 256, 256) fp32 and (4, 2048, 2048) fp64,
@@ -516,7 +518,8 @@ def substitution_phase(device, timer, g):
                    library_ms_fp32_factor=None if ldtype == dtype
                    else lib_ms,
                    bound_ms=b_ms, bound_by=b_by,
-                   rows_per_ms=n / k_ms)
+                   rows_per_ms=n / k_ms,
+                   **trsm_block.kernel_info(ldtype, dtype))
         print(json.dumps(rec), flush=True)
         if main is None:
             main = rec
@@ -697,7 +700,8 @@ def valid_phase(device, timer, g):
                    library_ms=lib_ms if ldtype == dtype else None,
                    library_ms_fp32_factor=None if ldtype == dtype
                    else lib_ms,
-                   bound_ms=b_ms, bound_by=b_by)
+                   bound_ms=b_ms, bound_by=b_by,
+                   **trsm_block.kernel_info(ldtype, dtype, gated=True))
         print(json.dumps(rec), flush=True)
         if main is None:
             main = rec
@@ -1802,13 +1806,13 @@ def main() -> int:
             ("trmm", "inv", "src/repro_torch/kernels/csrc/trmm_tri.cu",
              "src/repro/kernels/trmm.py:32"),
             ("trsm_substitution", "rec",
-             "src/repro_torch/kernels/csrc/trsm_block.cu",
+             "src/repro_torch/kernels/csrc/trsm_chain.cu",
              "src/repro/kernels/trsm_block.py:26"),
             ("trmm_masked", "structured",
              "src/repro_torch/kernels/csrc/trmm.cu",
              "src/repro/kernels/trmm.py:50"),
             ("trsm_substitution_valid", "churn rec",
-             "src/repro_torch/kernels/csrc/trsm_block.cu",
+             "src/repro_torch/kernels/csrc/trsm_chain.cu",
              "src/repro/kernels/trsm_block.py:44"),
             ("tri_inv_blocks_valid", "fleet",
              "src/repro_torch/kernels/csrc/tri_inv_block.cu",

@@ -11,8 +11,10 @@ X's dtype (B's), as the Pallas kernel of ``repro.kernels.trsm_block``
 computes it.  The upper triangle of L is never read.
 
 :func:`trsm_substitution` launches the hand-written CUDA kernel
-(``csrc/trsm_block.cu``: a chain of row-block CTAs with ready flags,
-see the note there) on CUDA tensors and runs
+(``csrc/trsm_chain.cu``: per system and column tile a chain of
+row-block CTAs that hand X on in sub-blocks with ready flags, the
+chains of a stack side by side; see the note there) on CUDA tensors
+and runs
 :func:`trsm_substitution_plain`, the same recurrence in plain PyTorch,
 on CPU tensors.  The kernel carries X at the accumulate dtype (B must
 have it) and takes L as float32, float64, or bfloat16 widened on load
@@ -42,6 +44,7 @@ _ENTRY = {(torch.float32, torch.float32): "f32",
           (torch.float64, torch.float64): "f64"}
 KT = 16                                      # columns per chain
 ROWS = {torch.float32: 64, torch.float64: 32}  # rows per CTA, by X dtype
+SUB_ROWS = 16                     # rows per published sub-block of X
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
@@ -75,11 +78,27 @@ def trsm_substitution_plain(L: torch.Tensor, B: torch.Tensor,
 @functools.cache
 def _entry(suffix: str, gated: bool = False):
     name = f"repro_trsm_valid_{suffix}" if gated else f"repro_trsm_{suffix}"
-    fn = getattr(build.library("trsm_block"), name)
+    fn = getattr(build.library("trsm_chain"), name)
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [P, LL, LL, P, LL, LL, P, P, LL, I, I] + [P] * (1 + gated)
     fn.restype = I
     return fn
+
+
+def kernel_info(ldtype: torch.dtype, dtype: torch.dtype,
+                gated: bool = False) -> dict:
+    """The compiled kernel's registers per thread, resident CTAs per SM
+    (CUDA's occupancy calculator), threads per CTA, static shared bytes
+    and spilled (local) bytes per thread, for (L dtype, X dtype); builds
+    the library and needs a CUDA device."""
+    fn = getattr(build.library("trsm_chain"),
+                 f"repro_trsm_info_{_ENTRY[ldtype, dtype]}")
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    build.check(fn(int(gated), ctypes.addressof(out)), "trsm kernel_info")
+    return dict(zip(("registers", "ctas_per_sm", "threads", "shared_bytes",
+                     "local_bytes"), out))
 
 
 def _check(L: torch.Tensor, B: torch.Tensor, acc: torch.dtype) -> str:
@@ -133,8 +152,10 @@ def trsm_substitution(L: torch.Tensor, B: torch.Tensor, *,
     X = torch.empty((m, n0, k), dtype=B.dtype, device=B.device)
     if m * n0 * k:
         R = ROWS[B.dtype]
-        blocks = m * -(-k // KT) * -(-n0 // R)   # CTAs: one flag each
-        flags = torch.zeros(1 + blocks, dtype=torch.int32, device=B.device)
+        blocks = m * -(-k // KT) * -(-n0 // R)   # CTAs
+        # the ticket counter, then one flag per sub-block of each CTA
+        flags = torch.zeros(1 + blocks * (R // SUB_ROWS), dtype=torch.int32,
+                            device=B.device)
         args = (L.data_ptr(), L.stride(0), L.stride(1),
                 B.data_ptr(), B.stride(0), B.stride(1),
                 X.data_ptr(), flags.data_ptr(), m, n0, k)

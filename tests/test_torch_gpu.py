@@ -561,6 +561,64 @@ def test_trsm_valid_kernel_matches_plain(cuda, m, n, k, ldtype, dtype,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k,ldtype,dtype,gated", [
+    (1, 2048, 16, torch.bfloat16, torch.float32, False),
+    (3, 200, 40, torch.float32, torch.float32, False),
+    (4, 520, 16, torch.float32, torch.float32, True),
+    (2, 256, 7, torch.float64, torch.float64, False)])
+def test_trsm_kernel_two_launches_are_bit_equal(cuda, m, n, k, ldtype,
+                                                dtype, gated):
+    """The CTAs of a launch run in no fixed order and hand X on in
+    sub-blocks as they come; every entry's dot is still one FMA chain in
+    column order, so a second launch gives the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(19)
+    L, B = _system(g, cuda, m, n, k, dtype, ldtype)
+    v = torch.tensor([z % 2 == 0 for z in range(m)], dtype=torch.int32,
+                     device=cuda) if gated else None
+    first = trsm_block.trsm_substitution(L, B, valid=v)
+    assert torch.equal(trsm_block.trsm_substitution(L, B, valid=v), first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,big,ldtype", [(300, 1000, torch.float32),
+                                          (4096, 8192, torch.bfloat16)])
+def test_trsm_kernel_rows_do_not_depend_on_n(cuda, n, big, ldtype):
+    """The leading n rows of a larger system are the order-n system's
+    X bit for bit: a row's dot runs over the columns before it only."""
+    g = torch.Generator(device=cuda).manual_seed(20)
+    L, B = _system(g, cuda, 1, big, 16, torch.float32, ldtype)
+    whole = trsm_block.trsm_substitution(L, B)
+    lead = trsm_block.trsm_substitution(L[:, :n, :n].contiguous(),
+                                        B[:, :n].contiguous())
+    assert torch.equal(whole[:, :n], lead)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [16, 40])
+@pytest.mark.parametrize("mask", ["all", "half", "alternate"])
+def test_trsm_kernel_system_does_not_depend_on_the_stack(cuda, k, mask):
+    """Each valid system of a stack of 16 (B6; the chains of all systems
+    and, at k = 40, of three column tiles take their tickets interleaved)
+    is the same system solved alone (B3) bit for bit, and with every
+    system valid B6 is B3 on the stack."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    m, n = 16, 1000
+    L, B = _system(g, cuda, m, n, k, torch.float32, torch.bfloat16)
+    flags = {"all": [1] * m, "half": [1] * (m // 2) + [0] * (m // 2),
+             "alternate": [1, 0] * (m // 2)}[mask]
+    v = torch.tensor(flags, dtype=torch.int32, device=cuda)
+    stack = trsm_block.trsm_substitution(L, B, valid=v)
+    for z in range(m):
+        if flags[z]:
+            alone = trsm_block.trsm_substitution(L[z:z + 1], B[z:z + 1])
+            assert torch.equal(stack[z:z + 1], alone), z
+        else:
+            assert not stack[z].any()
+    if mask == "all":
+        assert torch.equal(stack, trsm_block.trsm_substitution(L, B))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("method", ["inv", "rec"])
 def test_capacity_churn_on_the_card(cuda, method):
     """A C = 4 capacity bank served through churn: warmed up empty (all
