@@ -29,7 +29,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = build.build_all()
     print(f"build_s {time.perf_counter() - t0:.1f}", flush=True)
-    log = (build.BUILD_DIR / f"{libs['tri_inv_block'].stem}.log").read_text()
+    log = (build.BUILD_DIR / f"{libs['tri_inv_levels'].stem}.log").read_text()
     for line in log.splitlines():
         if "tri_inv_leaf" in line or "Lb1E" in line or "registers" in line:
             print(line)

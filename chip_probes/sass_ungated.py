@@ -12,18 +12,21 @@ version of those sources, compiled with the flags of
 Every ``*.cu`` found in both directories is compiled twice.  A kernel
 is matched with the old kernel of the same mangled name; where there is
 none and its last template argument is a bool followed by a trailing
-``const int*`` parameter (a validity gate added since: B5's
+``const int*`` parameter (a validity gate added since, as B5's was to
 ``tri_inv_leaf_kernel`` and ``tri_gemm_kernel``), the instantiation
 with the flag 0 is matched with the old kernel without that argument
 and parameter, and the one with the flag 1 is listed as gated.  Every
-kernel of a source the old directory lacks (B3 and B6's
-``trsm_chain.cu``, say) is listed as new, as is any other kernel with
+kernel of a source the old directory lacks (B1 and B5's
+``tri_inv_levels.cu``, say) is listed as new, as is any other kernel with
 no counterpart in the old build; an old kernel of a source both
 directories hold that no new kernel matches is listed as gone.  Prints
 one line per kernel and ``SASS_UNGATED_IDENTICAL True`` when every
 matched kernel is, instruction for instruction, the old one and none is
 gone.  The path hash in the mangled name of a kernel in an anonymous
-namespace is left out of the match.
+namespace is left out of the match.  Each new kernel's line also counts
+its FFMA, DFMA and HMMA instructions, and the last lines list the new
+kernels that use the tensor cores (HMMA) and those with neither FFMA
+nor DFMA.
 """
 
 import pathlib
@@ -60,15 +63,32 @@ def sass(src: pathlib.Path, out: pathlib.Path) -> dict:
     return funcs
 
 
+def ops(body: list) -> str:
+    """FFMA, DFMA and HMMA counts of one kernel's instructions."""
+    # the opcode, past a predicate guard such as "@!P0"
+    names = [i.split()[i.startswith("@")].split(".")[0] for i in body]
+    count = {op: names.count(op) for op in ("FFMA", "DFMA", "HMMA")}
+    return " ".join(f"{op}={n}" for op, n in count.items())
+
+
 def main() -> int:
     old_dir = pathlib.Path(sys.argv[1])
     same_all, compared = True, 0
+    hmma, no_fma = [], []
+
+    def new_kernel(src, name, body):
+        print(src.name, "new", name, len(body), "instructions", ops(body))
+        if "HMMA=0" not in ops(body):
+            hmma.append(name)
+        if "FFMA=0 DFMA=0" in ops(body):
+            no_fma.append(name)
+
     with tempfile.TemporaryDirectory() as tmp:
         for src in sorted(CSRC.glob("*.cu")):
             new = sass(src, pathlib.Path(tmp) / f"new_{src.stem}.cubin")
             if not (old_dir / src.name).exists():
                 for name, body in sorted(new.items()):
-                    print(src.name, "new", name, len(body), "instructions")
+                    new_kernel(src, name, body)
                 continue
             old = sass(old_dir / src.name,
                        pathlib.Path(tmp) / f"old_{src.stem}.cubin")
@@ -82,7 +102,7 @@ def main() -> int:
                         continue
                     base = m.group(1) + m.group(3)
                 if base not in old:
-                    print(src.name, "new", name, len(body), "instructions")
+                    new_kernel(src, name, body)
                     continue
                 matched.add(base)
                 same = old[base] == body
@@ -94,6 +114,8 @@ def main() -> int:
                 same_all = False
                 print(src.name, "gone", name)
     same_all &= compared > 0
+    print("NEW_KERNELS_WITH_HMMA", hmma)
+    print("NEW_KERNELS_WITHOUT_FFMA_OR_DFMA", no_fma)
     print("SASS_UNGATED_IDENTICAL", same_all)
     return 0 if same_all else 1
 

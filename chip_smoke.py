@@ -22,7 +22,11 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    follows), the kernel's, the plain version's and one PyTorch
    library call's time (CUDA events, median over runs, L2 flushed
    before each run), and the least time the card could take (bytes over
-   3.35 TB/s or flops over the dtype's peak, the larger).  trmm (B2,
+   3.35 TB/s or flops over the dtype's peak, the larger).  The
+   inversion's cases (B1, B5) also carry each of its kernels' registers
+   per thread and resident CTAs per SM (``tri_inv_block.kernel_info``);
+   B1 also runs at (2, 1024, 1024), the fleet's bucket-2048 admission at
+   n0 = 1024.  trmm (B2,
    ``trmm_phase``) also runs over the (16, 4096, 4096) and (8, 4096,
    4096) x 16 bf16 stacks of the churn bank and the fleet's bucket, and
    every B2 case checks that two launches give the same bits and that
@@ -246,10 +250,12 @@ def kernel_phase(device, timer):
     g = torch.Generator(device=device).manual_seed(1)
     records = {}
     # tri_inv_blocks: n0 = 4096 (bf16_refine and fp32 admissions invert
-    # in fp32), n0 = 256, and bf16 operands at both
+    # in fp32), n0 = 256, and bf16 operands at both; n0 = 1024, the fleet's
+    # bucket-2048 admission
     for m, n0, dtype in ((2, 4096, torch.float32), (2, 4096, torch.bfloat16),
                          (32, 256, torch.float32),
-                         (32, 256, torch.bfloat16)):
+                         (32, 256, torch.bfloat16),
+                         (2, 1024, torch.float32)):
         Ls = (torch.randn((m, n0, n0), generator=g, device=device).tril_()
               + n0 * torch.eye(n0, device=device)).to(dtype)
         got = tri_inv_block.tri_inv_blocks(Ls)
@@ -287,7 +293,8 @@ def kernel_phase(device, timer):
                    max_abs_err=abs_err, max_rel_err=rel_err,
                    lower_rel_err=low_err, tol=tol,
                    identity_err=ident.item(), kernel_ms=k_ms, plain_ms=p_ms,
-                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                   kernel_info=tri_inv_block.kernel_info(dtype))
         print(json.dumps(rec), flush=True)
         if (m, n0, dtype) == (2, 4096, torch.float32):
             records["tri_inv_blocks"] = rec
@@ -429,7 +436,8 @@ def valid_inv_phase(device, timer, g):
                    poisoned_bit_equal=poisoned_equal,
                    all_ones_equal_b1=all_ones_equal,
                    kernel_ms=k_ms, b1_unmasked_ms=b1_ms, plain_ms=p_ms,
-                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                   kernel_info=tri_inv_block.kernel_info(dtype, gated=True))
         print(json.dumps(rec), flush=True)
         if main is None:
             main = rec
@@ -1802,7 +1810,7 @@ def main() -> int:
     kernels = []
     for name, method, source, replaces in (
             ("tri_inv_blocks", "inv", "src/repro_torch/kernels/csrc/"
-             "tri_inv_block.cu", "src/repro/kernels/tri_inv_block.py:63"),
+             "tri_inv_levels.cu", "src/repro/kernels/tri_inv_block.py:63"),
             ("trmm", "inv", "src/repro_torch/kernels/csrc/trmm_tri.cu",
              "src/repro/kernels/trmm.py:32"),
             ("trsm_substitution", "rec",
@@ -1815,7 +1823,7 @@ def main() -> int:
              "src/repro_torch/kernels/csrc/trsm_chain.cu",
              "src/repro/kernels/trsm_block.py:44"),
             ("tri_inv_blocks_valid", "fleet",
-             "src/repro_torch/kernels/csrc/tri_inv_block.cu",
+             "src/repro_torch/kernels/csrc/tri_inv_levels.cu",
              "src/repro/kernels/tri_inv_block.py:67")):
         rec = records[name]
         launches = main_launches[method][name]

@@ -1,12 +1,12 @@
-// Batched tile GEMM with optional lower-triangular operands, shared by
-// trmm.cu and tri_inv_block.cu.
+// Batched tile GEMM with optional lower-triangular operands, the tiles of
+// trmm.cu (B4 and the ordered ops.gemm).
 //
 //   C[z] = sign * op_a(A[z]) @ op_b(B[z])      z = 0 .. batch-1
 //
 // op_a(A) = tril(A) when tri_a, else A; op_b likewise.  Operand z sits
 // at ptr + (z / nq) * sb + (z % nq) * sq with row stride ld and unit
 // column stride, so one launch can address the sub-blocks of a stack of
-// matrices in place (the doubling levels of tri_inv_block.cu).
+// matrices in place.
 //
 // The triangular structure bounds the k-loop: a lower-triangular A
 // contributes nothing past column r0 + BM of a row tile, a
@@ -26,16 +26,17 @@
 // its block rows keeps, each run in BK-deep k-steps that stop at the
 // run's end, so a skipped block is never loaded.  When a row tile spans
 // several block rows (bt < BM), each element is also gated by its own
-// block's entry on load.  The unmasked instantiation is B1's and B2's
-// kernel and must compile to the same code whatever the MASK path does.
+// block's entry on load.  The unmasked instantiation is the ordered
+// ops.gemm's kernel and must compile to the same code whatever the MASK
+// path does.
 //
-// The GATED instantiation (kernel B5's doubling levels, tri_inv_block.cu)
-// takes an int32 flag per matrix of the stack, in its own kernel
-// parameter: batch entry z belongs to matrix z / nq, and a CTA whose
-// matrix is flagged 0 returns before it loads anything, so that
-// matrix's operands are never read and its C is never written.  The
-// ungated instantiations (GATED = false: B1, B2, B4) must compile to the
-// code they had before the flag existed.
+// The GATED flag takes an int32 flag per matrix of the stack, in its own
+// kernel parameter: batch entry z belongs to matrix z / nq, and a CTA
+// whose matrix is flagged 0 returns before it loads anything, so that
+// matrix's operands are never read and its C is never written.  No
+// source instantiates it since B5's levels moved to tri_inv_levels.cu.
+// The ungated instantiations (GATED = false: trmm.cu's) must compile to
+// the code they had before the flag existed.
 #pragma once
 
 #include <cuda_bf16.h>

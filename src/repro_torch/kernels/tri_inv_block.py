@@ -9,13 +9,17 @@ product t = B A^-1 rounded to the operand dtype, as the Pallas kernel
 of ``repro.kernels.tri_inv_block`` does.
 
 :func:`tri_inv_blocks` launches the hand-written CUDA kernels
-(``csrc/tri_inv_block.cu``) on CUDA tensors and runs
+(``csrc/tri_inv_levels.cu``) on CUDA tensors and runs
 :func:`tri_inv_blocks_plain`, the same levels in plain PyTorch, on CPU
 tensors.  On the card one block no longer fits on-chip memory
 (an fp32 block of order 4096 is 64 MiB), so :func:`_schedule` splits
 the levels: a leaf kernel inverts the S x S diagonal sub-blocks
 (S <= 64) in shared memory, and each level s >= S is two batched
-triangular products addressed into the output in place.
+triangular products addressed into the output in place: register
+tiles of up to 128 x 128 fed by a cp.async ring, a pair of tiles per
+CTA along the triangle where a level has many, each output one FMA
+chain over k ascending, so the bits do not depend on the tile a level
+takes (see the note in the source).
 
 Both versions compute the inverse of ``tril(L)``: the input's upper
 triangle is never read and the output's is zero.
@@ -42,7 +46,7 @@ from repro_torch.kernels import build
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
            torch.float64: "f64"}
 # largest leaf order: the leaf keeps two (S, S+1) accumulator tiles in
-# static shared memory (csrc/tri_inv_block.cu, leaf_max)
+# static shared memory (csrc/tri_inv_levels.cu, leaf_max)
 LEAF = {torch.float32: 64, torch.bfloat16: 64, torch.float64: 32}
 
 
@@ -83,8 +87,10 @@ def _schedule(Ls, out, scratch, leaf, gemm) -> None:
     c, s, nq, batch, tri_a, tri_b, negate)`` is one batched product of
     s x s operands; each operand is ``(tensor, offset, ld, sb, sq)``
     and batch entry z sits at ``offset + (z // nq) * sb + (z % nq) *
-    sq``.  Kept apart from the launches so the CPU tests can replay the
-    addressing with plain products."""
+    sq``.  The kernel's level products read the triangular operand's
+    upper triangle, which the leaf has zeroed, as its zeros.  Kept apart
+    from the launches so the CPU tests can replay the addressing with
+    plain products."""
     m, n0, _ = Ls.shape
     S = min(n0, LEAF[Ls.dtype])
     leaf(Ls, out, S)
@@ -107,23 +113,48 @@ def _schedule(Ls, out, scratch, leaf, gemm) -> None:
 
 @functools.cache
 def _entries(dtype: torch.dtype, gated: bool = False):
-    lib = build.library("tri_inv_block")
+    lib = build.library("tri_inv_levels")
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     suffix = ("valid_" if gated else "") + _SUFFIX[dtype]
     leaf = getattr(lib, f"repro_tri_inv_leaf_{suffix}")
     leaf.argtypes = [P, P, LL, I, I] + [P] * (1 + gated)
     leaf.restype = I
-    gemm = getattr(lib, f"repro_tri_gemm_{suffix}")
-    gemm.argtypes = [P, LL, LL, LL] * 3 + [I, I, I, I, LL, I, I, I] \
+    level = getattr(lib, f"repro_tri_inv_level_{suffix}")
+    level.argtypes = [P, LL, LL, LL] * 3 + [I, I, LL, I, I, I] \
         + [P] * (1 + gated)
-    gemm.restype = I
-    return leaf, gemm
+    level.restype = I
+    return leaf, level
+
+
+# the kernels kernel_info reports, by the C entry's index
+_KERNELS = ("leaf", "level_large", "level_medium", "level_small")
+
+
+def kernel_info(dtype: torch.dtype, gated: bool = False) -> dict:
+    """{kernel: its registers per thread, resident CTAs per SM (CUDA's
+    occupancy calculator), threads per CTA, shared bytes per CTA, spilled
+    (local) bytes per thread and tile rows and columns} for the leaf and
+    the three level tiles at ``dtype``, B5's when ``gated``; builds the
+    library and needs a CUDA device."""
+    fn = getattr(build.library("tri_inv_levels"),
+                 f"repro_tri_inv_info_{_SUFFIX[dtype]}")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = {}
+    for which, name in enumerate(_KERNELS):
+        out = (ctypes.c_int * 7)()
+        build.check(fn(int(gated), which, ctypes.addressof(out)),
+                    "tri_inv_blocks kernel_info")
+        info[name] = dict(zip(("registers", "ctas_per_sm", "threads",
+                               "shared_bytes", "local_bytes", "rows",
+                               "cols"), out))
+    return info
 
 
 def _cuda_launchers(dtype: torch.dtype, stream: int, valid=None):
     """The leaf and level launchers of B1, or of B5 when ``valid`` (a
     contiguous int32 mask on the device) is given."""
-    leaf_fn, gemm_fn = _entries(dtype, valid is not None)
+    leaf_fn, level_fn = _entries(dtype, valid is not None)
     gate = () if valid is None else (valid.data_ptr(),)
 
     def leaf(Ls, out, S):
@@ -135,8 +166,8 @@ def _cuda_launchers(dtype: torch.dtype, stream: int, valid=None):
         args = []
         for t, off, ld, sb, sq in (a, b, c):
             args += [t.data_ptr() + off * t.element_size(), ld, sb, sq]
-        build.check(gemm_fn(*args, s, s, s, nq, batch, int(tri_a),
-                            int(tri_b), int(negate), *gate, stream),
+        build.check(level_fn(*args, s, nq, batch, int(tri_a), int(tri_b),
+                             int(negate), *gate, stream),
                     "tri_inv_blocks level")
 
     return leaf, gemm
@@ -171,9 +202,15 @@ def tri_inv_blocks(Ls: torch.Tensor, valid=None) -> torch.Tensor:
                         f"got {Ls.dtype}")
     if not Ls.is_contiguous():
         raise ValueError("tri_inv_blocks takes a contiguous stack")
-    if m * max(n0 // (2 * LEAF[Ls.dtype]), 1) > 65535:
+    # a launch's 1-D grid: the leaf's m * n0 / S CTAs, a level's at most
+    # m * n0 * s / 2048 <= m * n0^2 / 4096 (32 x 32 tiles, in pairs)
+    if m * max(n0 * n0 // 4096, n0 // 32, 1) > 2**31 - 1:
         raise ValueError(f"{m} blocks of order {n0} exceed one launch's "
-                         f"batch of 65535 sub-blocks")
+                         f"2^31 - 1 CTAs")
+    if Ls.data_ptr() % 16:
+        # the levels copy 16-byte rows: a storage offset that breaks the
+        # alignment gets a copy (the same values, so the same bits)
+        Ls = torch.empty_like(Ls).copy_(Ls)
     if valid is not None:
         # a device-side cast: the mask is never read on the host
         valid = valid.to(torch.int32).contiguous()

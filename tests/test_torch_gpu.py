@@ -14,7 +14,8 @@ strictly lower part the same share of that part's largest entry; the
 substitution 1e-4 (fp32) and 1e-10 (fp64) of max|X|: its dots are
 sequential FMA chains, the plain version's cuBLAS sums in another
 order, and the recurrence carries each difference into later rows.
-The validity-gated inversion (B5) is held as the inverse, and the
+The validity-gated inversion (B5) is held as the inverse, and bit for
+bit, in its one valid block, against B1 on that block alone; the
 ordered product (``ops.gemm``) as trmm.
 """
 
@@ -147,7 +148,8 @@ def test_trmm_kernel_batch_entry_does_not_depend_on_the_stack(cuda, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float64])
-@pytest.mark.parametrize("m,n0", [(3, 16), (2, 256), (1, 512)])
+@pytest.mark.parametrize("m,n0", [(3, 16), (2, 256), (1, 512), (2, 1024),
+                                  (2, 4096)])
 def test_tri_inv_kernel_matches_plain(cuda, dtype, m, n0):
     g = torch.Generator(device=cuda).manual_seed(1)
     Ls = (torch.randn((m, n0, n0), generator=g, device=cuda).tril()
@@ -162,6 +164,22 @@ def test_tri_inv_kernel_matches_plain(cuda, dtype, m, n0):
     # against its own scale, so every level's product shows
     lower = torch.tril(want.double(), -1).abs().max().item()
     assert torch.tril(err, -1).abs().max().item() <= tol * lower
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_tri_inv_kernel_takes_an_unaligned_stack(cuda, dtype):
+    """A contiguous stack whose storage offset breaks the 16-byte rows
+    the levels copy is inverted as an aligned one, bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(18)
+    Ls = (torch.randn((2, 256, 256), generator=g, device=cuda).tril_()
+          + 256 * torch.eye(256, device=cuda)).to(dtype)
+    shifted = _offset_copy(Ls)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    got = tri_inv_block.tri_inv_blocks(shifted)
+    want = tri_inv_block.tri_inv_blocks(Ls)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
@@ -734,7 +752,9 @@ def test_padded_admission_on_the_card(cuda, method):
                                    torch.float64])
 @pytest.mark.parametrize("m,n0,mask", [(3, 16, (1, 0, 1)),
                                        (2, 256, (1, 0)),
-                                       (4, 128, (0, 1, 1, 0))])
+                                       (4, 128, (0, 1, 1, 0)),
+                                       (2, 1024, (1, 0)),
+                                       (2, 4096, (0, 1))])
 def test_tri_inv_valid_kernel_matches_plain(cuda, dtype, m, n0, mask):
     """B5 against its plain version: the valid blocks within B1's
     tolerance, the flagged ones exact zeros; NaN planted in every
@@ -765,6 +785,27 @@ def test_tri_inv_valid_kernel_matches_plain(cuda, dtype, m, n0, mask):
     assert torch.equal(
         tri_inv_block.tri_inv_blocks(Ls, valid=torch.ones_like(v)),
         tri_inv_block.tri_inv_blocks(Ls))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("valid", [0, 1])
+def test_tri_inv_valid_block_is_b1_alone(cuda, valid):
+    """A padded admission's contract at the kernel: B5 over (2, 4096,
+    4096) with one block valid gives, in that block, the bits B1 gives
+    on that block alone (a stack of one, so other tiles and pairings),
+    and zeros in the other."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    n0 = 4096
+    Ls = torch.randn((2, n0, n0), generator=g, device=cuda).tril_() \
+        + n0 * torch.eye(n0, device=cuda)
+    v = torch.zeros(2, dtype=torch.int32, device=cuda)
+    v[valid] = 1
+    got = tri_inv_block.tri_inv_blocks(Ls, valid=v)
+    alone = tri_inv_block.tri_inv_blocks(Ls[valid:valid + 1])
+    torch.cuda.synchronize()
+    assert torch.equal(got[valid].view(torch.int32),
+                       alone[0].view(torch.int32))
+    assert not got[1 - valid].any()
 
 
 @pytest.mark.gpu

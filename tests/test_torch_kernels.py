@@ -94,8 +94,10 @@ def test_tri_inv_plain_bf16_matches_pallas():
     assert_inverse_close(got, want, 2e-2)
 
 
-def _emulated_launchers(batch_dtype):
-    """Plain-PyTorch stand-ins with the CUDA launches' addressing."""
+def _emulated_launchers(batch_dtype, mask_triangles=True):
+    """Plain-PyTorch stand-ins with the CUDA launches' addressing.  With
+    ``mask_triangles=False`` a level product reads its triangular operand
+    as stored, upper triangle included, as the CUDA level kernel does."""
     acc = torch.float64 if batch_dtype == torch.float64 else torch.float32
 
     def leaf(Ls, out, S):
@@ -113,8 +115,8 @@ def _emulated_launchers(batch_dtype):
                                     (sb, sq, ld, 1),
                                     t.storage_offset() + off)
         A, B, C = view(a), view(b), view(c)
-        A = torch.tril(A) if tri_a else A
-        B = torch.tril(B) if tri_b else B
+        A = torch.tril(A) if tri_a and mask_triangles else A
+        B = torch.tril(B) if tri_b and mask_triangles else B
         r = A.to(acc) @ B.to(acc)
         C.copy_((-r if negate else r).to(C.dtype))
 
@@ -140,6 +142,30 @@ def test_kernel_schedule_matches_plain(dtype, m, n0):
     assert torch.equal(torch.triu(out, 1), torch.zeros_like(out))
     assert_inverse_close(out, want, 2e-2 if dtype == torch.bfloat16
                          else 1e-6)
+
+
+@pytest.mark.parametrize("dtype,m,n0", [(torch.float32, 2, 256),
+                                        (torch.float32, 3, 128),
+                                        (torch.float64, 2, 128),
+                                        (torch.bfloat16, 2, 128),
+                                        (torch.float32, 4, 32)])
+def test_kernel_schedule_needs_no_triangle_mask(dtype, m, n0):
+    """The CUDA level products read the triangular operand's upper
+    triangle as stored: the leaf has zeroed it before any level runs, so
+    the replay with unmasked operands gives the masked replay's bits
+    (NaN left there would reach the output)."""
+    rng = np.random.default_rng(n0 + m + 1)
+    Ls = torch.as_tensor(_tril(rng, n0, batch=m)).to(dtype)
+    Ls[:, 0, -1] = 123.0
+    outs = []
+    for mask in (True, False):
+        out = torch.full_like(Ls, float("nan"))
+        scratch = torch.full((m * n0 * n0 // 4,), float("nan"), dtype=dtype)
+        tri_inv_block._schedule(Ls, out, scratch,
+                                *_emulated_launchers(dtype, mask))
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])
+    assert not outs[1].isnan().any()
 
 
 # --------------------------- block_inv_kernel ---------------------------
