@@ -7,7 +7,8 @@ version of those sources, compiled with the flags of
     mkdir -p build/old_csrc
     git archive <rev> src/repro_torch/kernels/csrc \
         | tar -x -C build/old_csrc --strip-components=4
-    python3 chip_probes/sass_ungated.py build/old_csrc
+    python3 chip_probes/sass_ungated.py build/old_csrc \
+        [--replaced REGEX ...]
 
 Every ``*.cu`` found in both directories is compiled twice.  A kernel
 is matched with the old kernel of the same mangled name; where there is
@@ -19,16 +20,22 @@ and parameter, and the one with the flag 1 is listed as gated.  Every
 kernel of a source the old directory lacks (B1 and B5's
 ``tri_inv_levels.cu``, say) is listed as new, as is any other kernel with
 no counterpart in the old build; an old kernel of a source both
-directories hold that no new kernel matches is listed as gone.  Prints
-one line per kernel and ``SASS_UNGATED_IDENTICAL True`` when every
-matched kernel is, instruction for instruction, the old one and none is
-gone.  The path hash in the mangled name of a kernel in an anonymous
-namespace is left out of the match.  Each new kernel's line also counts
+directories hold that no new kernel matches is listed as gone, unless
+its name matches one of the ``--replaced`` patterns (Python regexes,
+searched in the mangled name: kernels a redesign replaced on purpose,
+such as ``trmm.cu``'s MASK instantiations of ``tri_gemm_kernel`` when B4
+moved to ``trmm_tri.cu``), when it is listed as replaced; a pattern that
+names no such kernel fails.  Prints one line per kernel and
+``SASS_UNGATED_IDENTICAL True`` when every matched kernel is,
+instruction for instruction, the old one and none is gone.  The path
+hash in the mangled name of a kernel in an anonymous namespace is left
+out of the match.  Each new kernel's line also counts
 its FFMA, DFMA and HMMA instructions, and the last lines list the new
 kernels that use the tensor cores (HMMA) and those with neither FFMA
 nor DFMA.
 """
 
+import argparse
 import pathlib
 import re
 import subprocess
@@ -72,7 +79,13 @@ def ops(body: list) -> str:
 
 
 def main() -> int:
-    old_dir = pathlib.Path(sys.argv[1])
+    ap = argparse.ArgumentParser()
+    ap.add_argument("old_dir", type=pathlib.Path)
+    ap.add_argument("--replaced", nargs="*", default=[],
+                    help="regexes of old kernels replaced on purpose")
+    args = ap.parse_args()
+    old_dir = args.old_dir
+    replaced = {pat: 0 for pat in args.replaced}
     same_all, compared = True, 0
     hmma, no_fma = [], []
 
@@ -111,8 +124,18 @@ def main() -> int:
                 print(src.name, "ungated", name, "vs", base, len(body),
                       len(old[base]), "SAME" if same else "DIFFERENT")
             for name in sorted(set(old) - matched):
+                hits = [p for p in replaced if re.search(p, name)]
+                for pat in hits:
+                    replaced[pat] += 1
+                if hits:
+                    print(src.name, "replaced", name)
+                    continue
                 same_all = False
                 print(src.name, "gone", name)
+    for pat, hits in replaced.items():
+        if not hits:
+            same_all = False
+            print("replaced pattern names no gone kernel:", pat)
     same_all &= compared > 0
     print("NEW_KERNELS_WITH_HMMA", hmma)
     print("NEW_KERNELS_WITHOUT_FFMA_OR_DFMA", no_fma)

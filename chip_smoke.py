@@ -33,7 +33,12 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    NaN above the diagonal changes none.  The
    block-masked trmm (B4) runs at the structured residual's shape and
    three more (``masked_phase``), each also with NaN planted in its
-   skipped blocks.  The validity-gated substitution (B6, ``valid_phase``)
+   skipped blocks, launched twice, and under a mask keeping every lower
+   block held bit for bit against B2; its records carry the kernel's
+   registers and CTAs per SM (``trmm.kernel_info``).  The ordered
+   product (``gemm_phase``; ``trmm.gemm``, no TPU kernel) is timed
+   beside torch.matmul at a width-1 capacity bank's residual and
+   trailing update.  The validity-gated substitution (B6, ``valid_phase``)
    runs at a capacity bank's rec base case (16, 8192, 8192) x 16 with
    half its mask zero, on strided quadrant views and in fp64, each also
    with NaN planted in its invalid systems and with an all-ones mask
@@ -301,6 +306,7 @@ def kernel_phase(device, timer):
     records["trmm"] = trmm_phase(device, timer, g)
     records["trsm_substitution"] = substitution_phase(device, timer, g)
     records["trmm_masked"] = masked_phase(device, timer, g)
+    gemm_phase(device, timer, g)
     records["trsm_substitution_valid"] = valid_phase(device, timer, g)
     records["tri_inv_blocks_valid"] = valid_inv_phase(device, timer, g)
     return records
@@ -534,33 +540,42 @@ def substitution_phase(device, timer, g):
     return main
 
 
-def masked_phase(device, timer, g):
-    """trmm_masked (B4) against its plain version: the structured
-    residual's shape (1, 8192, 8192) x 16 fp32 with the banded:1024 mask
-    at bt = 512 (the main path's case, whose record this returns), the
+def masked_cases():
+    """B4's phase-2 cases: (n, bt, dtype, structure, (n/bt, n/bt) bool
+    mask).  The structured residual's shape (1, 8192, 8192) x 16 fp32
+    with the banded:1024 mask at bt = 512 (the main path's case), the
     8x8 block-sparse mask at bt = 1024, an fp64 case (the fp64_refine
-    residual) at n = 2048 with banded:256 at bt = 256, and a case with
-    bt = 32, below the kernel's 256-deep k-step (a seeded random mask).
-    The factor is a dense tril(randn) masked by the kernel; each case
-    checks that NaN planted in the skipped blocks and above the
-    diagonal changes no bit of C, and prints how far leaving out one
-    more kept block would move C, in tolerances.  The library time is
-    torch.matmul on the dense masked factor, what an unstructured
-    residual costs; the bound counts the kept blocks (diagonal blocks
-    as triangles), X and C."""
+    residual) at n = 2048 with banded:256 at bt = 256, and a seeded
+    random mask at bt = 32."""
     from repro_torch.core.structure import FactorStructure
-    from repro_torch.kernels import trmm
     rng = np.random.default_rng(2)
     rand = np.tril(rng.random((16, 16)) < 0.3) | np.eye(16, dtype=bool)
+    return (
+        (N, 512, torch.float32, "banded:1024",
+         FactorStructure.parse("banded:1024").block_mask(N, 512)),
+        (N, 1024, torch.float32, "block-sparse",
+         FactorStructure.parse("block-sparse").block_mask(N, 1024)),
+        (2048, 256, torch.float64, "banded:256",
+         FactorStructure.parse("banded", n=2048).block_mask(2048, 256)),
+        (512, 32, torch.float32, "random 16x16", rand))
+
+
+def masked_phase(device, timer, g):
+    """trmm_masked (B4) against its plain version at ``masked_cases``
+    (the first is the main path's case, whose record this returns).
+    The factor is a dense tril(randn) masked by the kernel; each case
+    checks that NaN planted in the skipped blocks and above the
+    diagonal changes no bit of C, that two launches give the same bits
+    and that a mask keeping every lower block gives B2's (``trmm.trmm``)
+    bits, and prints how far leaving out one more kept block would move
+    C, in tolerances, and the kernel's registers and CTAs per SM.  The
+    library time is torch.matmul on the dense masked factor, what an
+    unstructured residual costs; the bound counts the kept blocks
+    (diagonal blocks as triangles), X and C."""
+    from repro_torch.kernels import trmm
     main = None
-    for n, bt, dtype, what, bm in (
-            (N, 512, torch.float32, "banded:1024",
-             FactorStructure.parse("banded:1024").block_mask(N, 512)),
-            (N, 1024, torch.float32, "block-sparse",
-             FactorStructure.parse("block-sparse").block_mask(N, 1024)),
-            (2048, 256, torch.float64, "banded:256",
-             FactorStructure.parse("banded", n=2048).block_mask(2048, 256)),
-            (512, 32, torch.float32, "random 16x16", rand)):
+    info = {}
+    for n, bt, dtype, what, bm in masked_cases():
         mask = torch.as_tensor(bm.astype(np.int32), device=device)
         L = torch.randn((1, n, n), generator=g, device=device,
                         dtype=torch.float64).tril_().to(dtype)
@@ -578,6 +593,13 @@ def masked_phase(device, timer, g):
                                torch.full_like(L, float("nan")))
         same = torch.equal(trmm.trmm_masked(poisoned, X, mask, bt), got)
         check(same, f"{case}: NaN in a skipped block reached C")
+        del poisoned
+        twice = torch.equal(trmm.trmm_masked(L, X, mask, bt), got)
+        check(twice, f"{case}: two launches differ")
+        lower = torch.ones_like(mask).tril_()
+        as_b2 = torch.equal(trmm.trmm_masked(L, X, lower, bt),
+                            trmm.trmm(L, X))
+        check(as_b2, f"{case}: an all-lower mask does not give B2's bits")
         # leave out one more kept block: the last off-diagonal one
         ii, jj = np.nonzero(np.tril(bm, -1))
         drop = bm.copy()
@@ -601,20 +623,64 @@ def masked_phase(device, timer, g):
         nbytes = elems * L.element_size() \
             + 2 * n * PANEL_K * X.element_size()
         b_ms, b_by = bound(nbytes, 2 * elems * PANEL_K, dtype)
+        if dtype not in info:
+            info[dtype] = trmm.kernel_info(dtype)
+        path = "gated" if bt % (128 // L.element_size()) else "16-byte"
         rec = dict(kernel="trmm_masked", data="tril(randn), block mask",
                    structure=what, shape=[list(L.shape), list(X.shape)],
                    bt=bt, kept_blocks=blocks,
                    lower_blocks=diag * (diag + 1) // 2,
                    dtype=str(dtype).removeprefix("torch."),
                    max_abs_err=abs_err, max_rel_err=rel_err, tol=tol,
-                   poisoned_bit_equal=same,
+                   poisoned_bit_equal=same, two_launches_bit_equal=twice,
+                   all_lower_mask_is_b2=as_b2,
                    one_kept_block_in_tols=drop_tols,
                    kernel_ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                   bound_ms=b_ms, bound_by=b_by)
+                   bound_ms=b_ms, bound_by=b_by, path=path,
+                   kernel_info=info[dtype][path])
         print(json.dumps(rec), flush=True)
         if main is None:
             main = rec
+        del L, X, Lm, elem, got, want, dropped
+    torch.cuda.empty_cache()
     return main
+
+
+def gemm_phase(device, timer, g):
+    """The ordered product ``trmm.gemm`` (``SolveSpec.fixed_order``: a
+    width-1 capacity bank's updates and residuals; no TPU kernel) at a
+    width-1 bank's shapes: the residual tril(L) @ X at (1, 8192, 8192) x
+    16 fp32 (``lower=True``) and one trailing update, the (4096, 4096)
+    block column L[4096:, :4096] of an order-8192 factor (row stride
+    8192) @ (4096, 16).  Held against torch.matmul in fp64; timed beside
+    one torch.matmul (cuBLAS) on the same operands; the bound counts A
+    (its triangle for the residual), X and C once and the flops."""
+    from repro_torch.kernels import trmm
+    F = torch.randn((N, N), generator=g, device=device).tril_()
+    for what, A, lower in (("residual", F[None], True),
+                           ("trailing update", F[None, N // 2:, :N // 2],
+                            False)):
+        m, kk = A.shape[1:]
+        X = torch.randn((1, kk, PANEL_K), generator=g, device=device)
+        got = trmm.gemm(A, X, lower=lower)
+        want = torch.matmul(A.double(), X.double())
+        abs_err, rel_err = errors(got, want)
+        tol = 2e-5
+        check(rel_err <= tol, f"gemm {what}: max_rel_err {rel_err} > {tol}")
+        k_ms = timer.ms(lambda: trmm.gemm(A, X, lower=lower), 50)
+        lib_ms = timer.ms(lambda: torch.matmul(A, X), 50)
+        elems = m * (m + 1) // 2 if lower else m * kk
+        b_ms, b_by = bound(4 * (elems + (kk + m) * PANEL_K),
+                           2 * elems * PANEL_K, torch.float32)
+        print(json.dumps(dict(
+            kernel="gemm", what=what, tpu_kernel=None,
+            shape=[list(A.shape), list(X.shape)], a_strides=list(A.stride()),
+            lower=lower, dtype="float32", max_abs_err=abs_err,
+            max_rel_err=rel_err, tol=tol, kernel_ms=k_ms,
+            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)), flush=True)
+        del X, got, want
+    del F
+    torch.cuda.empty_cache()
 
 
 def valid_phase(device, timer, g):
@@ -1817,7 +1883,7 @@ def main() -> int:
              "src/repro_torch/kernels/csrc/trsm_chain.cu",
              "src/repro/kernels/trsm_block.py:26"),
             ("trmm_masked", "structured",
-             "src/repro_torch/kernels/csrc/trmm.cu",
+             "src/repro_torch/kernels/csrc/trmm_tri.cu",
              "src/repro/kernels/trmm.py:50"),
             ("trsm_substitution_valid", "churn rec",
              "src/repro_torch/kernels/csrc/trsm_chain.cu",

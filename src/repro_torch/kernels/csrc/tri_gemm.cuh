@@ -1,5 +1,5 @@
 // Batched tile GEMM with optional lower-triangular operands, the tiles of
-// trmm.cu (B4 and the ordered ops.gemm).
+// trmm.cu's ordered product (ops.gemm).
 //
 //   C[z] = sign * op_a(A[z]) @ op_b(B[z])      z = 0 .. batch-1
 //
@@ -20,23 +20,22 @@
 // fused multiply-adds on the CUDA cores (no TF32, no tensor cores); the
 // result is rounded once to T.  Ragged edges (any M, N, K) are masked.
 //
-// The MASK instantiation (trmm.cu's block-masked product) also skips
-// every block of A whose entry in an (M/bt, K/bt) block mask is 0: a
-// row tile walks only the runs of consecutive block columns that one of
-// its block rows keeps, each run in BK-deep k-steps that stop at the
-// run's end, so a skipped block is never loaded.  When a row tile spans
-// several block rows (bt < BM), each element is also gated by its own
-// block's entry on load.  The unmasked instantiation is the ordered
-// ops.gemm's kernel and must compile to the same code whatever the MASK
-// path does.
-//
-// The GATED flag takes an int32 flag per matrix of the stack, in its own
-// kernel parameter: batch entry z belongs to matrix z / nq, and a CTA
-// whose matrix is flagged 0 returns before it loads anything, so that
-// matrix's operands are never read and its C is never written.  No
-// source instantiates it since B5's levels moved to tri_inv_levels.cu.
-// The ungated instantiations (GATED = false: trmm.cu's) must compile to
-// the code they had before the flag existed.
+// The MASK and GATED instantiations are no source's any more: B4, the
+// block-masked product, moved to trmm_tri.cu, and B5's gated levels to
+// tri_inv_levels.cu.  Their code stays, uninstantiated, because the
+// template flags and the BlockMask and valid parameters are part of the
+// ordered product's kernel names, which chip_probes/sass_ungated.py
+// matches against a parent's build.  MASK skips every block of A whose
+// entry in an (M/bt, K/bt) block mask is 0: a row tile walks only the
+// runs of consecutive block columns that one of its block rows keeps,
+// each run in BK-deep k-steps that stop at the run's end, and when a
+// row tile spans several block rows (bt < BM) each element is also
+// gated by its own block's entry on load.  GATED takes an int32 flag
+// per matrix of the stack, in its own kernel parameter: batch entry z
+// belongs to matrix z / nq, and a CTA whose matrix is flagged 0 returns
+// before it loads anything.  The MASK = GATED = false instantiations
+// (trmm.cu's) must compile to the code they had before either flag
+// existed.
 #pragma once
 
 #include <cuda_bf16.h>

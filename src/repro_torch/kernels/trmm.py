@@ -6,20 +6,22 @@ tile above the diagonal.  B4 (:func:`trmm_masked`, or :func:`trmm` with
 ``block_mask=``) also skips every (bt x bt) block whose entry in a block
 mask is 0, and never reads it: the refinement residual of a structured
 factor, with the structure's mask at bt = n0.  Both launch
-hand-written CUDA kernels (replacing the Pallas kernels of
-``repro.kernels.trmm``) on CUDA tensors, B2 from ``csrc/trmm_tri.cu``
-and B4 from ``csrc/trmm.cu``, and run their plain PyTorch versions,
-:func:`trmm_plain` and :func:`trmm_masked_plain`, on CPU tensors.
+hand-written CUDA kernels from ``csrc/trmm_tri.cu`` (replacing the
+Pallas kernels of ``repro.kernels.trmm``) on CUDA tensors, and run
+their plain PyTorch versions, :func:`trmm_plain` and
+:func:`trmm_masked_plain`, on CPU tensors.
 
 Partial sums are fp32 for fp32 and bf16 operands (double for fp64);
-the result has X's dtype.  B2's sum order depends only on an output's
-row and its k-steps, never on n, the batch or the operands' alignment.
+the result has X's dtype.  An output's sum order depends only on its
+row and its (kept) k-steps, never on n, the batch or the operands'
+alignment, so B4 under a mask that keeps every lower block gives B2's
+bits.
 
-:func:`gemm` is B4's tiles for a row-strided A, dense or lower
-triangular: no TPU kernel's port, but a product whose sums run in one
-order whatever the shape, which the trailing updates and residuals of a
-capacity bank need (``SolveSpec.fixed_order``) so that a padded slot
-solves as the unpadded factor does, bit for bit.
+:func:`gemm` (``csrc/trmm.cu``) is a tiled product for a row-strided A,
+dense or lower triangular: no TPU kernel's port, but a product whose
+sums run in one order whatever the shape, which the trailing updates
+and residuals of a capacity bank need (``SolveSpec.fixed_order``) so
+that a padded slot solves as the unpadded factor does, bit for bit.
 """
 
 from __future__ import annotations
@@ -128,14 +130,33 @@ gemm.launches = 0
 
 @functools.cache
 def _entry(dtype: torch.dtype, masked: bool = False):
-    lib, name = ("trmm", "repro_trmm_masked_") if masked \
-        else ("trmm_tri", "repro_trmm_")
-    fn = getattr(build.library(lib), name + _SUFFIX[dtype])
+    name = "repro_trmm_masked_" if masked else "repro_trmm_"
+    fn = getattr(build.library("trmm_tri"), name + _SUFFIX[dtype])
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [P, LL, P, LL, P, LL, I, I] + ([P, I] if masked
                                                  else []) + [P]
     fn.restype = I
     return fn
+
+
+def kernel_info(dtype: torch.dtype) -> dict:
+    """B4's compiled kernel on each of its load paths ("16-byte",
+    "element", and "gated" where bt is not a multiple of the k-step):
+    registers per thread, resident CTAs per SM (CUDA's occupancy
+    calculator), threads per CTA, shared bytes per CTA and spilled
+    (local) bytes per thread; builds the library and needs a CUDA
+    device."""
+    fn = getattr(build.library("trmm_tri"),
+                 "repro_trmm_masked_info_" + _SUFFIX[dtype])
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = {}
+    for path, name in enumerate(("16-byte", "element", "gated")):
+        vals = (ctypes.c_int * 5)()
+        build.check(fn(path, ctypes.addressof(vals)), "trmm kernel_info")
+        out[name] = dict(zip(("registers", "ctas_per_sm", "threads",
+                              "shared_bytes", "local_bytes"), vals))
+    return out
 
 
 def _check(L: torch.Tensor, X: torch.Tensor) -> None:

@@ -418,7 +418,8 @@ def _masked_operands(g, device, b, n, k, bt, dtype, seed):
     (2, 512, 16, 32),        # below it
     (3, 200, 5, 4),          # below the 8-row tile: per-element gate
     (1, 256, 40, 32),        # 64 x 64 tiles
-    (1, 256, 40, 128)])
+    (1, 256, 40, 128),
+    (8, 2048, 16, 512)])     # a structured capacity bank's stack
 def test_trmm_masked_kernel_matches_plain(cuda, dtype, b, n, k, bt):
     g = torch.Generator(device=cuda).manual_seed(11)
     L, X, mask, poisoned = _masked_operands(g, cuda, b, n, k, bt, dtype,
@@ -456,6 +457,109 @@ def test_trmm_masked_kernel_never_reads_skipped_blocks(cuda, n, k, bt):
         trmm.trmm_masked(L, X, mask.cpu(), bt)
     with pytest.raises(ValueError, match="divide"):
         trmm.trmm_masked(L, X, mask, 3 * bt)
+
+
+def _mask(device, m, seed):
+    """A seeded (m, m) int32 block mask: the diagonal and ~40% of the
+    blocks below it."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    bm = np.tril(rng.random((m, m)) < 0.4)
+    np.fill_diagonal(bm, True)
+    return torch.as_tensor(bm.astype(np.int32), device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("b,n,k,bt", [(1, 2048, 16, 512), (2, 512, 16, 32),
+                                      (3, 200, 5, 4), (1, 256, 40, 32)])
+def test_trmm_masked_kernel_all_lower_mask_is_b2(cuda, dtype, b, n, k, bt):
+    """A mask that keeps every lower block walks B2's k-steps in B2's
+    order: trmm.trmm's bits, on the 16-byte, element and gated paths."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    L = torch.randn((b, n, n), generator=g, device=cuda).to(dtype)
+    X = torch.randn((b, n, k), generator=g, device=cuda).to(dtype)
+    lower = torch.ones((n // bt, n // bt), dtype=torch.int32,
+                       device=cuda).tril_()
+    got = trmm.trmm_masked(L, X, lower, bt)
+    want = trmm.trmm(L, X)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("b,n,k,bt", [(4, 1024, 16, 128), (2, 200, 5, 4)])
+def test_trmm_masked_kernel_two_launches_are_bit_equal(cuda, dtype, b, n, k,
+                                                       bt):
+    g = torch.Generator(device=cuda).manual_seed(16)
+    L = torch.randn((b, n, n), generator=g, device=cuda).to(dtype)
+    X = torch.randn((b, n, k), generator=g, device=cuda).to(dtype)
+    mask = _mask(cuda, n // bt, seed=16)
+    first, second = trmm.trmm_masked(L, X, mask, bt), \
+        trmm.trmm_masked(L, X, mask, bt)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("bt", [128, 32])
+def test_trmm_masked_kernel_rows_do_not_depend_on_n(cuda, dtype, bt):
+    """The leading r rows of a masked product are bit-equal to the
+    product of the leading r x r triangle under the mask's leading
+    block: a row's sums depend on its kept k-steps only."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    n, r = 1024, 512
+    L = torch.randn((2, n, n), generator=g, device=cuda).to(dtype)
+    X = torch.randn((2, n, 16), generator=g, device=cuda).to(dtype)
+    mask = _mask(cuda, n // bt, seed=17)
+    full = trmm.trmm_masked(L, X, mask, bt)
+    part = trmm.trmm_masked(L[:, :r, :r].contiguous(),
+                            X[:, :r].contiguous(),
+                            mask[:r // bt, :r // bt].contiguous(), bt)
+    torch.cuda.synchronize()
+    assert torch.equal(full[:, :r], part)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_trmm_masked_kernel_batch_entry_does_not_depend_on_the_stack(
+        cuda, dtype):
+    """One batch entry launched alone is bit-equal to the same entry
+    inside a stack of 16 under the same mask."""
+    g = torch.Generator(device=cuda).manual_seed(19)
+    L = torch.randn((16, 512, 512), generator=g, device=cuda).to(dtype)
+    X = torch.randn((16, 512, 16), generator=g, device=cuda).to(dtype)
+    mask = _mask(cuda, 8, seed=19)
+    stack = trmm.trmm_masked(L, X, mask, 64)
+    alone = trmm.trmm_masked(L[5], X[5], mask, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(stack[5], alone)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_trmm_masked_kernel_takes_misaligned_views(cuda, dtype):
+    """Dt[:, i] @ B[:, rows] under a mask, on storages offset by one
+    element: the element-load path, held against the plain version and
+    bit for bit against the 16-byte path on contiguous copies."""
+    g = torch.Generator(device=cuda).manual_seed(20)
+    Dt = _offset_copy(torch.randn((2, 2, 256, 256), generator=g,
+                                  device=cuda).to(dtype))
+    B = _offset_copy(torch.randn((2, 1024, 16), generator=g,
+                                 device=cuda).to(dtype))
+    L, X = Dt[:, 1], B[:, 256:512]
+    assert L.data_ptr() % 16 and X.data_ptr() % 16
+    mask = _mask(cuda, 4, seed=20)
+    got = trmm.trmm_masked(L, X, mask, 64)
+    want = trmm.trmm_masked_plain(L, X, mask, 64)
+    aligned = trmm.trmm_masked(L.contiguous(), X.contiguous(), mask, 64)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    scale = want.double().abs().max().item()
+    assert (got.double() - want.double()).abs().max().item() <= tol * scale
+    assert torch.equal(got, aligned)
 
 
 @pytest.mark.gpu
