@@ -114,13 +114,34 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    and unpadded admission, per replace, for the migration, the fleet's
    stats table, and the host time of one bucket-wave dispatch beside
    the planner's nominal 50 us.
-10. The card line, the kernels' JSON summary, then the last line
+10. The open-loop tier (``traffic_phase``): the reference CLI's
+   trsm-traffic configuration at n = 8192 (4 factors, inv at n0 = 4096,
+   bf16_refine, panel_k = 16, requests of 4 columns, queue depth 128,
+   SLO 50 ms) through ``api.AsyncSolveServer`` and its background
+   drain loop, after priming every wave composition: the closed-loop
+   capacity (s per full wave), the saturation sweep of
+   benchmarks/bench_serve_latency.py (2 s a point) and its 5 s run at
+   0.8x saturation (>= 95% goodput), 512 requests at 2x saturation with depth-only and with SLO
+   admission (``api.AdmissionController``), the steady state (submit
+   and ``step()`` by hand under sync-debug mode "error", and whether the
+   event wait itself trips it), and ``--autoscale`` (orders {8192: 2,
+   4096: 2} under the H100 preset, ``api.Autoscaler`` attached, 2x
+   saturation; the plans and every replan).  One JSON line per run:
+   offered rate, goodput, p50/p99/max latency against the SLO,
+   violations, depth and deadline sheds, stranded, waves, device ms per
+   wave and busy share (a torch.profiler window over the run).  Every
+   served request's relres <= 1e-5 in fp64 against its factor, padded
+   tails zero, every future done in 120 s, submitted = served +
+   stranded, no build after priming but an opened or rebuilt bucket's,
+   trmm = 6 x waves in the plain runs, phase 1 once per moved factor.
+11. The card line, the kernels' JSON summary, then the last line
    ``{"ok": true, "device": {...}}``.  Each kernel's launches are those
    of its main path's run: B1 and B2 the inv configuration at the
    default n0, B3 the rec one, B4 the first structured one, B6 the rec
    churn phase, B5 the fleet phase.
 """
 
+import collections
 import gc
 import json
 import os
@@ -172,6 +193,27 @@ FLEET_RELRES = 1e-5
 FLEET_MIGRATE_DISPATCH_S = 1e-4
 FLEET_EXPECTED_PLAN = [[N, [N, N // 2], 8, "inv", N // 2],
                        [N // 4, [N // 4], 4, "inv", N // 8]]
+# traffic: the reference CLI's trsm-traffic configuration lifted to n:
+# min(--bank 16, 4) factors, inv at the default n0, bf16_refine,
+# --panel-k 16 with requests of panel_k // 4 columns (16 requests fill a
+# wave), --queue-depth 128, --slo-ms 50, --requests 512 per run; the
+# saturation sweep of benchmarks/bench_serve_latency.py (from 0.25x the
+# closed-loop capacity, x1.5 a step, at most 8 points of 2 s each, the
+# last rate with >= 95% goodput) and its 5 s acceptance run at 0.8x
+# saturation: goodput counts the run's last completions, so a
+# 512-request run at 2000 requests/s (0.26 s) loses 7% of it to a 20 ms
+# tail whatever the load
+TRAFFIC_FACTORS = 4
+TRAFFIC_WIDTH = PANEL_K // 4
+TRAFFIC_DEPTH = 128
+TRAFFIC_SLO_MS = 50.0
+TRAFFIC_REQUESTS = 512
+TRAFFIC_RELRES = 1e-5
+TRAFFIC_CAPACITY_WAVES = 20
+TRAFFIC_SWEEP = (0.25, 1.5, 8)
+TRAFFIC_SWEEP_S = 2.0
+TRAFFIC_ACCEPT_S = 5.0
+TRAFFIC_GOODPUT = 0.95
 
 
 class SmokeFailure(RuntimeError):
@@ -1813,6 +1855,381 @@ def fleet_phase(api, seed):
     return launches, stats
 
 
+def traffic_offer(server, submit, rate, rng, label, count):
+    """One open-loop Poisson run of ``count`` requests at ``rate``
+    against the server's background drain loop, under a torch.profiler
+    window (CUDA activity only: the drain thread's kernels are in it).
+    Latency is completion minus SCHEDULED arrival (a submit that falls
+    behind still pays for it).  Every future must be done within 120 s.
+    Returns the run's record and its served requests
+    [(request index, future)]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import api
+    gaps = rng.exponential(1.0 / rate, size=count)
+    st0 = server.stats()
+    gc.collect()
+    torch.cuda.synchronize()
+    reset_counts()
+    futs, served = [], []
+    depth_shed = deadline_shed = stranded = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gc.disable()
+        try:
+            with server:                       # the background drain loop
+                t0 = time.monotonic()
+                sched = t0 + np.cumsum(gaps)
+                for i, t_i in enumerate(sched):
+                    delay = t_i - time.monotonic()
+                    if delay > 0:
+                        time.sleep(delay)
+                    try:
+                        futs.append((t_i, i, submit(i)))
+                    except api.Overloaded:
+                        depth_shed += 1        # raised at submit
+                for t_i, i, f in futs:
+                    try:
+                        f.result(timeout=120)
+                        served.append((t_i, i, f))
+                    except api.DeadlineUnmeetable:
+                        deadline_shed += 1     # through the future
+                    except api.StrandedRequestError:
+                        stranded += 1
+                    except TimeoutError as e:
+                        raise SmokeFailure(f"traffic {label}: request {i} "
+                                           f"not done in 120 s") from e
+                elapsed = time.monotonic() - t0
+        finally:
+            gc.enable()
+        torch.cuda.synchronize()
+    launches = read_counts()
+    st = server.stats()
+    d = {k: st[k] - st0[k] for k in ("submitted", "served", "shed",
+                                     "stranded", "waves")}
+    check(d["submitted"] + d["shed"] == count
+          and d["shed"] == depth_shed + deadline_shed
+          and d["submitted"] == d["served"] + d["stranded"]
+          and d["served"] == len(served) and d["stranded"] == stranded
+          and st["pending"] == 0 and st["inflight"] == 0,
+          f"traffic {label}: counts {d} against {len(served)} served, "
+          f"{depth_shed} + {deadline_shed} shed, {stranded} stranded")
+    lat = np.asarray([f.completed - t_i for t_i, _, f in served])
+    rows = sorted(((getattr(e, "self_device_time_total", None)
+                    or getattr(e, "self_cuda_time_total", 0), e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  reverse=True)
+    device_us = sum(us for us, _, _ in rows)
+    waves = max(d["waves"], 1)
+    pct = (lambda q: float(np.percentile(lat, q)) * 1e3) if len(lat) \
+        else (lambda q: None)
+    rec = dict(traffic_run=label, requests=count,
+               offered_rps=rate, arrivals_rps=count / (sched[-1] - t0),
+               goodput_rps=len(served) / elapsed,
+               goodput_ratio=len(served) / elapsed / rate,
+               served=len(served), elapsed_s=elapsed,
+               p50_ms=pct(50), p99_ms=pct(99),
+               max_ms=float(lat.max()) * 1e3 if len(lat) else None,
+               slo_ms=TRAFFIC_SLO_MS,
+               violations=int((lat * 1e3 > TRAFFIC_SLO_MS).sum()),
+               depth_shed=depth_shed, deadline_shed=deadline_shed,
+               stranded=stranded, waves=d["waves"],
+               device_ms_per_wave=device_us / 1e3 / waves,
+               device_busy_share=device_us / 1e3 / (elapsed * 1e3)
+               if device_us else None,
+               top=[[key[:60], us / 1e3 / waves, count / waves]
+                    for us, key, count in rows[:6]],
+               launches=launches)
+    return rec, served
+
+
+def traffic_phase(api, seed):
+    """The open-loop tier (TRAFFIC_*): the reference CLI's trsm-traffic
+    configuration at n = 8192 — 4 factors L = tril(randn) + n I, "inv"
+    at the default n0 = 4096, bf16_refine, panel_k = 16, requests of 4
+    columns from a device pool, queue depth 128, SLO 50 ms — served
+    through ``api.AsyncSolveServer`` after priming every wave
+    composition.  Runs: the closed-loop capacity (s per full wave), the
+    saturation sweep (2 s a point) and the 5 s acceptance run at 0.8x
+    saturation (best of two, >= 95% goodput), 512 requests at 2x
+    saturation with depth-only and with SLO admission
+    (``api.AdmissionController``), the steady state (placed RHS, one
+    priming wave, then submit, ``step()`` by hand at max_inflight = 2
+    and the event waits under sync-debug mode "error", no build), and
+    ``--autoscale``: orders {8192: 2, 4096: 2} planned under the H100
+    preset, ``api.Autoscaler`` attached, 512 requests at 2x saturation,
+    the plans and every replan printed.  Checks: every served request's
+    relres in fp64 against its factor <= 1e-5; padded tails exactly
+    zero; every future done within its timeout; submitted = served +
+    stranded and offered = submitted + shed; no build after priming but
+    an opened or rebuilt bucket's; trmm = 6 x waves in the plain runs
+    and no other kernel; phase 1 once per moved factor in a migration
+    (B5 where it is padded).  Returns (launches of the acceptance run,
+    stats)."""
+    from repro_torch.core import session
+    grid = api.make_trsm_mesh(1, 1)
+    dev = grid.device
+    fresh, g = factor_maker(dev, seed)
+    rng = np.random.default_rng(0)
+    M, w = TRAFFIC_FACTORS, TRAFFIC_WIDTH
+    per_wave = M * (PANEL_K // w)
+    what = f"traffic bf16_refine n={N}"
+
+    def relres_check(label, served, factor_of, pool_of):
+        """relres per served request, batched per factor in fp64; the
+        padded tail of a merged bucket's lane exactly zero."""
+        by = {}
+        tails = 0
+        for _, i, f in served:
+            X = f.result(timeout=0)
+            by.setdefault(factor_of(i), []).append((X, pool_of(i)))
+            n_b = f.factor[0][0] if isinstance(f.factor, tuple) else N
+            if f.order < n_b:
+                tail = X.as_strided((n_b - f.order, X.shape[1]), X.stride(),
+                                    X.storage_offset()
+                                    + f.order * X.stride(0))
+                check(not tail.any(), f"{what} {label}: request {i}'s "
+                                      f"padded tail is not zero")
+                tails += 1
+        worst = 0.0
+        for key, xs in by.items():
+            L = factors[key]
+            for r in request_relres(L, [x for x, _ in xs],
+                                    [b for _, b in xs]):
+                check(r <= TRAFFIC_RELRES, f"{what} {label}: {key} relres "
+                                           f"{r} > {TRAFFIC_RELRES}")
+                worst = max(worst, r)
+        return worst, tails
+
+    # ------------------------- the plain bank -------------------------
+    factors = {j: fresh() for j in range(M)}
+    solver = api.Solver.from_factors(torch.stack(list(factors.values())),
+                                     grid, method="inv",
+                                     precision="bf16_refine")
+    check(solver.n0 == N // 2, f"{what}: n0 {solver.n0}")
+    server = api.AsyncSolveServer(solver, PANEL_K,
+                                  queue_depth=TRAFFIC_DEPTH,
+                                  slo_ms=TRAFFIC_SLO_MS).warmup()
+    pool = [torch.randn((N, w), generator=g, device=dev) for _ in range(32)]
+
+    def sub(i):
+        return server.submit(pool[i % 32], factor=i % M)
+
+    def prime(srv, submit):
+        """Every wave composition before the clock starts (the CLI's
+        priming): lazy first builds belong to startup.  Returns the
+        served requests [(None, request index, future)]."""
+        futs = []
+        for count in range(1, per_wave + 1):
+            for i in range(count):
+                futs.append((None, i, submit(i)))
+            while srv.pending() or srv._inflight:
+                srv.step()
+            srv.flush()
+        return futs
+
+    relres_check("priming", prime(server, sub), lambda i: i % M,
+                 lambda i: pool[i % 32])
+    server.reset_service_ewma()
+    builds0 = sum(session.BUILD_COUNTS.values())
+
+    # 1. closed-loop capacity: one full wave at a time, drained
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAFFIC_CAPACITY_WAVES):
+        for i in range(per_wave):
+            sub(i)
+        while server.pending() or server._inflight:
+            server.step()
+    torch.cuda.synchronize()
+    s_per_wave = (time.perf_counter() - t0) / TRAFFIC_CAPACITY_WAVES
+    capacity = per_wave / s_per_wave
+    print(json.dumps(dict(traffic_capacity=what, s_per_full_wave=s_per_wave,
+                          requests_per_wave=per_wave,
+                          capacity_rps=capacity)), flush=True)
+
+    def plain_run(label, rate, seconds=None):
+        count = TRAFFIC_REQUESTS if seconds is None \
+            else max(int(rate * seconds), 1)
+        rec, served = traffic_offer(server, sub, rate, rng, label, count)
+        want = dict.fromkeys(counters(), 0)
+        want["trmm"] = 6 * rec["waves"]
+        check(rec["launches"] == want, f"{what} {label}: launches "
+                                       f"{rec['launches']}, want {want}")
+        check(sum(session.BUILD_COUNTS.values()) == builds0,
+              f"{what} {label}: a program was built after priming")
+        rec["worst_relres"], _ = relres_check(
+            label, served, lambda i: i % M, lambda i: pool[i % 32])
+        print(json.dumps(rec), flush=True)
+        return rec
+
+    # 2. the saturation sweep, then the acceptance run at 0.8x
+    start, step, points = TRAFFIC_SWEEP
+    rate, saturation = capacity * start, None
+    for k in range(points):
+        rec = plain_run(f"sweep {k}", rate, TRAFFIC_SWEEP_S)
+        if rec["goodput_ratio"] < TRAFFIC_GOODPUT:
+            break
+        saturation = rate
+        rate *= step
+    if saturation is None:             # even the floor lost goodput: as
+        saturation = capacity * start  # the bench, report it and let the
+                                       # acceptance run judge
+    print(json.dumps(dict(traffic_saturation_rps=saturation,
+                          capacity_rps=capacity)), flush=True)
+    for attempt in range(2):                 # best of two, as the bench
+        accept = plain_run(f"accept 0.8x #{attempt}", 0.8 * saturation,
+                           TRAFFIC_ACCEPT_S)
+        if accept["goodput_ratio"] >= TRAFFIC_GOODPUT:
+            break
+    check(accept["goodput_ratio"] >= TRAFFIC_GOODPUT,
+          f"{what}: goodput {accept['goodput_ratio']:.3f} at 0.8x "
+          f"saturation")
+
+    # 3. overload: 2x saturation, depth-only, then SLO admission
+    over_depth = plain_run("overload 2x depth", 2 * saturation)
+    ctrl = api.AdmissionController(slo_ms=TRAFFIC_SLO_MS)
+    server.reset_service_ewma()
+    server.set_admission(ctrl)
+    over_slo = plain_run("overload 2x slo", 2 * saturation)
+    check(ctrl.shed == over_slo["deadline_shed"],
+          f"{what}: the controller shed {ctrl.shed}, the futures "
+          f"{over_slo['deadline_shed']}")
+    server.set_admission(None)
+
+    # the steady state; first, on its own: does an event wait trip
+    # sync-debug "error"?
+    probe = torch.cuda.Event()
+    probe.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        probe.synchronize()
+        event_trips = False
+    except RuntimeError:
+        event_trips = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    steady = api.AsyncSolveServer(solver, PANEL_K, max_inflight=2,
+                                  queue_depth=TRAFFIC_DEPTH)
+    steady.submit(pool[0], factor=0)                    # priming wave
+    while steady.pending() or steady._inflight:
+        steady.step()
+    spec = solver.spec_for(PANEL_K)
+    builds = session.BUILD_COUNTS[spec]
+    torch.cuda.synchronize()
+    futs = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(2 * per_wave):
+            futs.append((i, steady.submit(pool[i % 32], factor=i % M)))
+        while steady.pending():
+            steady.step()
+        steady.flush()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(session.BUILD_COUNTS[spec] == builds == 1,
+          f"{what}: the steady state built a program")
+    worst_steady, _ = relres_check(
+        "steady", [(None, i, f) for i, f in futs], lambda i: i % M,
+        lambda i: pool[i % 32])
+    print(json.dumps(dict(traffic_steady_state="ok",
+                          sync_debug_mode="error",
+                          event_synchronize_trips_error_mode=event_trips,
+                          guarded="submit, pack, dispatch and finalize",
+                          waves=steady.waves, builds=builds,
+                          worst_relres=worst_steady)), flush=True)
+    del server, steady, solver, futs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. --autoscale: a two-order fleet with the Autoscaler attached
+    orders = [N, N, N // 2, N // 2]
+    factors = {f"f{j}": fresh(d) for j, d in enumerate(orders)}
+    manifest = {N: 2, N // 2: 2}
+    plan = api.plan_fleet(manifest, grid, k=PANEL_K,
+                          precision="bf16_refine")
+    print(plan.table(), flush=True)
+    before = [[b.n, list(b.orders), b.capacity, b.method, b.n0]
+              for b in plan.buckets]
+    fleet = api.SolverFleet(grid, plan)
+    for tag, L in factors.items():
+        fleet.admit(L, tenant="traffic", tag=tag)
+    fserver = api.AsyncSolveServer(fleet, PANEL_K,
+                                   queue_depth=TRAFFIC_DEPTH,
+                                   slo_ms=TRAFFIC_SLO_MS).warmup()
+    scaler = api.Autoscaler(fserver)
+    pools = {d: [torch.randn((d, w), generator=g, device=dev)
+                 for _ in range(32)] for d in set(orders)}
+    tags = list(factors)
+
+    def fsub(i):
+        tag = tags[i % len(tags)]
+        return fserver.submit(pools[orders[i % 4]][i % 32],
+                              tenant="traffic", tag=tag)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    _, primed_tails = relres_check(
+        "autoscale priming", prime(fserver, fsub), lambda i: tags[i % 4],
+        lambda i: pools[orders[i % 4]][i % 32])
+    priming_launches = read_counts()
+    fserver.reset_service_ewma()
+    replans0 = len(scaler.replans)
+    moved0 = sum(r["moved"] for r in scaler.replans)
+    check(priming_launches["tri_inv_blocks"]
+          + priming_launches["tri_inv_blocks_valid"] == moved0,
+          f"{what} autoscale priming: phase 1 {priming_launches} for "
+          f"{moved0} moved factors")
+    primed = [[b.n, list(b.orders), b.capacity, b.method, b.n0]
+              for b in fleet.plan.buckets]
+    built_before = collections.Counter(session.BUILD_COUNTS)
+    rec, served = traffic_offer(fserver, fsub, 2 * saturation, rng,
+                                "autoscale 2x", TRAFFIC_REQUESTS)
+    replans = scaler.replans[replans0:]
+    allowed = {k[0] for r in replans for k in r["opened"] + r["rebuilt"]}
+    built = {key: c - built_before[key]
+             for key, c in session.BUILD_COUNTS.items()
+             if c != built_before[key]}
+    check(all(key.n in allowed for key in built),
+          f"{what} autoscale: built {list(built)} outside the opened or "
+          f"rebuilt buckets {sorted(allowed)}")
+    moved = sum(r["moved"] for r in replans)
+    phase1 = rec["launches"]["tri_inv_blocks"] \
+        + rec["launches"]["tri_inv_blocks_valid"]
+    check(phase1 == moved, f"{what} autoscale: {phase1} phase-1 launches "
+                           f"for {moved} moved factors")
+    rec["worst_relres"], rec["padded_tails_checked"] = relres_check(
+        "autoscale", served, lambda i: tags[i % 4],
+        lambda i: pools[orders[i % 4]][i % 32])
+    after = [[b.n, list(b.orders), b.capacity, b.method, b.n0]
+             for b in fleet.plan.buckets]
+    print(fleet.plan.table(), flush=True)
+
+    def spelled(rs):
+        return [dict(r, opened=[k[0] for k in r["opened"]],
+                     closed=[k[0] for k in r["closed"]],
+                     rebuilt=[k[0] for k in r["rebuilt"]]) for r in rs]
+    rec.update(plan_before=before, plan_after_priming=primed,
+               plan_after=after, replans=spelled(replans),
+               replans_during_priming=spelled(scaler.replans[:replans0]),
+               priming_launches=priming_launches,
+               priming_padded_tails_checked=primed_tails,
+               nominal_dispatch_ms=plan.dispatch_s * 1e3,
+               built_in_run={f"{type(k).__name__} n={k.n}": c
+                             for k, c in built.items()},
+               autoscaler=scaler.stats())
+    print(json.dumps(rec, default=str), flush=True)
+    stats = dict(traffic=what, capacity_rps=capacity,
+                 s_per_full_wave=s_per_wave, saturation_rps=saturation,
+                 accept=accept, overload_depth=over_depth,
+                 overload_slo=over_slo, autoscale=rec,
+                 event_synchronize_trips_error_mode=event_trips)
+    del fserver, fleet, factors
+    gc.collect()
+    torch.cuda.empty_cache()
+    return accept["launches"], stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1872,6 +2289,9 @@ def main() -> int:
     main_launches["fleet"], _ = fleet_phase(api, seed=120)    # phase 9
     gc.collect()
     torch.cuda.empty_cache()
+    main_launches["traffic"], _ = traffic_phase(api, seed=130)  # phase 10
+    check(main_launches["traffic"]["trmm"] > 0,
+          "trmm never launched on the traffic path")
 
     kernels = []
     for name, method, source, replaces in (

@@ -41,11 +41,34 @@
   :class:`FleetHandle`, reclaims the coldest slot across tenants and
   live-migrates onto a new plan; ``SolveServer(fleet, panel_k)`` routes
   requests by (tenant, order[, tag]).
+* :class:`AsyncSolveServer` — the open-loop tier (DESIGN.md Sec. 13):
+  ``submit`` copies a request to the device, stamps it into a bounded
+  per-slot :class:`FairQueue` (weighted fair queueing across tenants)
+  and returns a :class:`SolveFuture`; a drain loop (a thread, or
+  ``step`` by hand under an injected clock) packs and dispatches one
+  wave per step through ``SolveServer``'s wave core and resolves the
+  futures when the wave's CUDA event has completed.  A full queue
+  sheds with :class:`Overloaded`, a turned-over slot strands with
+  :class:`StrandedRequestError`, both through typed errors.
+* :class:`AdmissionController`, :class:`Autoscaler` — the control plane
+  (DESIGN.md Sec. 15): admission sheds a request whose estimated queue
+  wait cannot meet the SLO (:class:`DeadlineUnmeetable`, through its
+  future) and stamps the others' deadlines; the autoscaler re-prices a
+  fleet-mode server's live manifest with :func:`plan_fleet` when its
+  buckets' utilization leaves a band, and migrates it live:
+
+      server = api.AsyncSolveServer(solver, panel_k=16, slo_ms=50.0,
+                                    admission=api.AdmissionController())
+      with server.warmup():
+          X = server.submit(b).result(timeout=30)
+
 * :func:`trsm` — one-shot solve.
 """
 
 from repro_torch.core import trsm  # noqa: F401
 from repro_torch.core.bank import FactorBank  # noqa: F401
+from repro_torch.core.control import (  # noqa: F401
+    AdmissionController, Autoscaler)
 from repro_torch.core.fleet import (  # noqa: F401
     BucketPlan, FleetHandle, FleetPlan, SolverFleet, plan_fleet)
 from repro_torch.core.errors import (  # noqa: F401
@@ -58,4 +81,6 @@ from repro_torch.core.session import (  # noqa: F401
 from repro_torch.core.solver import (  # noqa: F401
     Solver, SolveServer, SolveSpec, UpdateSpec,
     plan_grid, resolve_plan, solver_for, updater_for)
+from repro_torch.core.serving import (  # noqa: F401
+    AsyncSolveServer, FairQueue, SolveFuture)
 from repro_torch.core.structure import FactorStructure  # noqa: F401

@@ -13,9 +13,10 @@ plans with :func:`h100` unless the caller passes a machine (Sec. VIII:
 "the exact choice is machine dependent"); the TPU preset stays so that
 plans can be compared with the reference's for the same machine.  The
 reference's measured calibration is TPU data and is not ported.  Only
-what the port's planner prices is here: the MM costs, the fleet's
-queue-wait pricing and the Sec. IX table come with the slices that
-use them.  A non-dense ``structure=`` (a
+what the port's planners and its control plane price is here (the
+admission controller's :func:`queue_wait_estimate` included): the MM
+costs and the Sec. IX table come with the slices that use them.  A
+non-dense ``structure=`` (a
 :class:`~repro_torch.core.structure.FactorStructure`) prices the blocks
 the structured programs execute (DESIGN.md Sec. 14).
 """
@@ -372,3 +373,26 @@ def it_inv_trsm_steady_cost(n: float, k: float, n0: float,
     return (solve_phase_cost(n, k, n0, p1, p2, overlap=overlap)
             + update_phase_cost(n, k, n0, p1, p2, structure=structure,
                                 overlap=overlap))
+
+
+# ------------------- control-plane wait pricing -------------------
+
+def queue_wait_estimate(queued_cols: float, width: float,
+                        inflight_waves: float, k: float,
+                        steady_s: float,
+                        dispatch_s: float = 0.0) -> float:
+    """A priori queue-wait bound for one arriving request (DESIGN.md
+    Sec. 15): seconds until a request of ``width`` columns joining a
+    backlog of ``queued_cols`` columns completes, when each wave
+    carries up to ``k`` columns and costs ``steady_s`` (the modeled —
+    or measured-EWMA — per-wave service time) plus ``dispatch_s`` of
+    launch overhead, with ``inflight_waves`` already dispatched ahead.
+
+    The reference's formula: the admission controller admits or sheds
+    a request on this arithmetic, before any queue time is spent.  The
+    wave count is a CEILING (a request never splits across waves), so
+    admission errs toward shedding work it could not serve in time
+    rather than admitting work it cannot."""
+    waves = math.ceil((queued_cols + width) / max(k, 1.0)) \
+        + inflight_waves
+    return waves * (steady_s + dispatch_s)

@@ -28,6 +28,16 @@
         --n 256 --panel-k 16 --requests 96 --updates 12 \
         [--precision bf16_refine] [--fleet-stats] [--cache-stats]
 
+    # open-loop serving: Poisson arrivals at --rate against the async
+    # tier's background drain loop (min(--bank, 4) resident factors),
+    # tail latency against --slo-ms, bounded queues; --admission slo sheds
+    # requests whose estimated wait cannot meet the SLO, --autoscale
+    # serves a two-order fleet with the Autoscaler attached (DESIGN.md
+    # Secs. 13, 15)
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload trsm-traffic \
+        --n 8192 --rate 500 --requests 512 --slo-ms 50 --queue-depth 128 \
+        [--admission depth|slo] [--autoscale] [--stats-json]
+
 Factors are L = tril(randn) + n I from seeded device generators;
 requests have random widths 1..panel_k.  ``--method rec`` serves
 through the recursive baseline (its base cases on the substitution
@@ -41,7 +51,12 @@ kernel (B6), which solves the empty and evicted lanes to zeros.
 ``trsm-fleet`` prints the plan's bucket table and requests, bucket-waves,
 refreshes, reclaims and the program builds during the run (0 in the
 steady state), and with ``--fleet-stats`` the fleet's stats table.
-The other workloads of ``repro.launch.serve`` are not ported yet.
+``trsm-traffic`` prints the reference's summary line (served of
+offered, goodput, waves, p50/p99 against the SLO, violations, sheds at
+depth and at admission), the autoscaler's replans, and with
+``--stats-json`` one JSON line of server, admission and autoscaler
+stats.  The ``lm`` workload of ``repro.launch.serve`` is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -53,7 +68,7 @@ import numpy as np
 import torch
 
 # workload -> the ROADMAP item that ports it
-_NOT_PORTED = {"lm": "A15", "trsm-traffic": "A10"}
+_NOT_PORTED = {"lm": "A15"}
 
 
 def _print_cache_stats():
@@ -314,11 +329,149 @@ def serve_trsm_fleet(args):
         _print_cache_stats()
 
 
+def serve_trsm_traffic(args):
+    """Open-loop async serving: Poisson arrivals against the
+    background drain loop, futures resolved as waves finalize, tail
+    latency reported against the --slo-ms objective.
+
+    ``--admission slo`` runs the SLO-aware admission controller
+    (requests whose estimated queue wait cannot meet --slo-ms are shed
+    at submit with DeadlineUnmeetable, surfaced through the future);
+    ``--autoscale`` serves a mixed-order FLEET instead of a flat bank
+    and attaches the planner-driven Autoscaler (DESIGN.md Sec. 15)."""
+    import json
+
+    from repro_torch import api
+    grid = api.make_trsm_mesh(1, 1, device=args.device)
+    rng = np.random.default_rng(0)
+    n, M = args.n, min(args.bank, 4)
+    admission = api.AdmissionController(slo_ms=args.slo_ms) \
+        if args.admission == "slo" else None
+    gen = torch.Generator(device=grid.device).manual_seed(1)
+    if args.autoscale:
+        # mixed-order fleet: half the factors at n, half at n // 2 —
+        # the spectrum the autoscaler splits/merges under load drift
+        orders = [n] * max(M // 2, 1) + [n // 2] * max(M // 2, 1)
+        makers = {d: _factor_maker(d, args, grid.device)[0]
+                  for d in set(orders)}
+        manifest = {}
+        for d in orders:
+            manifest[d] = manifest.get(d, 0) + 1
+        plan = api.plan_fleet(manifest, grid, k=args.panel_k,
+                              precision=args.precision)
+        fleet = api.SolverFleet(grid, plan)
+        tags = []
+        for j, d in enumerate(orders):
+            tag = f"f{j}"
+            fleet.admit(makers[d](), tenant="traffic", tag=tag)
+            tags.append((tag, d))
+        server = api.AsyncSolveServer(
+            fleet, args.panel_k, queue_depth=args.queue_depth,
+            slo_ms=args.slo_ms).warmup()
+        scaler = api.Autoscaler(server)
+        policy = fleet.solver(next(iter(fleet.buckets))).policy
+    else:
+        fresh, _ = _factor_maker(n, args, grid.device)
+        solver = api.Solver.from_factors(
+            torch.stack([fresh() for _ in range(M)]), grid,
+            method=args.method, n0=args.n0, precision=args.precision)
+        server = api.AsyncSolveServer(
+            solver, args.panel_k, queue_depth=args.queue_depth,
+            slo_ms=args.slo_ms).warmup()
+        scaler = None
+        policy = solver.policy
+    width = max(args.panel_k // 4, 1)
+    dtype = torch.float64 if args.precision == "fp64_refine" \
+        else torch.float32
+    pools = {d: [torch.randn((d, width), generator=gen,
+                             device=grid.device, dtype=dtype)
+                 for _ in range(32)]
+             for d in ({n, n // 2} if args.autoscale else {n})}
+
+    def sub(i):
+        if args.autoscale:
+            tag, order = tags[i % len(tags)]
+            return server.submit(pools[order][i % 32],
+                                 tenant="traffic", tag=tag)
+        return server.submit(pools[n][i % 32], factor=i % M)
+
+    # prime every wave composition before the clock starts: lazy
+    # first builds belong to startup, not to the measured traffic
+    per_wave = M * max(args.panel_k // width, 1)
+    for count in range(1, per_wave + 1):
+        for i in range(count):
+            sub(i)
+        while server.pending() or server._inflight:
+            server.step()
+        server.flush()
+    # admission goes live only now: priming builds must not feed the
+    # controller's service estimates
+    server.reset_service_ewma()
+    if admission is not None:
+        server.set_admission(admission)
+    _sync(grid.device)
+    gaps = rng.exponential(1.0 / args.rate, size=args.requests)
+    shed = 0
+    futs = []
+    t0 = time.monotonic()
+    sched = t0 + np.cumsum(gaps)
+    with server:                       # background drain loop
+        for i, t_i in enumerate(sched):
+            delay = t_i - time.monotonic()
+            if delay > 0:
+                time.sleep(delay)
+            try:
+                futs.append((t_i, sub(i)))
+            except api.Overloaded:
+                shed += 1              # depth shed (raised at submit)
+        served, deadline_shed = [], 0
+        for t_i, f in futs:
+            try:
+                f.result(timeout=120)
+                served.append((t_i, f))
+            except api.DeadlineUnmeetable:
+                deadline_shed += 1     # SLO shed (through the future)
+    elapsed = time.monotonic() - t0
+    lat = np.asarray([f.completed for _, f in served]) \
+        - np.asarray([t for t, _ in served])
+    violations = int((lat * 1e3 > args.slo_ms).sum())
+
+    def pct(q):
+        return f"{np.percentile(lat, q) * 1e3:.2f}" if len(lat) \
+            else "n/a"
+    print(f"served {len(served)}/{args.requests} open-loop requests "
+          f"(offered {args.rate:.0f} rps, goodput "
+          f"{len(served) / elapsed:.0f} rps) in "
+          f"{server.stats()['waves']} waves; p50 "
+          f"{pct(50)} ms p99 "
+          f"{pct(99)} ms vs SLO "
+          f"{args.slo_ms:.0f} ms ({violations} violations); "
+          f"shed {shed} at depth {args.queue_depth} + "
+          f"{deadline_shed} at admission ({args.admission}) on "
+          f"{grid.device} n={n} precision={policy.name}")
+    if scaler is not None:
+        print(f"autoscaler: {len(scaler.replans)} replan(s) "
+              + "".join(f"[{r['kind']}: {r['moved']} moved] "
+                        for r in scaler.replans)
+              + f"buckets now "
+                f"{sorted(k[0] for k in server.fleet.buckets)}")
+    if args.stats_json:
+        st = server.stats()
+        if scaler is not None:
+            st["autoscaler"] = scaler.stats()
+        if admission is not None:
+            st["admission"] = admission.stats()
+        print(json.dumps(st, default=str, sort_keys=True))
+    if args.cache_stats:
+        _print_cache_stats()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", default="trsm",
                     choices=["trsm", "trsm-bank", "trsm-churn",
-                             "trsm-fleet", *_NOT_PORTED])
+                             "trsm-fleet", "trsm-traffic",
+                             *_NOT_PORTED])
     ap.add_argument("--n", type=int, default=256)
     ap.add_argument("--n0", type=int, default=None)
     ap.add_argument("--panel-k", type=int, default=16)
@@ -328,7 +481,8 @@ def main(argv=None):
                          "cost model's choice")
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--bank", type=int, default=16,
-                    help="factors (trsm-bank) or capacity (trsm-churn)")
+                    help="factors (trsm-bank; trsm-traffic serves "
+                         "min(bank, 4)) or capacity (trsm-churn)")
     ap.add_argument("--updates", type=int, default=32,
                     help="in-place updates between waves (trsm-churn)")
     ap.add_argument("--precision", default="fp32",
@@ -338,6 +492,31 @@ def main(argv=None):
                     metavar="dense|banded[:BW]|block-sparse",
                     help="factor block structure for the trsm workload "
                          "(level-scheduled sweep; DESIGN.md Sec. 14)")
+    ap.add_argument("--rate", type=float, default=500.0,
+                    help="offered Poisson arrival rate in req/s "
+                         "(trsm-traffic)")
+    ap.add_argument("--slo-ms", type=float, default=50.0,
+                    help="latency objective: completions slower than "
+                         "this count as SLO violations (trsm-traffic)")
+    ap.add_argument("--queue-depth", type=int, default=128,
+                    help="per-slot bounded queue depth; submits beyond "
+                         "it are shed with Overloaded (trsm-traffic)")
+    ap.add_argument("--admission", default="depth",
+                    choices=["depth", "slo"],
+                    help="admission policy for trsm-traffic: 'depth' "
+                         "sheds only on full queues; 'slo' also sheds "
+                         "requests whose estimated queue wait cannot "
+                         "meet --slo-ms (DeadlineUnmeetable through "
+                         "the future; DESIGN.md Sec. 15)")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="serve a mixed-order fleet with the "
+                         "planner-driven Autoscaler attached: bucket "
+                         "splits/merges follow offered-load drift "
+                         "(trsm-traffic; DESIGN.md Sec. 15)")
+    ap.add_argument("--stats-json", action="store_true",
+                    help="dump one machine-readable JSON line of "
+                         "server (+ admission/autoscaler) stats after "
+                         "the run (trsm-traffic)")
     ap.add_argument("--fleet-stats", action="store_true",
                     help="print fleet-wide serving stats (per-bucket "
                          "occupancy, admits, reclaims, hit rate) after "
@@ -355,7 +534,8 @@ def main(argv=None):
         ap.error("a bank takes --method inv or rec (auto depends on k)")
     {"trsm": serve_trsm, "trsm-bank": serve_trsm_bank,
      "trsm-churn": serve_trsm_churn,
-     "trsm-fleet": serve_trsm_fleet}[args.workload](args)
+     "trsm-fleet": serve_trsm_fleet,
+     "trsm-traffic": serve_trsm_traffic}[args.workload](args)
 
 
 if __name__ == "__main__":

@@ -952,11 +952,13 @@ _PAD_CASES = [(1024, 512, "inv", 256, prec, lo, tr)
        for prec in ("fp32", "bf16_refine")] \
     + [(8192, 4096, method, n0, prec, True, False)
        for method, n0 in (("inv", 4096), ("rec", None))
+       for prec in ("fp32", "bf16_refine")] \
+    + [(8192, 2048, "inv", 4096, prec, True, False)
        for prec in ("fp32", "bf16_refine")]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("C", [1, 2, 4, 16])
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 8, 12, 16])
 @pytest.mark.parametrize("n,d,method,n0,precision,lower,transpose",
                          _PAD_CASES)
 def test_padded_solve_is_bit_identical_at_every_width(
@@ -965,9 +967,12 @@ def test_padded_solve_is_bit_identical_at_every_width(
     width: an order-d factor padded into an order-n capacity bank of
     width C solves its leading d x 16 block bit for bit as the same
     factor in an order-d bank of width C, at the same n0 ("rec": n0 =
-    n), and its tail to exact zeros.  At width 1 the banks serve with
-    fixed_order (the products on ops.gemm: cuBLAS sums a width-1
-    product by shape); wider banks keep cuBLAS."""
+    n; an order below n0 is one block of its own order), and its tail
+    to exact zeros.  The widths and orders include the fleet's: buckets
+    of 8 and 4, 12 after a migration, order 2048 padded into 8192 at
+    n0 = 4096.  At width 1 the banks serve with fixed_order (the
+    products on ops.gemm: cuBLAS sums a width-1 product by shape);
+    wider banks keep cuBLAS."""
     from repro_torch import api
     k = 16
     g = torch.Generator(device=cuda).manual_seed(17)
@@ -979,7 +984,8 @@ def test_padded_solve_is_bit_identical_at_every_width(
     grid = api.make_trsm_mesh(1, 1)
     kw = dict(method=method, n0=n0, precision=precision, lower=lower,
               transpose=transpose, capacity=C)
-    big, small = api.FactorBank(grid, n, **kw), api.FactorBank(grid, d, **kw)
+    big = api.FactorBank(grid, n, **kw)
+    small = api.FactorBank(grid, d, **dict(kw, n0=n0 and min(n0, d)))
     big.admit(T, pad_to=n)
     small.admit(T)
     Bb = torch.zeros((C, n, k), device=cuda)
@@ -1032,3 +1038,175 @@ def test_gemm_kernel_matches_plain_and_sums_in_one_order(cuda, dtype,
     else:
         part = trmm.gemm(A[:, :r], X)
     assert torch.equal(got[:, :r], part)
+
+
+# ------------------------- the async tier -------------------------
+
+def _async_server(cuda, *, n=1024, M=2, k=16, capacity=None, **kw):
+    """An AsyncSolveServer over M order-n factors on the card
+    (bf16_refine, n0 = n / 2), warmed up; returns (server, Ls)."""
+    from repro_torch import api
+    g = torch.Generator(device=cuda).manual_seed(23)
+    Ls = torch.randn((M, n, n), generator=g, device=cuda).tril_()
+    Ls.diagonal(dim1=1, dim2=2).add_(n)
+    bank = api.FactorBank(api.make_trsm_mesh(1, 1), n, n0=n // 2,
+                          precision="bf16_refine", capacity=capacity)
+    if capacity is None:
+        bank.admit_stack(Ls)
+    else:
+        for L in Ls:
+            bank.admit(L)
+    solver = api.Solver.from_bank(bank)
+    return api.AsyncSolveServer(solver, k, **kw).warmup(), Ls
+
+
+def _relres(L, X, b) -> float:
+    return (torch.linalg.norm(L.double() @ X.double() - b.double())
+            / torch.linalg.norm(b.double())).item()
+
+
+@pytest.mark.gpu
+def test_async_steady_state_builds_nothing_and_never_syncs(cuda):
+    """The reference's zero-retrace/zero-transfer steady state on the
+    card: RHS already on the device, one priming wave, then submit and
+    step() by hand at max_inflight = 2 under sync-debug mode "error"
+    (a host sync raises) — the event wait in _finalize_one included —
+    with no program built; every request within the bf16_refine bound
+    (1e-5)."""
+    from repro_torch.core import session
+    srv, Ls = _async_server(cuda, max_inflight=2)
+    g = torch.Generator(device=cuda).manual_seed(24)
+    bs = [torch.randn((1024, 4), generator=g, device=cuda)
+          for _ in range(16)]
+    srv.submit(bs[0], factor=0)                  # priming wave
+    while srv.pending() or srv._inflight:
+        srv.step()
+    spec = srv.solver.spec_for(srv.panel_k)
+    builds = session.BUILD_COUNTS[spec]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        futs = [srv.submit(b, factor=i % 2) for i, b in enumerate(bs)]
+        while srv.pending():
+            srv.step()
+        srv.flush()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert session.BUILD_COUNTS[spec] == builds == 1
+    assert srv.stats()["waves"] == 1 + 2         # 4 + 4 requests a slot
+    for i, (b, f) in enumerate(zip(bs, futs)):
+        assert _relres(Ls[i % 2], f.result(timeout=0), b) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_async_future_waits_for_its_event(cuda):
+    """A dispatched wave's future is not done before the CUDA event
+    recorded behind it has completed: with half a second of device
+    time queued ahead of the wave, step() returns with the wave in
+    flight, its event pending and its future open; flush() waits on
+    the event, then resolves the future with a completion stamp after
+    that wait."""
+    srv, Ls = _async_server(cuda, n=256, M=1, max_inflight=2)
+    b = torch.randn((256, 4), device=cuda)
+    fut = srv.submit(b)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)             # ~0.5 s on the stream
+    assert srv.step() == 1
+    (pairs, done), = srv._inflight
+    assert isinstance(done, torch.cuda.Event)
+    assert not done.query() and not fut.done()
+    srv.flush()
+    assert done.query() and fut.done() and not srv._inflight
+    assert fut.latency() > 0.1                   # it waited on the card
+    assert _relres(Ls[0], fut.result(timeout=0), b) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_async_producers_race_churn_on_the_card(cuda):
+    """The reference's stress test on CUDA tensors: four producer
+    threads submit device RHS against one real drain loop while a churn
+    thread replaces and evicts/re-admits slots 2-3 of a capacity bank:
+    every future completes (served or typed-stranded, never a hang),
+    counts conserve, the wave program is never rebuilt, and every
+    request to the steady slots 0-1 meets the bf16_refine bound."""
+    import threading
+
+    from repro_torch import api
+    from repro_torch.core import session
+    n, C = 512, 4
+    srv, Ls = _async_server(cuda, n=n, M=C, capacity=C, queue_depth=16)
+    bank = srv.solver.bank
+    spec = srv.solver.spec_for(srv.panel_k)
+    builds = session.BUILD_COUNTS[spec]
+    N, per = 4, 25
+    futures, shed = [], [0] * N
+    flock = threading.Lock()
+    barrier = threading.Barrier(N + 2)
+    stop_churn = threading.Event()
+    errors = []
+
+    def producer(w):
+        try:
+            g = torch.Generator(device=cuda).manual_seed(100 + w)
+            barrier.wait()
+            for i in range(per):
+                b = torch.randn((n, 1), generator=g, device=cuda)
+                slot = (w + i) % 2           # churn owns slots 2/3
+                try:
+                    f = srv.submit(b, factor=slot, tenant=f"w{w}")
+                except api.Overloaded:
+                    shed[w] += 1
+                    continue
+                with flock:
+                    futures.append((slot, b, f))
+        except Exception as e:                # pragma: no cover
+            errors.append(e)
+
+    def churn():
+        try:
+            g = torch.Generator(device=cuda).manual_seed(999)
+            barrier.wait()
+            i = 0
+            while not stop_churn.is_set():
+                slot = 2 + i % 2
+                L = torch.randn((n, n), generator=g, device=cuda).tril_()
+                L.diagonal().add_(n)
+                if i % 3:
+                    bank.replace(slot, L)     # generation-preserving
+                else:
+                    bank.evict(slot)
+                    bank.admit(L)             # turnover: strands queue
+                i += 1
+        except Exception as e:                # pragma: no cover
+            errors.append(e)
+
+    threads = [threading.Thread(target=producer, args=(w,))
+               for w in range(N)] + [threading.Thread(target=churn)]
+    for t in threads:
+        t.start()
+    with srv:
+        barrier.wait()
+        for t in threads[:-1]:
+            t.join(60)
+        stop_churn.set()
+        threads[-1].join(60)
+        for slot in (2, 3):                   # the churned slots too
+            if bank.is_live(slot):
+                try:
+                    futures.append((slot, None, srv.submit(
+                        torch.zeros((n, 1), device=cuda), factor=slot)))
+                except (ValueError, api.Overloaded):
+                    pass
+    assert not errors
+    assert not any(t.is_alive() for t in threads)
+    assert all(f.done() for _, _, f in futures)
+    outcomes = [f.exception() for _, _, f in futures]
+    assert all(e is None or isinstance(e, api.StrandedRequestError)
+               for e in outcomes)
+    st = srv.stats()
+    assert st["served"] + st["stranded"] == len(futures)
+    assert st["shed"] == sum(shed)
+    assert session.BUILD_COUNTS[spec] == builds
+    for slot, b, f in futures:
+        if slot < 2:
+            assert _relres(Ls[slot], f.result(timeout=0), b) <= 1e-5

@@ -205,8 +205,8 @@ def test_serve_cli_runs_on_the_cpu(capsys):
                 "--cache-stats"])
     out = capsys.readouterr().out
     assert "served 6 solve requests" in out and "hit_rate" in out
-    with pytest.raises(SystemExit):
-        serve.main(["--workload", "trsm-traffic", "--device", "cpu"])
+    with pytest.raises(SystemExit):          # not ported yet (A15)
+        serve.main(["--workload", "lm", "--device", "cpu"])
 
 
 def test_port_imports_neither_jax_nor_repro():
