@@ -134,7 +134,41 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    tails zero, every future done in 120 s, submitted = served +
    stranded, no build after priming but an opened or rebuilt bucket's,
    trmm = 6 x waves in the plain runs, phase 1 once per moved factor.
-11. The card line, the kernels' JSON summary, then the last line
+11. The factor producers and K-FAC (``producers_phase``,
+   ``kfac_phase``), every factor a real one: at n = 8192 fp32, the
+   Cholesky factor of a damped Gram matrix A = G G^T / 2n + 1e-2 I (G
+   (n, 2n) from randn) by selective inversion, its residual in fp64
+   within 10x of ``torch.linalg.cholesky``'s and its upper triangle
+   zero; its cyclic output admitted into an inv bank (n0 = 4096,
+   bf16_refine) and 64 requests of widths 1..16 served at relres <=
+   1e-5; LU without pivoting of randn + n I (residual within 10x of
+   ``lu_factor``'s, which pivots: not the same function); L^-1 at
+   s0 = n (one B1 launch) and s0 = n/8 (phase B's levels), within 10x
+   of ``solve_triangular(L, I)``'s residual; each timed beside its
+   library call.  Then KFAC-CA at qwen3-1.7b's widths on 2 units (the
+   reference's ``params["units"]`` tree, random weights, seeded
+   gradients, whiten): 3 steps, ``factor_banks_from_state`` (banks
+   {1024: 4, 2048: 18, 6144: 6}), every damped factor held to
+   ||L L^T - (M + lam I)|| / ||M + lam I|| in fp64 within 10x of
+   ``torch.linalg.cholesky``'s on the same matrix, one wave per bank
+   with every slot within 1e-5 (the fp32 preset's bound) of its damped
+   factor, a 4th step whose update of ``wq`` and ``down`` is held to an
+   fp64 ``eigh`` reference, (A + lam I)^{-1/2} G on the same EMA
+   state, within 5e-3 (the reference's own whiten test,
+   ``tests/test_substrate.py``), ``refresh_banks``
+   (the first call builds each bank's run updater; a warm refresh
+   builds nothing, no serving program is rebuilt), the new factors
+   held to their matrices as before, the waves again
+   against them, a ``replace_run`` of 2 and of 4 slots
+   against as many single replaces, and the fleet (``fleet=True`` on
+   the state before the 4th step, one refresh through it to the 4th
+   step's and one wave, padded tails zero).  B1, B2
+   and B5 launches per sub-phase; a kernel the sub-phase needs that
+   launched 0 times fails it.  The last stack of each shape that the
+   first step, the banking, the first refresh and the fleet's banking
+   hand to B1 (or B5) is kept and held against the plain version
+   afterwards, as phase 2 holds them.
+12. The card line, the kernels' JSON summary, then the last line
    ``{"ok": true, "device": {...}}``.  Each kernel's launches are those
    of its main path's run: B1 and B2 the inv configuration at the
    default n0, B3 the rec one, B4 the first structured one, B6 the rec
@@ -214,6 +248,23 @@ TRAFFIC_SWEEP = (0.25, 1.5, 8)
 TRAFFIC_SWEEP_S = 2.0
 TRAFFIC_ACCEPT_S = 5.0
 TRAFFIC_GOODPUT = 0.95
+# factor producers (phase 11 a): A = G G^T / 2n + FACTOR_SHIFT I with G
+# (n, 2n) from randn, a damped Gram matrix; its Cholesky factor banked
+# ("inv", n0 = n/2, bf16_refine) and served at the preset's bound
+FACTOR_SHIFT = 1e-2
+FACTOR_RELRES = 1e-5
+# K-FAC (phase 11 b): qwen3-1.7b's widths (src/repro/configs/qwen3_1_7b.py)
+# at 2 of its 28 units, the reference's kfac_ca defaults (whiten,
+# max_dim 8192, update_freq 1), 3 steps before banking
+QWEN = dict(d_model=2048, n_heads=16, n_kv=8, head_dim=128, d_ff=6144)
+KFAC_UNITS = 2
+KFAC_STEPS = 3
+KFAC_ORDERS = {1024: 4, 2048: 18, 6144: 6}
+KFAC_DAMPING = 1e-3                 # kfac_ca's and the banking's default
+# the whiten update against an fp64 eigh reference: the bound of the
+# reference's own test of it (tests/test_substrate.py)
+KFAC_WHITEN_TOL = 5e-3
+KFAC_WHITEN_PARAMS = (("attn", "wq"), ("mlp", "down"))
 
 
 class SmokeFailure(RuntimeError):
@@ -1018,26 +1069,30 @@ def other_entry_points(api, L, L64, seed):
 
 
 def profile_calls(run, label: str, calls: int = 10,
-                  unit: str = "solve") -> dict:
-    """Where the time of ``calls`` calls of ``run`` (each one ``unit``)
-    goes: device time by kernel and the device's busy share of the
-    host-clock window, from torch.profiler (CUPTI), and the
-    ``torch.matmul`` calls per call.  A
-    profiler that sees no device time is reported, not failed: it
-    measures, it does not check the port.  Returns the printed record."""
+                  unit: str = "solve", warm: int = 2,
+                  cpu: bool = True) -> dict:
+    """Where the time of ``calls`` calls of ``run`` (each one ``unit``,
+    after ``warm`` unprofiled ones) goes: device time by kernel and the
+    device's busy share of the host-clock window, from torch.profiler
+    (CUPTI), and the ``torch.matmul`` calls per call (None with
+    ``cpu=False``, which traces the device alone: a call of tens of
+    thousands of operators is otherwise slowed, and its trace summed,
+    for minutes).  A profiler that sees no device time is reported, not
+    failed: it measures, it does not check the port.  Returns the
+    printed record."""
     from torch.profiler import ProfilerActivity, profile
-    for i in range(2):
+    for i in range(warm):
         run(i)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if cpu else [])) as prof:
         t0 = time.perf_counter()
         for i in range(calls):
             run(i)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
+    rows, averages = [], prof.key_averages()
+    for e in averages:
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
@@ -1045,13 +1100,13 @@ def profile_calls(run, label: str, calls: int = 10,
             rows.append((us, e.key, e.count))
     rows.sort(reverse=True)
     device_ms = sum(us for us, _, _ in rows) / 1e3
-    matmuls = sum(e.count for e in prof.key_averages()
-                  if e.key == "aten::matmul")
+    matmuls = sum(e.count for e in averages
+                  if e.key == "aten::matmul") if cpu else None
     rec = {"profile": label, f"{unit}s": calls,
            f"wall_ms_per_{unit}": wall * 1e3 / calls,
            f"device_ms_per_{unit}": device_ms / calls,
            "device_busy_share": device_ms / (wall * 1e3) if rows else None,
-           f"matmuls_per_{unit}": matmuls / calls,
+           f"matmuls_per_{unit}": matmuls / calls if cpu else None,
            "top": [[key[:60], us / 1e3 / calls, count / calls]
                    for us, key, count in rows[:8]]}
     print(json.dumps(rec), flush=True)
@@ -2230,6 +2285,522 @@ def traffic_phase(api, seed):
     return accept["launches"], stats
 
 
+def host_ms(fn, reps: int) -> float:
+    """Median host-clock ms of ``reps`` calls, each ended by a
+    synchronize (the producers are Python-driven: their time is the
+    host's and the device's together)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def counted(fn):
+    """(fn's result, the kernel launches it made, its host-clock ms to a
+    synchronize): the counts set to 0 just before, read just after."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts(), (time.perf_counter() - t) * 1e3
+
+
+def need(launches: dict, kernels, what: str) -> None:
+    for k in kernels:
+        check(launches[k] > 0, f"{what}: {k} launched 0 times")
+
+
+def fro_rel(R, A) -> float:
+    return (torch.linalg.norm(R) / torch.linalg.norm(A)).item()
+
+
+class B1Inputs:
+    """Keeps the last stack of each (sub-phase, shape, dtype, gated) that
+    reaches B1's wrapper through the kernel hook while it is entered, and
+    passes every call through unchanged (the counts stay the wrapper's).
+    ``check`` then holds B1 (B5 for a gated stack) against its plain
+    version on each kept stack, as ``kernel_phase`` does."""
+
+    def __init__(self):
+        self.stacks = {}
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.b1 = ops, ops.tri_inv_blocks
+
+        def keep(Ls, valid=None):
+            key = (self.where, tuple(Ls.shape),
+                   str(Ls.dtype).removeprefix("torch."), valid is not None)
+            self.stacks[key] = (Ls.clone(),
+                                None if valid is None else valid.clone())
+            return self.b1(Ls, valid)
+        ops.tri_inv_blocks = keep
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.tri_inv_blocks = self.b1
+
+    def __call__(self, where: str):
+        self.where = where
+        return self
+
+    def check(self) -> list:
+        from repro_torch.kernels import tri_inv_block
+        out = []
+        for (where, shape, dtype, gated), (Ls, v) in self.stacks.items():
+            got = tri_inv_block.tri_inv_blocks(Ls, v)
+            want = tri_inv_block.tri_inv_blocks_plain(Ls, v)
+            abs_err, rel_err = errors(got, want)
+            low_err = lower_rel_error(got, want)
+            tol = 2e-2 if Ls.dtype == torch.bfloat16 else 1e-4
+            what = f"B1 on kfac {where}'s {shape} {dtype} stack"
+            check(rel_err <= tol, f"{what}: max_rel_err {rel_err} > {tol}")
+            check(low_err <= tol, f"{what}: strictly lower part off by "
+                                  f"{low_err} of its max > {tol}")
+            out.append(dict(where=where, shape=list(shape), dtype=dtype,
+                            gated=gated, max_abs_err=abs_err,
+                            max_rel_err=rel_err, lower_rel_err=low_err,
+                            tol=tol))
+        self.stacks.clear()
+        return out
+
+
+def producers_phase(api, grid, seed):
+    """Phase 11 (a): the factor producers at n = 8192, fp32.  Returns
+    (launches by sub-phase, the record)."""
+    from repro_torch.core import cholesky, lu, tri_inv
+    device = grid.device
+    g = torch.Generator(device=device).manual_seed(seed)
+    G = torch.randn((N, 2 * N), generator=g, device=device)
+    A = G @ G.T / (2 * N)
+    A.diagonal().add_(FACTOR_SHIFT)
+    del G
+    rec, launches = {"n": N, "dtype": "float32"}, {}
+    t0 = time.perf_counter()
+    marks = rec["marks_s"] = {}
+
+    def mark(what):
+        torch.cuda.synchronize()
+        marks[what] = time.perf_counter() - t0
+
+    # Cholesky by selective inversion, the default n0 (n/8)
+    L, launches["cholesky"], _ = counted(
+        lambda: cholesky.cholesky(A, grid))
+    need(launches["cholesky"], ["tri_inv_blocks"], "cholesky")
+    A64, L64 = A.double(), L.double()
+    res = fro_rel(L64 @ L64.T - A64, A64)
+    Llib = torch.linalg.cholesky(A)
+    res_lib = fro_rel(Llib.double() @ Llib.double().T - A64, A64)
+    del Llib
+    check(res <= 10 * res_lib, f"cholesky: ||LL^T - A|| / ||A|| {res} > "
+                               f"10x the library's {res_lib}")
+    check(torch.triu(L, 1).count_nonzero().item() == 0,
+          "cholesky: L has entries above the diagonal")
+    rec["cholesky"] = dict(
+        ms=host_ms(lambda: cholesky.cholesky(A, grid), 3),
+        library_ms=host_ms(lambda: torch.linalg.cholesky(A), 3),
+        library="torch.linalg.cholesky", rel_residual=res,
+        library_rel_residual=res_lib)
+    rec["cholesky"]["profile"] = profile_calls(
+        lambda i: cholesky.cholesky(A, grid), f"cholesky n={N}", 2,
+        unit="call")
+    mark("cholesky")
+
+    # the cyclic output into a bank, 64 requests through SolveServer
+    def serve_cyclic():
+        bank = api.FactorBank(grid, N, method="inv", n0=N // 2,
+                              precision="bf16_refine")
+        bank.admit_cyclic(cholesky.cholesky_cyclic(A, grid))
+        server = api.SolveServer(api.Solver.from_bank(bank),
+                                 panel_k=PANEL_K).warmup()
+        widths = np.random.default_rng(seed).integers(1, PANEL_K + 1,
+                                                      REQUESTS)
+        bs = [torch.randn((N, int(w)), generator=g, device=device)
+              for w in widths]
+        for b in bs:
+            server.submit(b)
+        return server, bs, server.drain()[0]
+
+    (server, bs, xs), launches["bank"], ms = counted(serve_cyclic)
+    need(launches["bank"], ["tri_inv_blocks", "trmm"], "cholesky bank")
+    check(server.requests_served == REQUESTS,
+          f"cholesky bank: served {server.requests_served}")
+    worst = max(request_relres(L64, xs, bs))
+    check(worst <= FACTOR_RELRES, f"cholesky bank: worst request relres "
+                                  f"{worst} > {FACTOR_RELRES}")
+    rec["bank"] = dict(config=f"inv bf16_refine n0={N // 2}, admit_cyclic",
+                       requests=REQUESTS, panels=server.panels_solved,
+                       ms=ms, worst_relres=worst, relres_bound=FACTOR_RELRES)
+    del server, bs, xs, A64, A
+    mark("bank")
+
+    # LU without pivoting
+    A2 = torch.randn((N, N), generator=g, device=device)
+    A2.diagonal().add_(N)
+    (L2, U2), launches["lu"], _ = counted(lambda: lu.lu(A2, grid))
+    need(launches["lu"], ["tri_inv_blocks"], "lu")
+    A2_64 = A2.double()
+    res = fro_rel(L2.double() @ U2.double() - A2_64, A2_64)
+    LUp, piv = torch.linalg.lu_factor(A2)
+    P, Ll, Ul = torch.lu_unpack(LUp, piv)
+    res_lib = fro_rel(P.double() @ (Ll.double() @ Ul.double()) - A2_64,
+                      A2_64)
+    del LUp, P, Ll, Ul
+    check(res <= 10 * res_lib, f"lu: ||LU - A|| / ||A|| {res} > 10x the "
+                               f"library's {res_lib}")
+    check(bool((torch.diagonal(L2) == 1).all()), "lu: L's diagonal is not 1")
+    check(torch.triu(L2, 1).count_nonzero().item() == 0
+          and torch.tril(U2, -1).count_nonzero().item() == 0,
+          "lu: L or U is not triangular")
+    rec["lu"] = dict(ms=host_ms(lambda: lu.lu(A2, grid), 1),
+                     library_ms=host_ms(lambda: torch.linalg.lu_factor(A2),
+                                        3),
+                     library="torch.linalg.lu_factor (pivots: not the "
+                             "same function)",
+                     rel_residual=res, library_rel_residual=res_lib)
+    del L2, U2, A2, A2_64
+    mark("lu")
+
+    # the inversion: one B1 launch at s0 = n, then phase B's levels
+    eye = torch.eye(N, device=device)
+    Xlib = torch.linalg.solve_triangular(L, eye, upper=False)
+    res_lib = fro_rel(Xlib.double() @ L64 - eye.double(), eye.double())
+    del Xlib
+    rec["invert"] = {}
+    for s0 in (None, N // 8):
+        Li, launches[f"invert s0={s0}"], _ = counted(
+            lambda: tri_inv.invert(L, grid, s0=s0))
+        need(launches[f"invert s0={s0}"], ["tri_inv_blocks"], "invert")
+        res = fro_rel(Li.double() @ L64 - eye.double(), eye.double())
+        check(res <= 10 * res_lib, f"invert s0={s0}: ||L^-1 L - I|| {res} "
+                                   f"> 10x the library's {res_lib}")
+        rec["invert"][f"s0={s0 or N}"] = dict(
+            ms=host_ms(lambda: tri_inv.invert(L, grid, s0=s0), 3),
+            rel_residual=res)
+        del Li
+    rec["invert"]["library_ms"] = host_ms(
+        lambda: torch.linalg.solve_triangular(L, eye, upper=False), 3)
+    rec["invert"]["library"] = "torch.linalg.solve_triangular(L, I)"
+    rec["invert"]["library_rel_residual"] = res_lib
+    mark("invert")
+    rec["launches"] = launches
+    print(json.dumps({"factor_producers": rec}), flush=True)
+    del L, L64, eye
+    return launches, rec
+
+
+def qwen_units(device, g) -> dict:
+    """``params["units"]`` of qwen3-1.7b as the reference's
+    ``models/lm.py`` builds it (``layers.init_attn``, ``init_mlp``,
+    the rmsnorms), stacked over KFAC_UNITS units, random from ``g``."""
+    u, d, hd = KFAC_UNITS, QWEN["d_model"], QWEN["head_dim"]
+    hq, hkv, f = QWEN["n_heads"] * hd, QWEN["n_kv"] * hd, QWEN["d_ff"]
+
+    def dense(m, n):
+        return torch.randn((u, m, n), generator=g, device=device) * m ** -0.5
+
+    def norm(m):
+        return torch.ones((u, m), device=device)
+
+    return {"units": {"b0": {
+        "ln1": norm(d), "ln2": norm(d),
+        "attn": {"wq": dense(d, hq), "wk": dense(d, hkv),
+                 "wv": dense(d, hkv), "wo": dense(hq, d),
+                 "qn": norm(hd), "kn": norm(hd)},
+        "mlp": {"gate": dense(d, f), "up": dense(d, f),
+                "down": dense(f, d)}}}}
+
+
+def kfac_phase(api, grid, seed):
+    """Phase 11 (b): KFAC-CA at qwen3-1.7b's full widths, two units.
+    Returns (launches by sub-phase, the record)."""
+    import importlib
+
+    from repro_torch.core import session
+    from repro_torch.optim.tree import tree_map
+    kfac = importlib.import_module("repro_torch.optim.kfac_ca")
+    device = grid.device
+    g = torch.Generator(device=device).manual_seed(seed)
+    params = qwen_units(device, g)
+    opt = kfac.kfac_ca()
+    state = opt.init(params)
+    rec, launches = {"units": KFAC_UNITS, "widths": QWEN}, {}
+    t0 = time.perf_counter()
+    marks = rec["marks_s"] = {}
+
+    def mark(what):
+        torch.cuda.synchronize()
+        marks[what] = time.perf_counter() - t0
+
+    def grads():
+        return tree_map(lambda p: torch.randn(p.shape, generator=g,
+                                              device=device), params)
+
+    def step(gr=None):
+        nonlocal params, state
+        gr = grads() if gr is None else gr
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, _ = opt.update(gr, state, params)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    # the last step runs under the profiler (the device alone: its
+    # ~86k operators would take the host trace minutes), so its host time
+    # is not in step_ms; the first keeps B1's inputs (a clone a launch)
+    b1_inputs = B1Inputs()
+    def whiten_check(before, gr):
+        """The step's update of each KFAC_WHITEN_PARAMS tensor, both
+        units, against (A + lam I)^{-1/2} G in fp64 from eigh, on the
+        smaller side, A the EMA the step left in ``state``.  The grafting
+        scales the update by one number for the stacked tensor, so the
+        directions are compared: ||u/||u|| - r/||r|| ||."""
+        out = {}
+        for group, name in KFAC_WHITEN_PARAMS:
+            old = before["units"]["b0"][group][name].double()
+            new = params["units"]["b0"][group][name].double()
+            G = gr["units"]["b0"][group][name].double()
+            Aema, Bema = state["kron"]["units"]["b0"][group][name]
+            transpose = G.shape[-2] > G.shape[-1]
+            M = (Bema if transpose else Aema).double()
+            d = M.shape[-1]
+            tr = torch.diagonal(M, dim1=-2, dim2=-1).sum(-1)
+            M = M + (KFAC_DAMPING * (tr / d + 1e-12))[..., None, None] \
+                * torch.eye(d, device=device, dtype=torch.float64)
+            w, V = torch.linalg.eigh(M)
+            root = (V * w.rsqrt()[..., None, :]) @ V.transpose(-2, -1)
+            ref = G @ root if transpose else root @ G
+            upd = old - new
+            err = torch.linalg.norm(upd / torch.linalg.norm(upd)
+                                    - ref / torch.linalg.norm(ref)).item()
+            check(err <= KFAC_WHITEN_TOL,
+                  f"kfac whiten {group}.{name}: update off the fp64 eigh "
+                  f"reference by {err} > {KFAC_WHITEN_TOL}")
+            out[f"{group}.{name}"] = dict(
+                shape=list(G.shape), side="B" if transpose else "A",
+                direction_err=err, tol=KFAC_WHITEN_TOL,
+                cond=(w[..., -1] / w[..., 0]).max().item())
+        return out
+
+    step_ms = []
+    for i in range(KFAC_STEPS):
+        last = i == KFAC_STEPS - 1
+        if i == 0:
+            with b1_inputs("step 1"):
+                ms, launches["step 1"], _ = counted(step)
+        else:
+            ms, launches[f"step {i + 1}"], _ = counted(
+                (lambda: profile_calls(lambda _: step(), "kfac step", 1,
+                                       unit="step", warm=0, cpu=False))
+                if last else step)
+        if last:
+            rec["profile_step"] = ms
+        else:
+            step_ms.append(ms)
+        need(launches[f"step {i + 1}"], ["tri_inv_blocks"], "kfac step")
+    rec["step_ms"] = step_ms
+    rec["b1_launches_per_step"] = launches[f"step {KFAC_STEPS}"][
+        "tri_inv_blocks"]
+    mark("steps")
+
+    counts = kfac._kron_order_counts(state)
+    check(counts == KFAC_ORDERS, f"kfac: orders {counts}, want "
+                                 f"{KFAC_ORDERS}")
+    with b1_inputs("banking"):
+        (banks, manifest), launches["banking"], rec["banking_ms"] = \
+            counted(lambda: kfac.factor_banks_from_state(state, grid=grid))
+    need(launches["banking"], ["tri_inv_blocks"], "kfac banking")
+    check({d: b.size for d, b in banks.items()} == KFAC_ORDERS,
+          f"kfac: bank sizes {({d: b.size for d, b in banks.items()})}")
+    check(manifest[1024][0] == ("['units']['b0']['attn']['wk']", "B", 0),
+          f"kfac: first order-1024 tag {manifest[1024][0]}")
+    factors = {}
+
+    def refactor(st, what):
+        """Every damped factor of ``st`` as the banking computes it (the
+        stacked units in one call: factored one by one, cusolver's
+        unbatched route gives another factor of the same matrix, and at
+        cond(A) ~ 4e3 a relres against that one reads ~6e-5 on the H100
+        where against the banked one it reads ~1e-6), each held to its
+        own damped matrix M + lam I, written out here: in fp64,
+        ||L L^T - (M + lam I)|| / ||M + lam I|| within 10x of
+        torch.linalg.cholesky's on the same fp32 matrix, and L lower
+        triangular.  Returns the worst residual and ratio by order."""
+        factors.clear()
+        worst = {}
+        for name, side, M in kfac._iter_kron_factors(st):
+            L = factors[(name, side)] = kfac._damped_chol(M, KFAC_DAMPING)
+            d = M.shape[-1]
+            tr = torch.diagonal(M, dim1=-2, dim2=-1).sum(-1)
+            Md = M + (KFAC_DAMPING * (tr / d + 1e-12))[..., None, None] \
+                * torch.eye(d, device=device)
+            Llib = torch.linalg.cholesky(Md)
+            check(not torch.triu(L, 1).any().item(),
+                  f"kfac {what} {name} {side}: entries above the diagonal")
+            for u in range(M.shape[0] if M.ndim == 3 else 1):
+                sel = (lambda X: X[u]) if M.ndim == 3 else (lambda X: X)
+                M64 = sel(Md).double()
+                res, res_lib = (fro_rel(F @ F.T - M64, M64) for F in (
+                    sel(L).double(), sel(Llib).double()))
+                check(res <= 10 * res_lib,
+                      f"kfac {what} {name} {side} unit {u}: ||LL^T - "
+                      f"(M + lam I)|| / ||M + lam I|| {res} > 10x the "
+                      f"library's {res_lib}")
+                w = worst.setdefault(d, dict(rel_residual=0.0,
+                                             library_rel_residual=0.0,
+                                             ratio=0.0))
+                w.update(rel_residual=max(w["rel_residual"], res),
+                         library_rel_residual=max(
+                             w["library_rel_residual"], res_lib),
+                         ratio=max(w["ratio"], res / res_lib))
+            del Md, Llib
+        return worst
+
+    def damped(tag):
+        name, side, unit = tag
+        L = factors[(name, side)]
+        return L if unit is None else L[unit]
+
+    rec["factors"] = refactor(state, "banked")
+
+    def serve_banks(what):
+        worst, ms = {}, {}
+        for d, bank in sorted(banks.items()):
+            solver = api.Solver.from_bank(bank).warmup(PANEL_K)
+            B = torch.randn((bank.width, d, PANEL_K), generator=g,
+                            device=device)
+            ms[d] = host_ms(lambda: solver.solve(B), 3)
+            X = solver.solve(B).double()
+            worst[d] = max(fro_rel(damped(tag).double() @ X[i]
+                                   - B[i].double(), B[i].double())
+                           for i, tag in enumerate(manifest[d]))
+            check(worst[d] <= RELRES_BOUND["fp32"],
+                  f"kfac {what} order {d}: worst relres {worst[d]}")
+        return dict(worst_relres=worst, ms_per_wave=ms)
+
+    rec["serve"], launches["serve"], _ = counted(
+        lambda: serve_banks("serve"))
+    need(launches["serve"], ["trmm"], "kfac serve")
+    keys = {d: api.Solver.from_bank(b).spec_for(PANEL_K)
+            for d, b in banks.items()}
+    serving_builds = {d: session.BUILD_COUNTS[k] for d, k in keys.items()}
+
+    # one more step, then the in-place refresh (the fleet below banks the
+    # state before it and refreshes to it)
+    mark("banked and served")
+    state_banked, params_before = state, params
+    gr = grads()
+    rec["step_ms"].append(step(gr))
+    rec["whiten"] = whiten_check(params_before, gr)
+    del params_before, gr
+    rec["factors_refreshed"] = refactor(state, "refreshed")
+    before = dict(session.BUILD_COUNTS)
+    with b1_inputs("refresh"):
+        _, launches["refresh"], rec["refresh_first_ms"] = counted(
+            lambda: kfac.refresh_banks(banks, manifest, state))
+    need(launches["refresh"], ["tri_inv_blocks"], "kfac refresh")
+    first_builds = sum((session.BUILD_COUNTS - collections.Counter(
+        before)).values())
+    before = dict(session.BUILD_COUNTS)
+    rec["refresh_ms"] = host_ms(
+        lambda: kfac.refresh_banks(banks, manifest, state), 3)
+    check(dict(session.BUILD_COUNTS) == before,
+          "kfac refresh: BUILD_COUNTS moved on a warm refresh")
+    check({d: session.BUILD_COUNTS[k] for d, k in keys.items()}
+          == serving_builds, "kfac refresh: a serving program was rebuilt")
+    rec["refresh_builds_first_call"] = first_builds
+    again = "serve after refresh"
+    rec["serve_after_refresh"], launches[again], _ = counted(
+        lambda: serve_banks(again))
+    need(launches[again], ["trmm"], f"kfac {again}")
+    rec["profile_refresh"] = profile_calls(
+        lambda i: kfac.refresh_banks(banks, manifest, state),
+        "kfac refresh_banks", 1, unit="refresh", warm=0, cpu=False)
+    mark("refreshed")
+
+    # ROADMAP A14: a replace_run of u slots against u single replaces of
+    # the same factors, in the order-2048 bank (warm: each updater is
+    # built by its first call, outside the timing)
+    bank = banks[2048]
+    cs = torch.stack([damped(tag) for tag in manifest[2048][:4]])
+    rec["replace_run"] = {}
+    for u in (2, 4):
+        calls = bank.updates_dispatched
+        bank.replace_run(0, cs[:u])
+        check(bank.updates_dispatched == calls + 1,
+              f"kfac: a replace_run of {u} took "
+              f"{bank.updates_dispatched - calls} updater calls")
+        for j in range(u):
+            bank.replace(j, cs[j])
+        run_ms = host_ms(lambda: bank.replace_run(0, cs[:u]), 5)
+        single_ms = host_ms(lambda: [bank.replace(j, cs[j])
+                                     for j in range(u)], 5)
+        rec["replace_run"][f"u={u}"] = dict(
+            run_ms=run_ms, singles_ms=single_ms, ratio=run_ms / single_ms)
+    del bank, cs, banks
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("replace_run")
+
+    # the fleet: the planner's buckets, one wave, one refresh
+    with b1_inputs("fleet banking"):
+        (fleet, handles), launches["fleet banking"], \
+            rec["fleet_banking_ms"] = counted(
+                lambda: kfac.factor_banks_from_state(
+                    state_banked, grid=grid, fleet=True))
+    del state_banked
+    rec["fleet_plan"] = [[b.n, list(b.orders), b.capacity, b.method, b.n0]
+                         for b in fleet.plan.buckets]
+
+    def fleet_refresh_and_wave():
+        t = time.perf_counter()
+        kfac.refresh_banks(fleet, handles, state)
+        torch.cuda.synchronize()
+        refresh_ms = (time.perf_counter() - t) * 1e3
+        Bs = {key: torch.zeros((fleet.solver(key).width, key[0], PANEL_K),
+                               device=device) for key in fleet.buckets}
+        for h in handles.values():
+            Bs[h.bucket][h.slot, :h.order] = torch.randn(
+                (h.order, PANEL_K), generator=g, device=device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        Xs = {key: fleet.solver(key).solve(B) for key, B in Bs.items()}
+        torch.cuda.synchronize()
+        wave_ms = (time.perf_counter() - t) * 1e3
+        worst = 0.0
+        for tag, h in handles.items():
+            x = Xs[h.bucket][h.slot].double()
+            b = Bs[h.bucket][h.slot].double()
+            check(not x[h.order:].any(), f"kfac fleet {tag}: padded tail "
+                                         f"not zero")
+            worst = max(worst, fro_rel(damped(tag).double() @ x[:h.order]
+                                       - b[:h.order], b[:h.order]))
+        check(worst <= RELRES_BOUND["fp32"], f"kfac fleet: worst relres "
+                                             f"{worst}")
+        return dict(refresh_ms=refresh_ms, wave_ms=wave_ms,
+                    worst_relres=worst)
+
+    rec["fleet"], launches["fleet refresh + wave"], _ = counted(
+        fleet_refresh_and_wave)
+    need(launches["fleet banking"], ["tri_inv_blocks_valid"],
+         "kfac fleet banking")
+    need(launches["fleet refresh + wave"], ["trmm"], "kfac fleet wave")
+    mark("fleet")
+    # B1 (B5) against the plain version on the stacks the path gave it;
+    # these launches come after every count was read
+    rec["b1_vs_plain"] = b1_inputs.check()
+    mark("b1 vs plain")
+    rec["launches"] = launches
+    print(json.dumps({"kfac": rec}), flush=True)
+    del fleet, handles, params, state
+    return launches, rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2292,6 +2863,15 @@ def main() -> int:
     main_launches["traffic"], _ = traffic_phase(api, seed=130)  # phase 10
     check(main_launches["traffic"]["trmm"] > 0,
           "trmm never launched on the traffic path")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t11 = time.perf_counter()
+    grid = api.make_trsm_mesh(1, 1)
+    producers_phase(api, grid, seed=140)                      # phase 11
+    gc.collect()
+    torch.cuda.empty_cache()
+    kfac_phase(api, grid, seed=150)
+    print(json.dumps(dict(phase11_s=time.perf_counter() - t11)), flush=True)
 
     kernels = []
     for name, method, source, replaces in (

@@ -4,7 +4,10 @@
 bank's resident stacks given as NumPy arrays — ``(L_lo, Dt[, L_hi])``
 as ``repro``'s ``FactorBank.stacks()`` returns them — so the port's
 sweep can be held against the reference's on the SAME inverted blocks.
-Nothing here imports ``jax``: the caller converts the arrays.
+:func:`tree_from_reference` carries a parameter tree or an optimizer
+state (``adamw`` / ``kfac_ca``) across, so both packages' optimizers can
+step from the same state.  Nothing here imports ``jax``: the caller
+converts the arrays.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import torch
 
 from repro_torch.core.bank import FactorBank
 from repro_torch.core.grid import make_trsm_mesh
+from repro_torch.optim.tree import tree_map
 
 
 def to_tensor(a, device=None) -> torch.Tensor:
@@ -27,6 +31,15 @@ def to_tensor(a, device=None) -> torch.Tensor:
     else:
         t = torch.from_numpy(np.array(a))
     return t.to(device) if device is not None else t
+
+
+def tree_from_reference(tree, device=None):
+    """A nested container of NumPy arrays (a parameter tree, or an
+    ``adamw`` / ``kfac_ca`` state as ``jax.tree.map(np.asarray, state)``
+    gives it: dicts, the Kronecker pairs as tuples, ``()`` for an
+    ineligible parameter, 0-d arrays for the step counts) as the same
+    container of tensors on ``device``, dtypes kept."""
+    return tree_map(lambda a: to_tensor(a, device), tree)
 
 
 def bank_from_reference(arrays, spec_fields: dict, device) -> FactorBank:

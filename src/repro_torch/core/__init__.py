@@ -3,6 +3,10 @@ TRSM at p = 1, the cost model and planner, the factor bank, the
 compiled-program cache and the serving front door.
 
     trsm(L, B, grid, method="inv"|"rec"|"auto", ...)   one-shot solve
+    tri_inv.invert(L, grid)                   L^{-1} (paper Sec. V)
+    cholesky.cholesky(A, grid)                Cholesky via inversion
+    cholesky.cholesky_cyclic / lu.lu_cyclic   factor producers emitting
+                                              cyclic storage (bank feed)
 """
 
 
@@ -44,3 +48,6 @@ def trsm(L, B, grid, method: str = "inv", n0: int | None = None,
                                block_inv=block_inv)
     prog = solverlib.solver_for(spec)
     return prog.solve(prog.prep(L), B)
+
+
+from repro_torch.core import cholesky, lu, tri_inv  # noqa: E402,F401

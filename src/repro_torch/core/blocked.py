@@ -103,20 +103,23 @@ def it_inv_trsm_local(L: torch.Tensor, B: torch.Tensor, n0: int,
 
     ``block_inv``: optional override for the batched diagonal-block
     inverter (e.g. ``kernels.ops.block_inv_kernel``); defaults to
-    :func:`tri_inv_batched`."""
+    :func:`tri_inv_batched`.  L (..., n, n) and B (..., n, k) may carry
+    leading batch axes: the diagonal blocks of every system go to the
+    inverter as one (M, n0, n0) stack."""
     n = L.shape[-1]
     if n % n0:
         raise ValueError(f"n0={n0} does not tile n={n}")
     m = n // n0
     inv_fn = block_inv if block_inv is not None else tri_inv_batched
-    dblocks = inv_fn(diag_blocks(L, n0).contiguous())   # (m, n0, n0)
+    d = diag_blocks(L, n0)                                # (..., m, n0, n0)
+    dblocks = inv_fn(d.reshape(-1, n0, n0).contiguous()).reshape(d.shape)
     Bcur = B.clone()
     X = torch.zeros_like(B)
     for i in range(m):
         rows = slice(i * n0, (i + 1) * n0)
-        Xi = dblocks[i] @ Bcur[rows]                      # solve via GEMM
-        X[rows] = Xi
-        Bcur[(i + 1) * n0:] -= L[(i + 1) * n0:, rows] @ Xi
+        Xi = dblocks[..., i, :, :] @ Bcur[..., rows, :]   # solve via GEMM
+        X[..., rows, :] = Xi
+        Bcur[..., (i + 1) * n0:, :] -= L[..., (i + 1) * n0:, rows] @ Xi
     return X
 
 

@@ -21,11 +21,12 @@ from repro_torch.kernels.trsm_block import trsm_substitution  # noqa: F401
 
 def block_inv_kernel(blocks: torch.Tensor, valid=None) -> torch.Tensor:
     """Hook matching the ``block_inv`` signature of the solvers:
-    (m, n0, n0) -> batched inverses.  A power-of-two n0 (1 included)
-    goes to :func:`tri_inv_blocks`; another n0 runs the plain doubling
-    on a CPU tensor and raises on any other device, since B1 takes
-    powers of two only.  ``valid`` (an (m,) mask on the blocks' device)
-    zeroes every block flagged 0 without reading it (kernel B5).
+    (m, n0, n0) -> batched inverses, through :func:`tri_inv_blocks` on
+    every device.  B1 takes powers of two only (1 included), so a block
+    of another order goes in as ``blockdiag(L, I)`` of the next power of
+    two (``inv([[L, 0], [0, I]]) = [[L^-1, 0], [0, I]]``) and its
+    leading block comes back.  ``valid`` (an (m,) mask on the blocks'
+    device) zeroes every block flagged 0 without reading it (kernel B5).
 
     Degenerate blocks are rejected eagerly: a zero-sized batch or a
     0x0 / non-square block would otherwise reach a launch with a
@@ -46,13 +47,8 @@ def block_inv_kernel(blocks: torch.Tensor, valid=None) -> torch.Tensor:
             f"upstream")
     if n0 & (n0 - 1) == 0:
         return tri_inv_blocks(blocks.contiguous(), valid)
-    if blocks.device.type != "cpu":
-        raise ValueError(f"the tri_inv_blocks kernel takes a power-of-two "
-                         f"block size, got n0={n0} on {blocks.device}")
-    from repro_torch.core import blocked
-    if valid is None:
-        return blocked.tri_inv_batched(blocks)
-    v = torch.as_tensor(valid, device=blocks.device).reshape(-1, 1, 1) != 0
-    eye = torch.eye(n0, dtype=blocks.dtype, device=blocks.device)
-    inv = blocked.tri_inv_batched(torch.where(v, blocks, eye))
-    return torch.where(v, inv, torch.zeros_like(inv))
+    N = 1 << (n0 - 1).bit_length()
+    padded = torch.eye(N, dtype=blocks.dtype, device=blocks.device).repeat(
+        m, 1, 1)
+    padded[:, :n0, :n0] = blocks
+    return tri_inv_blocks(padded, valid)[:, :n0, :n0]

@@ -27,9 +27,10 @@ BLOCKS = _port_blocks()
 
 
 def test_port_section_keeps_its_snippets():
-    """Four snippets (fleet, structure, churn, async), each on the
-    port's front door and none importing JAX or the reference."""
-    assert len(BLOCKS) == 4
+    """Five snippets (fleet, structure, churn, async, producers and
+    K-FAC), each on the port's front door and none importing JAX or the
+    reference."""
+    assert len(BLOCKS) == 5
     for block in BLOCKS:
         assert "from repro_torch import api" in block
         assert 'device="cpu"' in block

@@ -126,7 +126,7 @@ def test_b5_checks_its_mask():
     Ls = torch.eye(8).expand(3, 8, 8).contiguous()
     with pytest.raises(ValueError, match=r"valid must be \(3,\)"):
         ops.tri_inv_blocks(Ls, valid=torch.ones(2, dtype=torch.int32))
-    # a block size B1 cannot take runs the plain doubling, gated alike
+    # a block size B1 cannot take goes in padded, gated alike
     L6 = torch.as_tensor(np.stack([_tri(6, s) for s in range(3)]))
     v = torch.tensor([0, 1, 1], dtype=torch.int32)
     got = ops.block_inv_kernel(L6, valid=v)

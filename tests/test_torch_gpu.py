@@ -388,8 +388,16 @@ def test_block_inv_kernel_launches_for_every_power_of_two(cuda, n0):
     assert tri_inv_block.tri_inv_blocks.launches == launches + 1
     want = tri_inv_block.tri_inv_blocks_plain(Ls)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
-    with pytest.raises(ValueError, match="power-of-two"):
-        ops.block_inv_kernel(torch.ones((2, 3, 3), device=cuda))
+    # an order B1 cannot take goes in once, padded with an identity
+    # tail to the next power of two
+    from repro_torch.core import blocked
+    L3 = torch.randn((8, 3, 3), generator=g, device=cuda).tril() \
+        + 3 * torch.eye(3, device=cuda)
+    got = ops.block_inv_kernel(L3)
+    torch.cuda.synchronize()
+    assert tri_inv_block.tri_inv_blocks.launches == launches + 2
+    torch.testing.assert_close(got, blocked.tri_inv_doubling(L3),
+                               rtol=1e-4, atol=1e-6)
 
 
 def _masked_operands(g, device, b, n, k, bt, dtype, seed):
@@ -1210,3 +1218,128 @@ def test_async_producers_race_churn_on_the_card(cuda):
     for slot, b, f in futures:
         if slot < 2:
             assert _relres(Ls[slot], f.result(timeout=0), b) <= 1e-5
+
+
+# ---------------- the factor producers and K-FAC on the card ----------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s0", [None, 768])
+def test_phase_a_pads_a_non_power_of_two_block_on_the_card(cuda, s0):
+    """At n = 1536 phase A's blocks (1536, or two of 768) are not powers
+    of two: B1 takes them with an identity tail (one launch at order 2048
+    or two blocks of 1024), and the inverse is the plain doubling's,
+    held as the inverse tests above hold B1 (1e-4 of its largest entry,
+    and its strictly lower part 1e-4 of that part's)."""
+    from repro_torch import api
+    from repro_torch.core import blocked, tri_inv
+    n = 1536
+    g = torch.Generator(device=cuda).manual_seed(11)
+    L = torch.randn((n, n), generator=g, device=cuda).tril_()
+    L.diagonal().add_(n)
+    launches = tri_inv_block.tri_inv_blocks.launches
+    got = tri_inv.invert(L, api.make_trsm_mesh(1, 1), s0=s0)
+    want = blocked.tri_inv_doubling(L)
+    torch.cuda.synchronize()
+    assert tri_inv_block.tri_inv_blocks.launches == launches + 1
+    scale = want.abs().max()
+    assert (got - want).abs().max() <= 1e-4 * scale
+    lower = torch.tril(want, -1).abs().max()
+    assert torch.tril(got - want, -1).abs().max() <= 1e-4 * lower
+    assert not torch.triu(got, 1).any()
+
+
+@pytest.mark.gpu
+def test_cholesky_at_6144_on_the_card(cuda):
+    """n = 6144 recurses at n0 = 768: the panel inversions (orders 3072,
+    1536 and 768, 7 in all) go into B1 padded; ||L L^T - A|| / ||A|| in
+    fp64 within 10x of torch.linalg.cholesky's on a damped Gram matrix."""
+    from repro_torch import api
+    from repro_torch.core import cholesky
+    n = 6144
+    g = torch.Generator(device=cuda).manual_seed(12)
+    G = torch.randn((n, 2 * n), generator=g, device=cuda)
+    A = G @ G.T / (2 * n)
+    A.diagonal().add_(1e-2)
+    del G
+    launches = tri_inv_block.tri_inv_blocks.launches
+    L = cholesky.cholesky(A, api.make_trsm_mesh(1, 1))
+    torch.cuda.synchronize()
+    assert tri_inv_block.tri_inv_blocks.launches == launches + 7
+    A64 = A.double()
+
+    def rel(F):
+        F = F.double()
+        return (torch.linalg.norm(F @ F.T - A64)
+                / torch.linalg.norm(A64)).item()
+
+    assert rel(L) <= 10 * rel(torch.linalg.cholesky(A))
+    assert not torch.triu(L, 1).any()
+
+
+@pytest.mark.gpu
+def test_kfac_step_and_refresh_build_nothing_and_never_sync(cuda):
+    """A K-FAC step and an in-place bank refresh, once warm, run under
+    sync-debug mode "error" (no host sync: the step, the refresh
+    decision and the grafting scale stay on the card) and build no
+    program; each new damped factor L of M holds
+    ||L L^T - (M + lam I)|| / ||M + lam I|| in fp64 within 10x of
+    torch.linalg.cholesky's on the same matrix, and the refreshed banks
+    serve those factors within the fp32 bound (1e-5,
+    tests/test_api_solver.py)."""
+    import importlib
+
+    from repro_torch import api
+    from repro_torch.core import session
+    from repro_torch.optim.tree import tree_map
+    kfac = importlib.import_module("repro_torch.optim.kfac_ca")
+    grid = api.make_trsm_mesh(1, 1)
+    g = torch.Generator(device=cuda).manual_seed(13)
+    params = {"w": torch.randn((256, 128), generator=g, device=cuda),
+              "stack": torch.randn((2, 256, 128), generator=g,
+                                   device=cuda),
+              "norm": torch.ones((256,), device=cuda)}
+    opt = kfac.kfac_ca()
+    state = opt.init(params)
+
+    def grads():
+        return tree_map(lambda p: torch.randn(p.shape, generator=g,
+                                              device=cuda), params)
+
+    for _ in range(2):
+        params, state, _ = opt.update(grads(), state, params)
+    banks, manifest = kfac.factor_banks_from_state(state, grid=grid)
+    kfac.refresh_banks(banks, manifest, state)        # builds its updaters
+    gr = grads()
+    counts = dict(session.BUILD_COUNTS)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, state, _ = opt.update(gr, state, params)
+        kfac.refresh_banks(banks, manifest, state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert dict(session.BUILD_COUNTS) == counts
+    emas = {(n, s): M for n, s, M in kfac._iter_kron_factors(state)}
+    for M in emas.values():
+        d = M.shape[-1]
+        tr = torch.diagonal(M, dim1=-2, dim2=-1).sum(-1)
+        Md = M + (1e-3 * (tr / d + 1e-12))[..., None, None] \
+            * torch.eye(d, device=cuda)
+        M64 = Md.double()
+        res, res_lib = (
+            torch.linalg.matrix_norm(F @ F.transpose(-2, -1) - M64)
+            / torch.linalg.matrix_norm(M64)
+            for F in (kfac._damped_chol(M, 1e-3).double(),
+                      torch.linalg.cholesky(Md).double()))
+        assert bool((res <= 10 * res_lib).all()), (d, res, res_lib)
+    for d, bank in banks.items():
+        B = torch.randn((bank.width, d, 16), generator=g, device=cuda)
+        X = api.Solver.from_bank(bank).solve(B).double()
+        for i, (name, side, unit) in enumerate(manifest[d]):
+            M = emas[(name, side)]
+            L = kfac._damped_chol(M if unit is None else M[unit],
+                                  1e-3).double()
+            relres = (torch.linalg.norm(L @ X[i] - B[i].double())
+                      / torch.linalg.norm(B[i].double())).item()
+            assert relres < 1e-5, (d, i, relres)

@@ -184,12 +184,11 @@ def test_block_inv_kernel_rejects_degenerate_blocks():
 
 
 def test_block_inv_kernel_takes_powers_of_two_off_the_cpu():
-    """Off the CPU a block size B1 cannot take raises; a power of two,
-    1 included, goes to tri_inv_blocks (which raises on a meta tensor
-    because it runs on CUDA or CPU only: no plain fallback)."""
-    with pytest.raises(ValueError, match="power-of-two block size"):
-        ops.block_inv_kernel(torch.zeros((2, 3, 3), device="meta"))
-    for n0 in (1, 4):
+    """Off the CPU every block size goes to tri_inv_blocks, a power of
+    two (1 included) as it is and another padded to one with an identity
+    tail (tri_inv_blocks raises on a meta tensor because it runs on CUDA
+    or CPU only: no plain fallback)."""
+    for n0 in (1, 3, 4):
         with pytest.raises(ValueError, match="CUDA or CPU"):
             ops.block_inv_kernel(torch.zeros((2, n0, n0), device="meta"))
 
