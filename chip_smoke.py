@@ -168,11 +168,34 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    first step, the banking, the first refresh and the fleet's banking
    hand to B1 (or B5) is kept and held against the plain version
    afterwards, as phase 2 holds them.
-12. The card line, the kernels' JSON summary, then the last line
+12. The distributed algorithms (``distributed_phase``) at n = 8192,
+   k = 64 on the (2, 2), (2, 1) and (1, 4) grids: one spawn of p ranks
+   per grid, gloo, every rank on cuda:0 (NCCL refuses two ranks on one
+   GPU, so the collectives are staged through host memory while every
+   kernel runs on the card; the NCCL path is not exercised).  Each rank
+   makes L = tril(randn) + n I and B = randn from one numpy seed and
+   runs, through the entry points a user calls: ``core.trsm`` "inv" at
+   n0 = n/8 (all-to-all phase 1) in fp64 and fp32, at n0 = n/2
+   (cooperative doubling), with the all-gather phase 1, and "rec" at its
+   default n0; on (2, 2) also the fp32 modes, upper and transposed
+   solves, ``mm3d.matmul`` (8192 x 8192 @ 8192 x 64, fp64) and
+   ``tri_inv.invert`` (fp32).  Per case: relres <= 1e-11 (fp64) and
+   1e-5 (fp32), the reference's bounds; X against the p = 1 solve of
+   the same inputs on the card; the product within 1e-12 of
+   ``torch.matmul``, its traced S and W ``cost_model.mm_cost``'s; the
+   inverse's residual within 10x the library's and against the p = 1
+   inverse; B1, B2 and B3 launched in every rank on their paths; every
+   rank's cost trace the same.  Printed per case: host-staged seconds
+   and staged bytes per rank, launches, the cost trace, and for the
+   first "inv" and the "rec" case each rank's device ms of kernels and
+   of staging copies (profiler); B1, B2 and B3 against their plain
+   versions at the (2, 2) shapes; the phase's seconds.
+13. The card line, the kernels' JSON summary, then the last line
    ``{"ok": true, "device": {...}}``.  Each kernel's launches are those
    of its main path's run: B1 and B2 the inv configuration at the
    default n0, B3 the rec one, B4 the first structured one, B6 the rec
-   churn phase, B5 the fleet phase.
+   churn phase, B5 the fleet phase; ``launches_distributed`` adds its
+   launches in phase 12, summed over ranks, grids and cases.
 """
 
 import collections
@@ -265,6 +288,16 @@ KFAC_DAMPING = 1e-3                 # kfac_ca's and the banking's default
 # reference's own test of it (tests/test_substrate.py)
 KFAC_WHITEN_TOL = 5e-3
 KFAC_WHITEN_PARAMS = (("attn", "wq"), ("mlp", "down"))
+# distributed (phase 12): the paper's grids, one gloo rank per process,
+# every rank on cuda:0; k = 64 right-hand sides (p | k for rec); the
+# reference's relres bounds (tests/test_api_solver.py), X against the
+# p = 1 solve of the same inputs, the product against torch.matmul
+DIST_GRIDS = ((2, 2), (2, 1), (1, 4))
+DIST_K = 64
+DIST_SEED = 160
+DIST_RELRES = {"float64": 1e-11, "float32": 1e-5}
+DIST_AGREE = {"float64": 1e-10, "float32": 1e-4}
+DIST_MM3D_TOL = 1e-12
 
 
 class SmokeFailure(RuntimeError):
@@ -2801,6 +2834,372 @@ def kfac_phase(api, grid, seed):
     return launches, rec
 
 
+def dist_cases(p1: int, p2: int, n: int) -> list:
+    """Phase 12's cases on one grid: (label, kind, dtype, options,
+    profiled).  Every grid: "inv" at n0 = n/8 (m = 8: p | m, the
+    all-to-all phase 1) in fp64 and fp32, at n0 = n/2 (m = 2 < p: the
+    cooperative doubling) and with the all-gather phase 1, and "rec" at
+    its default n0; (2, 2) also the fp32 modes, ``core.trsm`` upper and
+    transposed, the 3D product and the inversion.  The first "inv" and
+    the "rec" case run once more under the profiler."""
+    a, b = n // 8, n // 2
+    cases = [(f"inv float64 n0={a}", "inv", "float64", dict(n0=a), True),
+             (f"inv float32 n0={a}", "inv", "float32", dict(n0=a), False),
+             (f"inv float64 n0={b}", "inv", "float64", dict(n0=b), False),
+             ("inv float64 allgather", "inv", "float64",
+              dict(n0=a, mode="allgather"), False),
+             ("rec float64", "rec", "float64", dict(n0=None), True)]
+    if (p1, p2) == (2, 2):
+        cases += [(f"inv float32 n0={b}", "inv", "float32", dict(n0=b),
+                   False),
+                  ("inv float32 allgather", "inv", "float32",
+                   dict(n0=a, mode="allgather"), False),
+                  ("trsm upper float64", "inv", "float64",
+                   dict(n0=a, lower=False), False),
+                  ("trsm transposed float64", "inv", "float64",
+                   dict(n0=a, transpose=True), False),
+                  ("mm3d float64", "mm3d", "float64", {}, False),
+                  ("invert float32", "invert", "float32", {}, False)]
+    return cases
+
+
+def dist_inputs(n: int, k: int, seed: int):
+    """The natural L = tril(randn) + n I and B = randn (n, k), fp64, the
+    same in every rank (one numpy seed)."""
+    rng = np.random.default_rng(seed)
+    L = np.tril(rng.standard_normal((n, n)))
+    L[np.diag_indices(n)] += n
+    return torch.from_numpy(L), torch.from_numpy(rng.standard_normal((n, k)))
+
+
+def dist_device_ms(run) -> dict:
+    """One more run of ``run`` under the profiler: device ms by kernel
+    (the top 6), the sums of the kernels' and of the copies' (the
+    staging's host <-> device memcpys), the wall ms and the device's busy
+    share (kernels and copies) and kernel share."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((us / 1e3, e.key[:50], e.count))
+    rows.sort(reverse=True)
+    copies = sum(r[0] for r in rows if r[1].startswith(("Memcpy", "Memset")))
+    kernels = sum(r[0] for r in rows) - copies
+    return dict(kernel_ms=kernels, copy_ms=copies, wall_ms=wall,
+                busy_share=(kernels + copies) / wall,
+                kernel_share=kernels / wall, top=[list(r) for r in rows[:6]])
+
+
+def dist_rank(grid, n: int, k: int, seed: int) -> dict:
+    """One rank's part of phase 12 on ``grid``: every case through the
+    entry point a user calls, each with the kernel counts set to 0 just
+    before and read just after, its cost trace, its staged bytes and its
+    host-clock seconds (collectives staged through the host); the
+    profiled cases once more under the profiler.  Every rank holds B1,
+    B2 and B3 to their plain versions on the inputs the case handed
+    them in this rank (``DistKernelInputs``).  Rank 0 holds each result
+    to its bound and to the p = 1 run of the same inputs on the card.
+    Returns {label: record}."""
+    import torch.distributed as dist
+    from repro_torch import core
+    from repro_torch.core import comm, cost_model, mm3d, tri_inv
+    from repro_torch.core import grid as gridlib
+    t_enter = time.time()
+    t_in = time.perf_counter()
+    L64, B64 = dist_inputs(n, k, seed)
+    p1, p2, rank = grid.p1, grid.p2, grid.mesh.rank
+    dev = grid.device
+    one = gridlib.make_trsm_mesh(1, 1, device=dev) if rank == 0 else None
+    out = {"setup": dict(inputs_s=time.perf_counter() - t_in, checks_s=0.0,
+                         profile_s=0.0, enter=t_enter)}
+    for label, kind, dtype, opt, profiled in dist_cases(p1, p2, n):
+        dt = getattr(torch, dtype)
+        L, B = L64.to(dt), B64.to(dt)
+        lower, transpose = opt.get("lower", True), opt.get("transpose", False)
+        A = L if lower else L.T
+
+        def run():
+            if kind == "mm3d":
+                return mm3d.matmul(L, B, grid)
+            if kind == "invert":
+                return tri_inv.invert(L, grid)
+            return core.trsm(A, B, grid, method=kind, n0=opt["n0"],
+                             mode=opt.get("mode"), lower=lower,
+                             transpose=transpose)
+        staged0 = grid.mesh.staged_bytes
+        torch.cuda.synchronize()
+        dist.barrier()                 # every rank starts the case at once
+        kept = DistKernelInputs()
+        reset_counts()
+        t0 = time.perf_counter()
+        with kept, comm.trace() as t:
+            res = run()
+        torch.cuda.synchronize()
+        rec = dict(seconds=time.perf_counter() - t0, launches=read_counts(),
+                   staged_bytes=grid.mesh.staged_bytes - staged0,
+                   cost=dict(t.summary(), by_op=t.by_op()))
+        what = f"phase 12 {p1}x{p1}x{p2} rank {rank} {label}"
+        for name, used in (("tri_inv_blocks", kind in ("inv", "invert")),
+                           ("trmm", kind == "inv"),
+                           ("trsm_substitution", kind == "rec")):
+            check(not used or rec["launches"][name] > 0,
+                  f"{what}: {name} launched 0 times")
+        tc = time.perf_counter()
+        rec["vs_plain"] = kept.check(what, rec["launches"])
+        out["setup"]["checks_s"] += time.perf_counter() - tc
+        if profiled:
+            tp = time.perf_counter()
+            rec["profile"] = dist_device_ms(run)
+            out["setup"]["profile_s"] += time.perf_counter() - tp
+        if rank == 0:
+            tc = time.perf_counter()
+            rec.update(dist_check(one, kind, dtype, opt, res, L, B, A, label,
+                                  f"{p1}x{p1}x{p2}"))
+            out["setup"]["checks_s"] += time.perf_counter() - tc
+            if kind == "mm3d":
+                c = cost_model.mm_cost(n, k, grid.p, p1, p2)
+                rec["mm_cost"] = dict(s=c.s, w=c.w, f=c.f)
+                check((rec["cost"]["s"], rec["cost"]["w"]) == (c.s, c.w),
+                      f"phase 12 mm3d: traced S, W {rec['cost']} differ "
+                      f"from mm_cost's {c}")
+        out[label] = rec
+        del res
+    out["setup"]["exit"] = time.time()
+    return out
+
+
+def dist_check(one, kind, dtype, opt, res, L, B, A, label, gname) -> dict:
+    """Rank 0's checks of one phase-12 result (fp64 on the card)."""
+    from repro_torch import core
+    from repro_torch.core import tri_inv
+    dev = one.device
+    if kind == "mm3d":
+        want = L.to(dev, torch.float64) @ B.to(dev, torch.float64)
+        err = ((res.to(dev) - want).abs().max() / want.abs().max()).item()
+        check(err <= DIST_MM3D_TOL, f"phase 12 {gname} {label}: max rel "
+                                    f"diff from torch.matmul {err}")
+        return dict(rel_err_vs_matmul=err)
+    if kind == "invert":
+        L64 = L.to(dev, torch.float64)
+        eye = torch.eye(L.shape[0], dtype=torch.float64, device=dev)
+        res64 = res.to(dev, torch.float64)
+        r = (torch.linalg.norm(L64 @ res64 - eye) / torch.linalg.norm(eye)
+             ).item()
+        Llib = torch.linalg.solve_triangular(L.to(dev), eye.to(L.dtype),
+                                             upper=False).double()
+        r_lib = (torch.linalg.norm(L64 @ Llib - eye)
+                 / torch.linalg.norm(eye)).item()
+        want = tri_inv.invert(L.to(dev), one).double()
+        agree = ((res64 - want).abs().max() / want.abs().max()).item()
+        check(r <= 10 * r_lib, f"phase 12 {gname} {label}: ||L Li - I|| {r} "
+                               f"> 10x the library's {r_lib}")
+        check(agree <= DIST_AGREE[dtype], f"phase 12 {gname} {label}: "
+                                          f"{agree} from the p = 1 inverse")
+        return dict(residual=r, library_residual=r_lib, vs_p1=agree)
+    lower, transpose = opt.get("lower", True), opt.get("transpose", False)
+    A64 = A.to(dev, torch.float64)
+    op = A64.T if transpose else A64
+    X = res.to(dev, torch.float64)
+    B64 = B.to(dev, torch.float64)
+    relres = (torch.linalg.norm(op @ X - B64) / torch.linalg.norm(B64)).item()
+    X1 = core.trsm(A.to(dev), B.to(dev), one, method=kind, n0=opt["n0"],
+                   mode=opt.get("mode"), lower=lower,
+                   transpose=transpose).double()
+    agree = ((X - X1).abs().max() / X1.abs().max()).item()
+    check(relres <= DIST_RELRES[dtype], f"phase 12 {gname} {label}: relres "
+                                        f"{relres} > {DIST_RELRES[dtype]}")
+    check(agree <= DIST_AGREE[dtype], f"phase 12 {gname} {label}: {agree} "
+                                      f"from the p = 1 solve")
+    return dict(relres=relres, vs_p1=agree)
+
+
+# kernel-against-plain bounds on phase 12's kept inputs: fp64 as the
+# earlier slices' fp64 checks; fp32 as kernel_phase's at each kernel
+DIST_VS_PLAIN = {"tri_inv_blocks": {"float64": 1e-10, "float32": 1e-4},
+                 "trmm": {"float64": 1e-10, "float32": 2e-5},
+                 "trsm_substitution": {"float64": 1e-10, "float32": 1e-4}}
+
+
+class DistKernelInputs:
+    """Keeps, while entered, the last inputs of each (kernel, shapes,
+    dtype) that reach B1's, B2's and B3's wrappers through
+    ``kernels.ops`` (as the distributed solvers call them), and passes
+    every call through unchanged (the counts stay the wrappers').
+    ``check`` then holds each kernel against its plain version on each
+    kept input, after the case's counts were read."""
+
+    def __init__(self):
+        self.kept = {}
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.ops = ops
+        self.saved = {name: getattr(ops, name) for name in DIST_VS_PLAIN}
+
+        def keeper(name, fn):
+            def keep(*args, **kw):
+                key = (name, tuple(tuple(a.shape) for a in args
+                                   if torch.is_tensor(a)),
+                       str(args[0].dtype).removeprefix("torch."))
+                self.kept[key] = (
+                    [a.clone() if torch.is_tensor(a) else a for a in args],
+                    {kk: v.clone() if torch.is_tensor(v) else v
+                     for kk, v in kw.items()})
+                return fn(*args, **kw)
+            return keep
+        for name, fn in self.saved.items():
+            setattr(ops, name, keeper(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.ops, name, fn)
+
+    def check(self, what: str, launches: dict) -> list:
+        """Each kept input through the kernel and its plain version; a
+        kernel that launched in the case must have had an input kept."""
+        from repro_torch.kernels import tri_inv_block, trmm, trsm_block
+        pairs = dict(
+            tri_inv_blocks=(tri_inv_block.tri_inv_blocks,
+                            tri_inv_block.tri_inv_blocks_plain),
+            trmm=(trmm.trmm, trmm.trmm_plain),
+            trsm_substitution=(trsm_block.trsm_substitution,
+                               trsm_block.trsm_substitution_plain))
+        seen = {key[0] for key in self.kept}
+        for name in DIST_VS_PLAIN:
+            check(launches[name] == 0 or name in seen,
+                  f"{what}: {name} launched but no input was kept")
+        out = []
+        for (name, shapes, dtype), (args, kw) in self.kept.items():
+            kernel, plain = pairs[name]
+            if name == "trmm":
+                check(kw.get("block_mask") is None,
+                      f"{what}: trmm called with a block mask (B4)")
+                plain_kw = {}
+            else:
+                plain_kw = kw
+            got, want = kernel(*args, **kw), plain(*args, **plain_kw)
+            abs_err, rel_err = errors(got, want)
+            tol = DIST_VS_PLAIN[name][dtype]
+            row = dict(kernel=name, shapes=[list(sh) for sh in shapes],
+                       dtype=dtype, max_abs_err=abs_err,
+                       max_rel_err=rel_err, tol=tol)
+            check(rel_err <= tol, f"{what}: {name} {shapes} {dtype} against "
+                                  f"its plain version: {rel_err} of its "
+                                  f"largest entry > {tol}")
+            if name == "tri_inv_blocks":
+                row["lower_rel_err"] = lower_rel_error(got, want)
+                check(row["lower_rel_err"] <= tol,
+                      f"{what}: {name} {shapes} {dtype}: strictly lower "
+                      f"part off by {row['lower_rel_err']} of its max > "
+                      f"{tol}")
+            out.append(row)
+        self.kept.clear()
+        return out
+
+
+def distributed_phase(card: str) -> dict:
+    """Phase 12: It-Inv, rec, the one-shot ``core.trsm``, the 3D product
+    and the inversion at n = 8192 on the (2, 2), (2, 1) and (1, 4) grids:
+    one spawn of p ranks each (spawn start method: this process holds a
+    CUDA context), gloo, every rank on cuda:0 with its own context.  NCCL
+    refuses two ranks on one GPU, so every collective goes through host
+    memory (staged) while every kernel launch runs on the card: this
+    checks the algorithms and their kernels, not an interconnect.  Any
+    rank's failure fails the phase.  Returns {kernel: launches}, summed
+    over ranks, grids and cases."""
+    from repro_torch.core import selfcheck
+    t0 = time.perf_counter()
+    print(json.dumps(dict(distributed=dict(
+        backend="gloo", device="cuda:0", card=card,
+        note="the ranks of each grid share one card; collectives are "
+             "staged through host memory, kernels run on the card; NCCL "
+             "(one GPU per rank) is not exercised"))), flush=True)
+    totals = collections.Counter()
+    for p1, p2 in DIST_GRIDS:
+        tg, t_spawn = time.perf_counter(), time.time()
+        ranks = selfcheck.spawn(p1, p2, "cuda:0", dist_rank, N, DIST_K,
+                                DIST_SEED)
+        t_joined = time.time()
+        gname = f"{p1}x{p1}x{p2}"
+        vs_plain = {}     # kernel -> inputs checked, worst error, dtypes, shapes
+        for label, rec in ranks[0].items():
+            if label == "setup":
+                setup = rec
+                continue
+            costs = [r[label]["cost"] for r in ranks]
+            check(all(c == costs[0] for c in costs),
+                  f"phase 12 {gname} {label}: cost traces differ across "
+                  f"ranks")
+            for r in ranks:
+                totals.update(r[label]["launches"])
+            row = dict(grid=gname, case=label,
+                       host_staged_seconds=[r[label]["seconds"]
+                                            for r in ranks],
+                       staged_bytes_per_rank=[r[label]["staged_bytes"]
+                                              for r in ranks],
+                       launches_per_rank=[{kk: v for kk, v in
+                                           r[label]["launches"].items() if v}
+                                          for r in ranks],
+                       cost=dict(s=rec["cost"]["s"], w=rec["cost"]["w"],
+                                 f=rec["cost"]["f"]),
+                       **{kk: rec[kk] for kk in ("relres", "vs_p1",
+                                                 "rel_err_vs_matmul",
+                                                 "residual",
+                                                 "library_residual",
+                                                 "mm_cost") if kk in rec})
+            case_vs = {}
+            for r in ranks:
+                for v in r[label]["vs_plain"]:
+                    for acc in (case_vs, vs_plain):
+                        a = acc.setdefault(v["kernel"], dict(
+                            inputs=0, worst_rel_err=0.0, dtypes=[],
+                            shapes=[]))
+                        a["inputs"] += 1
+                        a["worst_rel_err"] = max(a["worst_rel_err"],
+                                                 v["max_rel_err"])
+                        if v["dtype"] not in a["dtypes"]:
+                            a["dtypes"].append(v["dtype"])
+                        if v["shapes"] not in a["shapes"]:
+                            a["shapes"].append(v["shapes"])
+            row["vs_plain"] = case_vs
+            if "profile" in rec:
+                for key in ("kernel_ms", "copy_ms", "wall_ms", "busy_share",
+                            "kernel_share"):
+                    row[f"{key}_per_rank"] = [r[label]["profile"][key]
+                                              for r in ranks]
+                row["top_rank0"] = rec["profile"]["top"]
+            print(json.dumps({"distributed_case": row}), flush=True)
+        for name in DIST_VS_PLAIN:
+            check(name in vs_plain, f"phase 12 {gname}: {name} was held "
+                                    f"against its plain version on no input")
+        print(json.dumps({"distributed_kernels": dict(
+            grid=gname, note="each kernel against its plain version on the "
+                             "inputs the grid's cases handed it, every rank",
+            **vs_plain)}), flush=True)
+        print(json.dumps(dict(
+            distributed_grid=gname, ranks=len(ranks),
+            seconds=time.perf_counter() - tg,
+            spawn_to_ranks_s=max(r["setup"]["enter"] for r in ranks)
+            - t_spawn,
+            ranks_to_join_s=t_joined - max(r["setup"]["exit"]
+                                           for r in ranks),
+            rank0_inputs_s=setup["inputs_s"],
+            rank0_checks_s=setup["checks_s"],
+            rank0_profile_s=setup["profile_s"])), flush=True)
+    print(json.dumps(dict(phase12_s=time.perf_counter() - t0)), flush=True)
+    return dict(totals)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2872,6 +3271,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     kfac_phase(api, grid, seed=150)
     print(json.dumps(dict(phase11_s=time.perf_counter() - t11)), flush=True)
+    del grid
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_launches = distributed_phase(card)                   # phase 12
 
     kernels = []
     for name, method, source, replaces in (
@@ -2901,7 +3304,8 @@ def main() -> int:
                             ms=rec["kernel_ms"], plain_ms=rec["plain_ms"],
                             bound_ms=rec["bound_ms"],
                             bound_by=rec["bound_by"],
-                            library_ms=rec["library_ms"]))
+                            library_ms=rec["library_ms"],
+                            launches_distributed=dist_launches.get(name, 0)))
     print(json.dumps(dict(elapsed_s=time.perf_counter() - t_start)))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,12 +1,20 @@
 """The solve stack: layouts, precision, It-Inv-TRSM and the recursive
-TRSM at p = 1, the cost model and planner, the factor bank, the
-compiled-program cache and the serving front door.
+TRSM, the cost model and planner, the factor bank, the compiled-program
+cache and the serving front door.
 
     trsm(L, B, grid, method="inv"|"rec"|"auto", ...)   one-shot solve
     tri_inv.invert(L, grid)                   L^{-1} (paper Sec. V)
+    mm3d.matmul(L, X, grid)                   Sec. III 3D product
     cholesky.cholesky(A, grid)                Cholesky via inversion
     cholesky.cholesky_cyclic / lu.lu_cyclic   factor producers emitting
                                               cyclic storage (bank feed)
+    comm.trace()                              alpha-beta-gamma cost
+                                              records of the collectives
+
+``trsm``, ``tri_inv.invert`` and ``mm3d.matmul`` also run on a grid with
+p > 1: one rank per process, in a ``torch.distributed`` world of p
+(``make_trsm_mesh``), each returning its natural-layout result on every
+rank; ``python -m repro_torch.core.selfcheck`` runs them on gloo ranks.
 """
 
 
@@ -50,4 +58,5 @@ def trsm(L, B, grid, method: str = "inv", n0: int | None = None,
     return prog.solve(prog.prep(L), B)
 
 
-from repro_torch.core import cholesky, lu, tri_inv  # noqa: E402,F401
+from repro_torch.core import (  # noqa: E402,F401
+    cholesky, comm, lu, mm3d, tri_inv)

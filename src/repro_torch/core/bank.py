@@ -38,7 +38,7 @@ import torch
 
 from repro_torch.core import precision as preclib
 from repro_torch.core import session as sessionlib
-from repro_torch.core.grid import TrsmGrid
+from repro_torch.core.grid import NEXT_SLICE, TrsmGrid
 from repro_torch.core.session import CompiledSolverCache
 
 _CYCLIC_OPERATOR = (
@@ -87,6 +87,10 @@ class FactorBank:
         if grid.device is None:
             raise ValueError("a plan-only grid (plan_grid) has no device: "
                              "build banks on make_trsm_mesh")
+        if grid.p > 1:
+            raise NotImplementedError(f"factor banks (Solver.from_factor, "
+                                      f"fleets) over p > 1 ranks "
+                                      f"{NEXT_SLICE}")
         self.structure = solverlib._normalize_structure(structure)
         if self.structure is not None:
             self.structure.validate_for(n, lower=lower,

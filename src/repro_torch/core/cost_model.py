@@ -14,8 +14,9 @@ plans with :func:`h100` unless the caller passes a machine (Sec. VIII:
 plans can be compared with the reference's for the same machine.  The
 reference's measured calibration is TPU data and is not ported.  Only
 what the port's planners and its control plane price is here (the
-admission controller's :func:`queue_wait_estimate` included): the MM
-costs and the Sec. IX table come with the slices that use them.  A
+admission controller's :func:`queue_wait_estimate` included), and the
+Sec. III MM costs the distributed product is held to; the Sec. IX table
+comes with the slice that uses it.  A
 non-dense ``structure=`` (a
 :class:`~repro_torch.core.structure.FactorStructure`) prices the blocks
 the structured programs execute (DESIGN.md Sec. 14).
@@ -199,6 +200,52 @@ def allreduction(n: float, p: float) -> Cost:
 
 def bcast(n: float, p: float) -> Cost:
     return Cost(s=2 * lg(p), w=2 * n * ind(p))
+
+
+# --------------------- MM (Sec. III) ---------------------
+
+def mm_cost_paper(n: float, k: float, p: float, p1: float,
+                  p2: float) -> Cost:
+    """3D matmul from a 2D cyclic start, line by line per the paper
+    (Sec. III cost table), including the two rectangular-grid transposes
+    (lines 3 and 8, O(nk log(p)/p) each) of its 4D-grid construction."""
+    c = Cost()
+    c = c + Cost(s=lg(p2), w=(n * n / (p1 * p1)) * ind(p2))       # line 2
+    c = c + Cost(s=lg(p), w=n * k * lg(p) / p)                    # line 3
+    c = c + Cost(s=1, w=n * k / p)                                # line 4
+    c = c + Cost(s=lg(p1), w=n * k / (p1 * p2) * ind(p1))         # line 5
+    c = c + Cost(f=n * n * k / p)                                 # line 6
+    c = c + Cost(s=lg(p1), w=n * k / (p1 * p2) * ind(p1),
+                 f=n * k / (p1 * p2) * ind(p1))                   # line 7
+    c = c + Cost(s=lg(p), w=n * k * lg(p) / p)                    # line 8
+    return c
+
+
+def mm_cost(n: float, k: float, p: float, p1: float, p2: float,
+            m: float | None = None) -> Cost:
+    """Cost of the schedule ``core.mm3d`` runs: the mesh-native cyclic
+    layout removes the paper's lines 3 and 8, and the x<->y exchange is
+    one permute (line 4).  Leading order matches the paper:
+    W = m n/p1^2 1_{p2} + 2 n k/(p1 p2), F = m n k/p, S = O(log p).
+    ``m`` is the left operand's row count (default n, square)."""
+    m = n if m is None else m
+    c = Cost()
+    c = c + Cost(s=lg(p2), w=(m * n / (p1 * p1)) * ind(p2))       # gather L
+    c = c + Cost(s=ind(p1), w=n * k / p * ind(p1))                # permute
+    c = c + Cost(s=lg(p1), w=n * k / (p1 * p2) * ind(p1))        # gather X
+    c = c + Cost(f=m * n * k / p)                                 # GEMM
+    c = c + Cost(s=lg(p1), w=m * k / (p1 * p2) * ind(p1),
+                 f=m * k / (p1 * p2) * ind(p1))                   # red-scat
+    return c
+
+
+def w_mm_optimal(n: float, k: float, p: float) -> float:
+    """Asymptotically optimal MM bandwidth (Demmel et al.), Sec. II-C2."""
+    if n > k * math.sqrt(p):
+        return n * k / math.sqrt(p)
+    if n >= k / p:
+        return (n * n * k / p) ** (2.0 / 3.0)
+    return n * n
 
 
 # --------------------- Recursive TRSM (Sec. IV) ---------------------

@@ -1,5 +1,4 @@
-"""It-Inv-TRSM (the paper's main contribution, Secs. VI-VII) on the
-1 x 1 x 1 grid.
+"""It-Inv-TRSM (the paper's main contribution, Secs. VI-VII).
 
 Two phases, split so a factor bank can run phase 1 once at admission:
 
@@ -14,18 +13,48 @@ Two phases, split so a factor bank can run phase 1 once at admission:
    B_{>i} -= L[>i, S_i] @ X_i as a ``torch.matmul`` (a plain dot in the
    reference too).
 
-Every tensor carries a leading factor axis (the bank width M) where
-the reference maps one factor with ``vmap``.
+At p = 1 (:func:`invert_diag_blocks`, :func:`sweep`) every tensor
+carries a leading factor axis (the bank width M) where the reference
+maps one factor with ``vmap``.
+
+At p > 1 (:func:`invert_diag_blocks_shard`, :func:`sweep_shard`, one
+factor) each rank runs the body on its cyclic pieces
+(``repro_torch.core.grid``): L's, B's (rows cyclic over x, columns
+blocked over z) and X's (rows cyclic over y).  Phase 1 has the
+reference's three modes:
+
+* "alltoall" (p | m): one all-to-all routes whole blocks to ranks, B1
+  inverts them, one all-to-all routes the transposed-face pieces back;
+* "doubling" (m < p): ``tri_inv.block_diag_inv_shard`` inverts the
+  diagonal blocks cooperatively, then the faces are formed by one x<->y
+  permute and one all-gather over z;
+* "allgather" (any m): every rank gathers all diagonal blocks and B1
+  inverts them redundantly.
+
+Phase 1 leaves each rank the transposed face Dt_i = binv_i[y::p1, x::p1]
+of every inverted block: rows of y's residue, columns of x's.  Being a
+lower-triangular matrix's, it is itself lower triangular (strictly so
+where y < x), so the sweep's solve step X_i = psum_x(Dt_i B_i) runs on
+B2 (``ops.trmm``), which reads nothing it skips.  The update gathers
+the panel over z (the paper's bcast), multiplies it with cuBLAS, sums
+it over y and takes it off the rows below block i.  The per-iteration
+collectives are the paper's: one allreduce over x, one gather over z,
+one allreduce over y.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
 
-from repro_torch.core import blocked
+from repro_torch.core import blocked, comm
+from repro_torch.core import grid as gridlib
+from repro_torch.core import tri_inv as ti
+from repro_torch.core.comm import MESH_AXES
 from repro_torch.core.grid import TrsmGrid, check_divisibility
+from repro_torch.core.mm3d import _swap_perm
 from repro_torch.core.precision import matmul_as
 
 
@@ -107,12 +136,188 @@ def dt_shape(n: int, n0: int) -> tuple:
 
 
 def pick_phase1_mode(n: int, n0: int, grid: TrsmGrid) -> str:
-    """The reference's phase-1 scheme choice.  At p = 1, p | m always
-    holds, so the only scheme is "alltoall" (whose routing is the
-    identity here); the cooperative and allgather schemes come with the
-    distributed port (ROADMAP A12)."""
-    if grid.p != 1:
-        raise NotImplementedError("phase-1 modes for p > 1 are ROADMAP "
-                                  "A12")
-    check_divisibility(n, 1, n0, grid)
-    return "alltoall"
+    """The reference's phase-1 scheme: "alltoall" when p | m (always at
+    p = 1, where its routing is the identity), else "doubling" when the
+    cooperative inversion's blocks tile n0, else "allgather"."""
+    check_divisibility(n, grid.p2, n0, grid)
+    if (n // n0) % grid.p == 0:
+        return "alltoall"
+    s0 = min(ti.pick_s0(n, grid.p1, grid.p2), n0)
+    feasible = (s0 % (grid.p1 * grid.p2) == 0 and n0 % s0 == 0
+                and (n0 // s0) & (n0 // s0 - 1) == 0)
+    return "doubling" if feasible else "allgather"
+
+
+# ------------------------------- p > 1 -------------------------------
+
+def _pieces_all_dests(binv: torch.Tensor, p1: int, p2: int) -> torch.Tensor:
+    """For every destination (xd, yd, zd), the transposed-face piece
+    (rows of yd's residue, columns of xd's) of each local block:
+    (mb, n0, n0) -> (p, mb, a, a)."""
+    mb, n0, _ = binv.shape
+    a = n0 // p1
+    R = binv.reshape(mb, a, p1, a, p1)             # (i, l, roff, c, coff)
+    R = R.permute(4, 2, 0, 1, 3)                   # (xd, yd, i, l, c)
+    R = R[:, :, None].expand(p1, p1, p2, mb, a, a)
+    return R.reshape(p1 * p1 * p2, mb, a, a)
+
+
+def invert_diag_blocks_shard(Lloc, *, n, n0, p1, p2, block_inv, mode,
+                             accum_dtype=None, overlap=False):
+    """Phase 1 at p > 1: this rank's L piece (n/p1, n/(p1 p2)) -> Dt
+    (m, n0/p1, n0/p1), the transposed faces of the inverted diagonal
+    blocks.  Runs under ``comm.on_mesh``.  When ``accum_dtype`` is wider
+    than L's dtype the blocks are inverted at it (cast up, invert, cast
+    back), as the reference does."""
+    if accum_dtype is not None and accum_dtype != Lloc.dtype:
+        inner, ldt = block_inv, Lloc.dtype
+
+        def block_inv(blocks):
+            return inner(blocks.to(accum_dtype)).to(ldt)
+    m = n // n0
+    p = p1 * p1 * p2
+    a = n0 // p1
+    x, y, _ = comm.current_mesh().coords
+    D = ti.diag_pieces(Lloc, m)                    # (m, a, b) local tiles
+    if mode == "alltoall":
+        if m % p:
+            raise ValueError(f"alltoall phase 1 needs p | m (m={m}, p={p})")
+        mb = m // p
+        # rank f receives the pieces of blocks [f mb, (f + 1) mb)
+        Dr = comm.all_to_all(D, MESH_AXES, split_axis=0, concat_axis=0,
+                             tiled=True).reshape(p, mb, *D.shape[1:])
+        binv = ti.invert_blocks(ti.assemble_blocks(Dr, p1, p2), block_inv)
+        S = _pieces_all_dests(binv, p1, p2)
+        return comm.all_to_all(S.reshape(p * mb, a, a), MESH_AXES,
+                               split_axis=0, concat_axis=0, tiled=True)
+    if mode == "doubling":
+        Linv = ti.block_diag_inv_shard(Lloc, n=n, n0=n0, p1=p1, p2=p2,
+                                       block_inv=block_inv)
+        Dd = ti.diag_pieces(Linv, m)               # (m, a, b) cyclic
+        if p1 > 1:
+            if overlap:
+                Dd = comm.ppermute_finish(
+                    comm.ppermute_start(Dd, ("x", "y"), _swap_perm(p1)))
+            else:
+                Dd = comm.ppermute(Dd, ("x", "y"), _swap_perm(p1))
+        if p2 > 1:
+            Dg = comm.all_gather(Dd, "z", axis=2, tiled=True)  # (m,a,p2 b)
+            Dd = Dg.reshape(m, a, p2, -1).transpose(-1, -2).reshape(m, a, a)
+        return Dd.contiguous()
+    if mode == "allgather":
+        Dg = comm.all_gather(D, MESH_AXES, axis=0, tiled=False)
+        binv = ti.invert_blocks(ti.assemble_blocks(Dg, p1, p2), block_inv)
+        return binv[:, y::p1, x::p1].contiguous()
+    raise ValueError(f"unknown phase-1 mode {mode!r}")
+
+
+def sweep_shard(Lloc, Dt, Bloc, *, n, k, n0, p1, p2, accum_dtype=None,
+                overlap=False, prefetched0=None):
+    """Phase 2 at p > 1, unrolled, against the faces Dt of
+    :func:`invert_diag_blocks_shard`: this rank's pieces of L, Dt and B
+    (n/p1, k/p2) -> its piece of X (n/p1, k/p2), rows of y's residue.
+    Runs under ``comm.on_mesh``; B is not written.
+
+    The last column's update would only touch rows below the last
+    block, so it is left out.  ``overlap`` starts column i+1's panel
+    gather before column i's update runs (``prefetched0``: column 0's,
+    started by the caller before phase 1); the operations and operands
+    are those of the sequential sweep, so X is the same, bit for bit."""
+    from repro_torch.kernels import ops
+    m = n // n0
+    nl = n // p1
+    a = n0 // p1
+    b = n0 // (p1 * p2)
+    ct = Bloc.dtype
+    acc = accum_dtype if accum_dtype is not None else ct
+
+    def panel_start(i):
+        return comm.all_gather_start(Lloc[:, i * b:(i + 1) * b], "z",
+                                     axis=0, tiled=False)
+
+    Bcur = Bloc.clone()
+    X = torch.empty_like(Bloc)
+    pending = None
+    if m > 1 and overlap:
+        pending = prefetched0 if prefetched0 is not None else panel_start(0)
+    for i in range(m):
+        rows = slice(i * a, (i + 1) * a)
+        # solve via GEMM (l. 4-5): the face is lower triangular, so B2;
+        # partials and the cross-x sum at acc, X_i at ct
+        part = ops.trmm(Dt[i].to(acc), Bcur[rows].to(acc))
+        Xi = comm.psum(part, "x").to(ct)
+        X[rows] = Xi
+        if i + 1 == m:
+            break
+        # update (l. 6-8): panel gathered over z, its columns t' = c p2 + z
+        if overlap:
+            pg = comm.all_gather_finish(pending)
+            pending = panel_start(i + 1) if i + 2 < m else None
+        else:
+            pg = comm.all_gather_finish(panel_start(i))
+        pg = pg.permute(1, 2, 0).reshape(nl, a)
+        upd = comm.psum(matmul_as(pg, Xi, acc, acc), "y").to(ct)
+        # the rows of the blocks below i (global row l p1 + x >= (i+1) n0)
+        Bcur[(i + 1) * a:] -= upd[(i + 1) * a:]
+    return X
+
+
+def it_inv_trsm_shard(Lloc, Bloc, *, n, k, n0, p1, p2, block_inv, mode,
+                      accum_dtype=None, overlap=False):
+    """Phase 1 then the sweep, on this rank's pieces (p > 1, under
+    ``comm.on_mesh``).  With ``overlap`` column 0's panel gather starts
+    before phase 1, which never reads it."""
+    acc = accum_dtype if accum_dtype is not None else Bloc.dtype
+    pre0 = None
+    if overlap and n // n0 > 1:
+        pre0 = comm.all_gather_start(Lloc[:, :n0 // (p1 * p2)], "z",
+                                     axis=0, tiled=False)
+    Dt = invert_diag_blocks_shard(Lloc, n=n, n0=n0, p1=p1, p2=p2,
+                                  block_inv=block_inv, mode=mode,
+                                  accum_dtype=acc, overlap=overlap)
+    return sweep_shard(Lloc, Dt, Bloc, n=n, k=k, n0=n0, p1=p1, p2=p2,
+                       accum_dtype=acc, overlap=overlap, prefetched0=pre0)
+
+
+def it_inv_trsm_fn(grid: TrsmGrid, n: int, k: int, n0: int,
+                   block_inv: Callable | None = None,
+                   mode: str | None = None, accum_dtype=None,
+                   overlap: bool = False):
+    """The distributed solver for fixed shapes on a p > 1 grid: this
+    rank's pieces of L and B in (L's and B's layouts), its piece of X
+    out (X's layout).  ``block_inv`` defaults to the kernel hook."""
+    from repro_torch.kernels import ops
+    if grid.p == 1:
+        raise ValueError("it_inv_trsm_fn runs p > 1 grids; at p = 1 use "
+                         "invert_diag_blocks and sweep")
+    gridlib.require_mesh(grid)
+    check_divisibility(n, k, n0, grid)
+    mode = mode or pick_phase1_mode(n, n0, grid)
+    if mode == "alltoall" and (n // n0) % grid.p:
+        mode = pick_phase1_mode(n, n0, grid)
+    body = functools.partial(
+        it_inv_trsm_shard, n=n, k=k, n0=n0, p1=grid.p1, p2=grid.p2,
+        block_inv=block_inv if block_inv is not None
+        else ops.block_inv_kernel, mode=mode, accum_dtype=accum_dtype,
+        overlap=overlap)
+
+    def fn(Lloc, Bloc):
+        with comm.on_mesh(grid.mesh):
+            return body(Lloc, Bloc)
+    return fn
+
+
+def solve(L, B, grid: TrsmGrid, n0: int, *, block_inv=None,
+          mode: str | None = None) -> torch.Tensor:
+    """Natural-layout entry point: L (n, n), B (n, k) -> X, through the
+    cached program of a :class:`repro_torch.core.solver.SolveSpec`
+    (returned on every rank at p > 1)."""
+    from repro_torch.core import precision as preclib
+    from repro_torch.core.solver import SolveSpec, solver_for
+    L = torch.as_tensor(L)
+    n, k = B.shape
+    spec = SolveSpec(n=n, k=k, grid=grid,
+                     policy=preclib.resolve(None, L.dtype), method="inv",
+                     n0=n0, mode=mode, block_inv=block_inv)
+    prog = solver_for(spec)
+    return prog.solve(prog.prep(L), B)

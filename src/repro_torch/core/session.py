@@ -42,6 +42,15 @@
   kernel (and order) follows the shape: a padded slot's leading block
   is then the unpadded solve's bit for bit.
 
+* On a grid with p > 1 (:func:`_build_distributed_solver`) the
+  one-shot program runs in every rank: its prep cuts this rank's cyclic
+  piece of the natural factor, the operator reduction folded into the
+  same two gathers, and its solve cuts the right-hand side's piece,
+  runs the shard body (``inv_trsm.it_inv_trsm_fn`` or
+  ``rec_trsm.rec_trsm_sharded``) and returns the natural X on every
+  rank.  Banks, refinement and structures at p > 1 come with the next
+  slice of the distributed port and raise ``NotImplementedError``.
+
 PyTorch runs eagerly, so a "program" is a Python function over device
 tensors; building it resolves every plan decision once, and its gather
 indices are uploaded on its first call, so the steady state issues
@@ -271,11 +280,13 @@ def _build_phase1(grid: TrsmGrid, n: int, n0: int, mode: str, accum,
                   block_inv):
     """Phase 1 L_cyc (M, n, n) -> Dt (M, m, n0, n0), shared by bank
     admission and program prep.  ``block_inv=None`` is the port's
-    default, the hand-written ``kernels.ops.block_inv_kernel``."""
+    default, the hand-written ``kernels.ops.block_inv_kernel``.  At
+    p = 1 every mode's routing is the identity, so each inverts the
+    diagonal blocks in one batched call (p > 1 runs its modes in
+    ``inv_trsm.invert_diag_blocks_shard``)."""
     from repro_torch.kernels import ops
-    if mode != "alltoall":
-        raise NotImplementedError(f"phase-1 mode {mode!r} needs p > 1 "
-                                  f"(ROADMAP A12)")
+    if mode not in ("alltoall", "doubling", "allgather"):
+        raise ValueError(f"unknown phase-1 mode {mode!r}")
     binv = block_inv if block_inv is not None else ops.block_inv_kernel
     return functools.partial(inv_trsm.invert_diag_blocks, n0=n0,
                              block_inv=binv, accum_dtype=accum)
@@ -303,6 +314,8 @@ def _build_solver(spec) -> SolverProgram:
     if grid.device is None:
         raise ValueError("a plan-only grid (plan_grid) cannot run a "
                          "program: build it on make_trsm_mesh")
+    if grid.p > 1:
+        return _build_distributed_solver(spec)
     p1, p2 = grid.p1, grid.p2
     rev = _needs_reversal(spec.lower, spec.transpose)
     compute, accum = policy.compute, policy.accumulate
@@ -383,6 +396,57 @@ def _build_solver(spec) -> SolverProgram:
         B = torch.as_tensor(B, device=grid.device)
         return program(factor, B[None])[0]
 
+    return SolverProgram(key=spec, solve=solve, prep=prep)
+
+
+def _build_distributed_solver(spec) -> SolverProgram:
+    """The one-shot program of a spec on a p > 1 grid, run in every
+    rank: ``prep(L_nat)`` is this rank's piece of the reduced operator
+    at the storage dtype (the operator reduction folded into the two
+    gathers that cut it); ``solve(piece, B_nat)`` cuts B's piece at the
+    compute dtype, runs the shard body and assembles the natural X on
+    every rank, at the policy's io dtype."""
+    grid = spec.grid
+    n, k, n0, policy = spec.n, spec.k, spec.n0, spec.policy
+    if spec.bank_width is not None:
+        raise NotImplementedError(f"banked programs over p > 1 ranks "
+                                  f"{gridlib.NEXT_SLICE}")
+    if policy.refines:
+        raise NotImplementedError(f"refinement ({policy.name}) over p > 1 "
+                                  f"ranks {gridlib.NEXT_SLICE}")
+    if spec.structure is not None:
+        raise NotImplementedError(f"structured solves over p > 1 ranks "
+                                  f"{gridlib.NEXT_SLICE}")
+    rev = _needs_reversal(spec.lower, spec.transpose)
+    overlap = spec.overlap == "on"
+    if spec.method == "inv":
+        body = inv_trsm.it_inv_trsm_fn(
+            grid, n, k, n0, block_inv=spec.block_inv, mode=spec.mode,
+            accum_dtype=policy.accumulate, overlap=overlap)
+        rhs, out = "B", "X"
+    elif spec.method == "rec":
+        from repro_torch.core import rec_trsm
+        body = rec_trsm.rec_trsm_sharded(grid, n, k, n0,
+                                         accum_dtype=policy.accumulate,
+                                         overlap=overlap)
+        rhs = out = "L"
+    else:
+        raise ValueError(f"unknown method {spec.method!r}")
+
+    def prep(L):
+        return (gridlib.local_piece(L, grid, "L", dtype=policy.storage,
+                                    reverse_rows=rev, reverse_cols=rev,
+                                    transpose=spec.transpose),)
+
+    def solve(factor, B):
+        Bloc = gridlib.local_piece(torch.as_tensor(B).to(policy.io_dtype),
+                                   grid, rhs, dtype=policy.compute,
+                                   reverse_rows=rev)
+        X = gridlib.gather_natural(body(factor[0], Bloc), grid, out, n, k,
+                                   reverse_rows=rev)
+        return X.to(policy.io_dtype)
+
+    BUILD_COUNTS[spec] += 1
     return SolverProgram(key=spec, solve=solve, prep=prep)
 
 

@@ -23,7 +23,11 @@
   over.  Over a :class:`~repro_torch.core.fleet.SolverFleet` it routes
   requests by ``(tenant, order[, tag])`` to the planned buckets.
 
-Not ported yet: grids with p > 1 (ROADMAP A12).
+On a grid with p > 1 (one rank per process, ``make_trsm_mesh`` inside
+a ``torch.distributed`` world) a :class:`SolveSpec` builds the one-shot
+program (``core.trsm``); a :class:`Solver`, a bank, a fleet or a
+refinement preset there raises ``NotImplementedError``: they come with
+the next slice of the distributed port (ROADMAP A12).
 """
 
 from __future__ import annotations

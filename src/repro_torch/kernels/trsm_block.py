@@ -112,11 +112,15 @@ def _check(L: torch.Tensor, B: torch.Tensor, acc: torch.dtype) -> str:
                         f"in {sorted((str(a), str(b)) for a, b in _ENTRY)} "
                         f"with accum = B's dtype, got {L.dtype}, {B.dtype},"
                         f" {acc}")
+    _check_columns(L, B)
+    return suffix
+
+
+def _check_columns(L: torch.Tensor, B: torch.Tensor) -> None:
     for name, t in (("L", L), ("B", B)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must have unit column stride, got "
                              f"strides {t.stride()}")
-    return suffix
 
 
 def trsm_substitution(L: torch.Tensor, B: torch.Tensor, *,
@@ -141,6 +145,7 @@ def trsm_substitution(L: torch.Tensor, B: torch.Tensor, *,
         if valid.device != L.device:
             raise ValueError(f"valid on {valid.device}, L on {L.device}")
     acc = accum_dtype if accum_dtype is not None else _acc(B.dtype)
+    _check_columns(L, B)        # the kernel's layout, held on every device
     if L.device.type == "cpu" and B.device.type == "cpu":
         X = trsm_substitution_plain(L, B, acc, valid)
         return X[0] if squeeze else X

@@ -136,7 +136,9 @@ def test_invert_fp64_within_selfcheck_bound(n, s0):
 
 def test_p_greater_than_one_is_roadmap_a12():
     plan = api.plan_grid(2, 1)
-    with pytest.raises(NotImplementedError, match="A12"):
+    # the inversion runs at p > 1 (tests/test_torch_distributed.py), on
+    # a grid with a mesh, never on a plan-only one
+    with pytest.raises(ValueError, match="plan-only"):
         tri_inv.tri_inv_fn(plan, 64)
     with pytest.raises(NotImplementedError, match="A12"):
         cholesky.cholesky_fn(plan, 64)

@@ -1343,3 +1343,82 @@ def test_kfac_step_and_refresh_build_nothing_and_never_sync(cuda):
             relres = (torch.linalg.norm(L @ X[i] - B[i].double())
                       / torch.linalg.norm(B[i].double())).item()
             assert relres < 1e-5, (d, i, relres)
+
+
+# ----------------------- distributed (p > 1) -----------------------
+#
+# 8 gloo ranks of a 2 x 2 x 2 grid share cuda:0 (each has its own CUDA
+# context; gloo stages the collectives through the host), against the
+# same ranks on the CPU, where every kernel is its plain version.
+
+DIST_N, DIST_K = 512, 64
+
+
+def _dist_solve(grid, method):
+    """One rank's part: the one-shot solve at n = 512 ("inv" at n0 = 64,
+    m = p, all-to-all phase 1; "rec" at its default n0), X on every rank,
+    and the launches of B1, B2 and B3 it made; for "refine", the message
+    of the NotImplementedError a bf16_refine solve raises."""
+    from repro_torch import core
+    from repro_torch.core import selfcheck
+    counters = (tri_inv_block.tri_inv_blocks, trmm.trmm,
+                trsm_block.trsm_substitution)
+    L = torch.as_tensor(selfcheck.random_tril(DIST_N, DIST_N))
+    B = torch.as_tensor(selfcheck.rhs(5, DIST_N, DIST_K))
+    if method == "refine":
+        try:
+            core.trsm(L.float(), B.float(), grid, n0=64,
+                      precision="bf16_refine")
+        except NotImplementedError as e:
+            return str(e)
+        return "no error"
+    for c in counters:
+        c.launches = 0
+    X = core.trsm(L, B, grid, method=method,
+                  n0=64 if method == "inv" else None)
+    return X.cpu().numpy(), [c.launches for c in counters]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method,kernels", [("inv", (0, 1)), ("rec", (2,))])
+def test_distributed_solve_on_the_card(cuda, method, kernels):
+    """X on the card within 1e-10 (fp64, relative to max|X|) of the plain
+    CPU run of the same ranks, on every rank; B1 and B2 ("inv") or B3
+    ("rec") launched in every rank on the card and in none on the CPU."""
+    import numpy as np
+    from repro_torch.core import selfcheck
+    on_card = selfcheck.spawn(2, 2, "cuda:0", _dist_solve, method)
+    plain = selfcheck.spawn(2, 2, "cpu", _dist_solve, method)
+    want = plain[0][0]
+    for (X, launches), (_, cpu_launches) in zip(on_card, plain):
+        assert np.abs(X - want).max() <= 1e-10 * np.abs(want).max()
+        assert all(launches[i] > 0 for i in kernels), launches
+        assert cpu_launches == [0, 0, 0]
+
+
+@pytest.mark.gpu
+def test_distributed_refinement_preset_raises(cuda):
+    """A refinement preset on a p > 1 grid raises in every rank, naming
+    the next slice, instead of answering."""
+    from repro_torch.core import selfcheck
+    for msg in selfcheck.spawn(2, 2, "cuda:0", _dist_solve, "refine"):
+        assert "next slice" in msg, msg
+
+
+@pytest.mark.gpu
+def test_distributed_selfcheck_runs_on_the_card(cuda):
+    """``python -m repro_torch.core.selfcheck`` with no ``--device`` puts
+    every rank on cuda:0 and passes every check on every grid: the
+    kernels take the layouts the distributed bodies hand them (rec's
+    base case on the 1 x 1 x 8 grid gathers pieces one column wide)."""
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.core.selfcheck"],
+                          capture_output=True, text=True, env=env,
+                          timeout=600)
+    assert proc.returncode == 0 and "selfcheck: 0 failures" in proc.stdout, \
+        f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}"

@@ -178,7 +178,8 @@ def test_mm3d_shard_at_p1_matches_reference(dtype):
     assert str(got.dtype) == f"torch.{dtype}"
     assert_close(got, np.asarray(want, np.float32),
                  2e-2 if dtype == "bfloat16" else 2e-5)
-    with pytest.raises(NotImplementedError, match="A12"):
+    # at p > 1 the operands are one rank's pieces: whole matrices are not
+    with pytest.raises(ValueError, match="pieces"):
         mm3d.mm3d_shard(_t(a), _t(x), m=12, n=8, k=5, p1=2, p2=1)
 
 

@@ -85,6 +85,23 @@ def test_closed_forms_match_reference(n, k, p):
 
 
 @pytest.mark.parametrize("n,k,p", NKP)
+def test_mm_costs_match_reference(n, k, p):
+    """The 3D product's closed forms: the paper's line by line, the
+    schedule ``core.mm3d`` runs (square and with m rows), and the
+    optimal bandwidth they are held to."""
+    for p1 in (1, 2, 4):
+        if p % (p1 * p1):
+            continue
+        p2 = p // (p1 * p1)
+        assert _c(cm.mm_cost_paper(n, k, p, p1, p2)) \
+            == _c(jcm.mm_cost_paper(n, k, p, p1, p2))
+        for m in (None, n // 2):
+            assert _c(cm.mm_cost(n, k, p, p1, p2, m=m)) \
+                == _c(jcm.mm_cost(n, k, p, p1, p2, m=m))
+    assert cm.w_mm_optimal(n, k, p) == jcm.w_mm_optimal(n, k, p)
+
+
+@pytest.mark.parametrize("n,k,p", NKP)
 def test_tuner_matches_reference(n, k, p):
     m, jm = cm.tpu_v5e(), jcm.tpu_v5e()
     assert tuning.regime(n, k, p) == jtuning.regime(n, k, p)
