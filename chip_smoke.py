@@ -177,8 +177,8 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    runs, through the entry points a user calls: ``core.trsm`` "inv" at
    n0 = n/8 (all-to-all phase 1) in fp64 and fp32, at n0 = n/2
    (cooperative doubling), with the all-gather phase 1, and "rec" at its
-   default n0; on (2, 2) also the fp32 modes, upper and transposed
-   solves, ``mm3d.matmul`` (8192 x 8192 @ 8192 x 64, fp64) and
+   default n0; on (2, 2) also upper and transposed solves,
+   ``mm3d.matmul`` (8192 x 8192 @ 8192 x 64, fp64) and
    ``tri_inv.invert`` (fp32).  Per case: relres <= 1e-11 (fp64) and
    1e-5 (fp32), the reference's bounds; X against the p = 1 solve of
    the same inputs on the card; the product within 1e-12 of
@@ -187,15 +187,37 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    inverse; B1, B2 and B3 launched in every rank on their paths; every
    rank's cost trace the same.  Printed per case: host-staged seconds
    and staged bytes per rank, launches, the cost trace, and for the
-   first "inv" and the "rec" case each rank's device ms of kernels and
-   of staging copies (profiler); B1, B2 and B3 against their plain
-   versions at the (2, 2) shapes; the phase's seconds.
-13. The card line, the kernels' JSON summary, then the last line
+   first "inv" and the "rec" case on (2, 2) each rank's device ms of
+   kernels and of staging copies (profiler); B1, B2 and B3 against
+   their plain versions on the inputs each case handed them, in every
+   rank; the phase's seconds.
+13. The front door at p > 1 (``front_rank``), in phase 12's ranks after
+   its cases, at n = 8192, k = 16, n0 = 1024: on (2, 2)
+   ``Solver.from_factor`` "inv" in bf16_refine, fp32 and fp64_refine
+   and "rec" in bf16_refine, a C = 4 "inv" capacity bank's lifecycle
+   (two admits, a padded admission, replace, a ``replace_run`` of 2,
+   evict, re-admit), lower and upper C = 2 padded banks and a "rec"
+   C = 4 bank with 2 live slots; on (2, 1) and (1, 4) the lower padded
+   and the dead-lane banks.  Per case, counted from 0 around the calls
+   a user makes: every request's relres in fp64 against the factor its
+   slot held (1e-5 for fp32 and bf16_refine, 1e-11 for fp64_refine),
+   its X against the p = 1 solve of the same factor, preset and B,
+   dead lanes and padded tails exactly zero, each padded slot's leading
+   block bit-equal to an unpadded p > 1 bank's, the solve program built
+   once over 3 steady solves and the slot turnover, the cost trace and
+   every X the same in every rank, B1, B2, B3, B5 and B6 launched where
+   the case runs them and held against their plain versions on the
+   inputs they were handed.  Printed per case: host-staged ms and
+   staged bytes per solve, launches per rank, each kernel's ms at the
+   case's inputs (rank 0 with the card to itself); the phase's seconds.
+14. The card line, the kernels' JSON summary, then the last line
    ``{"ok": true, "device": {...}}``.  Each kernel's launches are those
    of its main path's run: B1 and B2 the inv configuration at the
    default n0, B3 the rec one, B4 the first structured one, B6 the rec
    churn phase, B5 the fleet phase; ``launches_distributed`` adds its
-   launches in phase 12, summed over ranks, grids and cases.
+   launches in phases 12-13, summed over ranks, grids and cases, and
+   is above 0 for every kernel but B4 (structure at p > 1 is the next
+   slice).
 """
 
 import collections
@@ -298,6 +320,16 @@ DIST_SEED = 160
 DIST_RELRES = {"float64": 1e-11, "float32": 1e-5}
 DIST_AGREE = {"float64": 1e-10, "float32": 1e-4}
 DIST_MM3D_TOL = 1e-12
+# phase 13: the front door over the same ranks (Solver, FactorBank,
+# capacity banks, every preset) at n = 8192, one panel of k = 16
+FRONT_K = 16
+FRONT_N0 = N // 8           # m = 8: p | m on every grid, all-to-all phase 1
+FRONT_C = 4
+FRONT_STEADY = 3
+FRONT_SEED = 170
+FRONT_RELRES = {"fp32": 1e-5, "bf16_refine": 1e-5,
+                "fp64_refine": 1e-11}         # tests/test_api_solver.py
+FRONT_AGREE = {"fp32": 1e-4, "bf16_refine": 1e-4, "fp64_refine": 1e-10}
 
 
 class SmokeFailure(RuntimeError):
@@ -2839,22 +2871,20 @@ def dist_cases(p1: int, p2: int, n: int) -> list:
     profiled).  Every grid: "inv" at n0 = n/8 (m = 8: p | m, the
     all-to-all phase 1) in fp64 and fp32, at n0 = n/2 (m = 2 < p: the
     cooperative doubling) and with the all-gather phase 1, and "rec" at
-    its default n0; (2, 2) also the fp32 modes, ``core.trsm`` upper and
-    transposed, the 3D product and the inversion.  The first "inv" and
-    the "rec" case run once more under the profiler."""
+    its default n0; (2, 2) also ``core.trsm`` upper and transposed, the
+    3D product and the inversion.  On (2, 2) the first "inv" and the
+    "rec" case run once more under the profiler (its start and stop
+    take ~5 s a case, so the other grids run none)."""
     a, b = n // 8, n // 2
-    cases = [(f"inv float64 n0={a}", "inv", "float64", dict(n0=a), True),
+    prof = (p1, p2) == (2, 2)
+    cases = [(f"inv float64 n0={a}", "inv", "float64", dict(n0=a), prof),
              (f"inv float32 n0={a}", "inv", "float32", dict(n0=a), False),
              (f"inv float64 n0={b}", "inv", "float64", dict(n0=b), False),
              ("inv float64 allgather", "inv", "float64",
               dict(n0=a, mode="allgather"), False),
-             ("rec float64", "rec", "float64", dict(n0=None), True)]
+             ("rec float64", "rec", "float64", dict(n0=None), prof)]
     if (p1, p2) == (2, 2):
-        cases += [(f"inv float32 n0={b}", "inv", "float32", dict(n0=b),
-                   False),
-                  ("inv float32 allgather", "inv", "float32",
-                   dict(n0=a, mode="allgather"), False),
-                  ("trsm upper float64", "inv", "float64",
+        cases += [("trsm upper float64", "inv", "float64",
                    dict(n0=a, lower=False), False),
                   ("trsm transposed float64", "inv", "float64",
                    dict(n0=a, transpose=True), False),
@@ -2955,6 +2985,7 @@ def dist_rank(grid, n: int, k: int, seed: int) -> dict:
                   f"{what}: {name} launched 0 times")
         tc = time.perf_counter()
         rec["vs_plain"] = kept.check(what, rec["launches"])
+        kept.kept.clear()
         out["setup"]["checks_s"] += time.perf_counter() - tc
         if profiled:
             tp = time.perf_counter()
@@ -2973,6 +3004,9 @@ def dist_rank(grid, n: int, k: int, seed: int) -> dict:
                       f"from mm_cost's {c}")
         out[label] = rec
         del res
+    t13 = time.perf_counter()
+    out["front"] = front_rank(grid, L64, one)          # phase 13
+    out["setup"]["front_s"] = time.perf_counter() - t13
     out["setup"]["exit"] = time.time()
     return out
 
@@ -3026,16 +3060,18 @@ def dist_check(one, kind, dtype, opt, res, L, B, A, label, gname) -> dict:
 # earlier slices' fp64 checks; fp32 as kernel_phase's at each kernel
 DIST_VS_PLAIN = {"tri_inv_blocks": {"float64": 1e-10, "float32": 1e-4},
                  "trmm": {"float64": 1e-10, "float32": 2e-5},
-                 "trsm_substitution": {"float64": 1e-10, "float32": 1e-4}}
+                 "trsm_substitution": {"float64": 1e-10, "float32": 1e-4,
+                                       "bfloat16": 1e-4}}
 
 
 class DistKernelInputs:
     """Keeps, while entered, the last inputs of each (kernel, shapes,
     dtype) that reach B1's, B2's and B3's wrappers through
-    ``kernels.ops`` (as the distributed solvers call them), and passes
-    every call through unchanged (the counts stay the wrappers').
-    ``check`` then holds each kernel against its plain version on each
-    kept input, after the case's counts were read."""
+    ``kernels.ops`` (as the distributed solvers call them; B5 and B6 are
+    their gated calls), and passes every call through unchanged (the
+    counts stay the wrappers').  ``check`` then holds each kernel
+    against its plain version on each kept input, after the case's
+    counts were read, and ``times`` times it there."""
 
     def __init__(self):
         self.kept = {}
@@ -3048,7 +3084,9 @@ class DistKernelInputs:
         def keeper(name, fn):
             def keep(*args, **kw):
                 key = (name, tuple(tuple(a.shape) for a in args
-                                   if torch.is_tensor(a)),
+                                   if torch.is_tensor(a))
+                       + tuple(tuple(v.shape) for v in kw.values()
+                               if torch.is_tensor(v)),
                        str(args[0].dtype).removeprefix("torch."))
                 self.kept[key] = (
                     [a.clone() if torch.is_tensor(a) else a for a in args],
@@ -3064,9 +3102,21 @@ class DistKernelInputs:
         for name, fn in self.saved.items():
             setattr(self.ops, name, fn)
 
+    @staticmethod
+    def gated_name(name: str, args, kw) -> str:
+        """The kernel a kept call launched: B5 (``tri_inv_blocks`` with
+        a mask, passed second) and B6 (``trsm_substitution`` with
+        ``valid=``) under their own names."""
+        gated = (kw.get("valid") is not None
+                 or (name == "tri_inv_blocks" and len(args) > 1
+                     and args[1] is not None))
+        return f"{name}_valid" if gated else name
+
     def check(self, what: str, launches: dict) -> list:
         """Each kept input through the kernel and its plain version; a
-        kernel that launched in the case must have had an input kept."""
+        kernel that launched in the case, gated (B5, B6) or not, must
+        have had an input kept.  The inputs stay kept (:meth:`times`
+        drops them)."""
         from repro_torch.kernels import tri_inv_block, trmm, trsm_block
         pairs = dict(
             tri_inv_blocks=(tri_inv_block.tri_inv_blocks,
@@ -3074,10 +3124,12 @@ class DistKernelInputs:
             trmm=(trmm.trmm, trmm.trmm_plain),
             trsm_substitution=(trsm_block.trsm_substitution,
                                trsm_block.trsm_substitution_plain))
-        seen = {key[0] for key in self.kept}
+        seen = {self.gated_name(key[0], *val)
+                for key, val in self.kept.items()}
         for name in DIST_VS_PLAIN:
-            check(launches[name] == 0 or name in seen,
-                  f"{what}: {name} launched but no input was kept")
+            for counted in (name, f"{name}_valid"):
+                check(launches.get(counted, 0) == 0 or counted in seen,
+                      f"{what}: {counted} launched but no input was kept")
         out = []
         for (name, shapes, dtype), (args, kw) in self.kept.items():
             kernel, plain = pairs[name]
@@ -3090,7 +3142,8 @@ class DistKernelInputs:
             got, want = kernel(*args, **kw), plain(*args, **plain_kw)
             abs_err, rel_err = errors(got, want)
             tol = DIST_VS_PLAIN[name][dtype]
-            row = dict(kernel=name, shapes=[list(sh) for sh in shapes],
+            row = dict(kernel=self.gated_name(name, args, kw),
+                       shapes=[list(sh) for sh in shapes],
                        dtype=dtype, max_abs_err=abs_err,
                        max_rel_err=rel_err, tol=tol)
             check(rel_err <= tol, f"{what}: {name} {shapes} {dtype} against "
@@ -3103,20 +3156,450 @@ class DistKernelInputs:
                       f"part off by {row['lower_rel_err']} of its max > "
                       f"{tol}")
             out.append(row)
+        return out
+
+    def times(self, timer) -> list:
+        """Each kept input's kernel time (``Timer.ms``: median of 5
+        launches, each after an L2 flush), then the inputs are
+        dropped; run while no other rank uses the card."""
+        from repro_torch.kernels import ops
+        out = []
+        for (name, shapes, dtype), (args, kw) in self.kept.items():
+            fn = getattr(ops, name)
+            out.append(dict(kernel=self.gated_name(name, args, kw),
+                            shapes=[list(sh) for sh in shapes], dtype=dtype,
+                            ms=timer.ms(lambda: fn(*args, **kw), reps=5,
+                                        warm=1)))
         self.kept.clear()
         return out
 
 
+def front_cases(p1: int, p2: int) -> list:
+    """Phase 13's cases on one grid: (label, kind, options).  (2, 2):
+    ``Solver.from_factor`` "inv" in the three presets and "rec"
+    bf16_refine; a C = 4 "inv" bf16_refine capacity bank's lifecycle
+    with a padded admission (B5); an upper padded bank (the reversed
+    mask); a "rec" fp32 capacity bank with 2 of 4 slots live (B6).
+    (2, 1) and (1, 4): the padded "inv" bank and the "rec" dead lanes.
+    Every case at n0 = 1024 (m = 8: the all-to-all phase 1)."""
+    padded = ("capacity inv bf16_refine padded", "padded",
+              dict(method="inv", precision="bf16_refine", lower=True))
+    dead = ("capacity rec fp32 dead lanes", "dead",
+            dict(method="rec", precision="fp32"))
+    if (p1, p2) != (2, 2):
+        return [padded, dead]
+    return [(f"{m} {pre}", "solver", dict(method=m, precision=pre))
+            for m, pre in (("inv", "bf16_refine"), ("inv", "fp32"),
+                           ("inv", "fp64_refine"), ("rec", "bf16_refine"))] \
+        + [("capacity inv bf16_refine lifecycle", "lifecycle",
+            dict(method="inv", precision="bf16_refine")), padded,
+           ("capacity inv bf16_refine upper padded", "padded",
+            dict(method="inv", precision="bf16_refine", lower=False)),
+           dead]
+
+
+def front_factor(L64, j: int, order: int | None = None,
+                 dtype=torch.float32):
+    """Factor j of phase 13: phase 12's L (tril(randn) + n I from a numpy
+    seed, the same on every rank), its leading order x order block, at
+    ``dtype``, the diagonal raised by 512 j so each j is another
+    factor."""
+    L = L64[:order, :order].to(dtype, copy=True)
+    if j:
+        L.diagonal().add_(512.0 * j)
+    return L
+
+
+class FrontCase:
+    """One rank's run of one phase-13 case: the calls a user makes, each
+    solve's host-clock seconds to a synchronize (the collectives staged
+    through the host) and staged bytes, the solve program's builds, and,
+    in rank 0, every request's X and the factor it was solved against
+    (kept for the checks after the counts were read)."""
+
+    def __init__(self, grid, opt):
+        self.grid, self.opt = grid, opt
+        self.rank0 = grid.mesh.rank == 0
+        self.solves = []              # (seconds, staged bytes)
+        self.requests = []            # rank 0: (label, A, B, X, pad d)
+        self.sums = []                # sum of every X: the same everywhere
+        self.bits = []                # rank 0: padded vs unpadded pairs
+        self.key = None
+
+    def solve(self, solver, B, label, held=()):
+        """Solve B (numpy) through ``solver``; ``held`` per slot: (A,
+        padded order d or None) or None for a dead slot."""
+        mesh = self.grid.mesh
+        Bt = torch.as_tensor(B).to(self.grid.device, solver.dtype)
+        staged0 = mesh.staged_bytes
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        X = solver.solve(Bt)
+        torch.cuda.synchronize()
+        self.solves.append((time.perf_counter() - t,
+                            mesh.staged_bytes - staged0))
+        self.sums.append(float(X.double().sum()))
+        if self.rank0:
+            for s, h in enumerate(held):
+                self.requests.append((f"{label} slot {s}", h, B[s],
+                                      X[s].cpu()))
+        return B, X
+
+    def built(self, solver) -> int:
+        from repro_torch.core import session
+        return session.BUILD_COUNTS[solver.program_for(FRONT_K).key]
+
+
+def front_rhs(rng, C: int, live: dict, n: int, dt) -> np.ndarray:
+    """(C, n, k) right-hand sides: randn for every live slot (its first
+    d rows for a slot padded from order d), zeros for a dead one."""
+    B = np.zeros((C, n, FRONT_K), dt)
+    for s, d in live.items():
+        B[s, :d or n] = rng.standard_normal((d or n, FRONT_K))
+    return B
+
+
+def front_solver_case(api, case, L64, rng):
+    """``Solver.from_factor`` at the preset, then 3 steady solves."""
+    o, n = case.opt, L64.shape[0]
+    dt = torch.float64 if o["precision"] == "fp64_refine" else torch.float32
+    A = front_factor(L64, 0, dtype=dt)
+    solver = api.Solver.from_factor(A, case.grid, method=o["method"],
+                                    n0=FRONT_N0, precision=o["precision"])
+    npdt = np.float64 if dt == torch.float64 else np.float32
+    for i in range(1 + FRONT_STEADY):
+        B = rng.standard_normal((1, n, FRONT_K)).astype(npdt)
+        case.solve(solver, B, f"solve {i}", [(A, None)])
+        if i == 0:
+            case.key = case.built(solver)
+    case.steady = case.built(solver) == case.key
+
+
+def front_lifecycle_case(api, case, L64, rng):
+    """A C = 4 capacity bank: two admits, a padded admission of an order
+    n/2 factor (B5), 3 steady waves; replace, a replace_run of 2, evict,
+    a wave; re-admit, a wave.  The solve program is built once over all
+    of it."""
+    o, n = case.opt, L64.shape[0]
+    d = n // 2
+    bank = api.FactorBank(case.grid, n, method=o["method"], n0=FRONT_N0,
+                          precision=o["precision"], capacity=FRONT_C)
+    solver = api.Solver.from_bank(bank)
+    held = [None] * FRONT_C
+    j = iter(range(1, 100))
+
+    def admit(order=None, slot=None):
+        A = front_factor(L64, next(j), order)
+        if slot is not None:
+            bank.replace(slot, A)
+        else:
+            slot = bank.admit(A, pad_to=n if order else None)
+        held[slot] = (A, order)
+        return slot
+
+    def wave(label):
+        live = {s: held[s][1] for s in bank.live_slots()}
+        B = front_rhs(rng, FRONT_C, live, n, np.float32)
+        return case.solve(solver, B, label,
+                          [held[s] if s in live else None
+                           for s in range(FRONT_C)])
+
+    case.width = FRONT_C
+
+    admit()
+    admit()
+    pad_slot = admit(order=d)
+    for i in range(1 + FRONT_STEADY):
+        B, X = wave(f"wave {i}")
+        if i == 0:
+            case.key = case.built(solver)
+            first = (pad_slot, held[pad_slot][0], X[pad_slot].cpu(),
+                     B[pad_slot])
+    admit(slot=1)
+    run = torch.stack([front_factor(L64, next(j)) for _ in range(2)])
+    bank.replace_run(0, run)
+    held[0], held[1] = (run[0], None), (run[1], None)
+    bank.evict(1)
+    held[1] = None
+    wave("after replace, replace_run, evict")
+    admit()
+    wave("after re-admit")
+    case.steady = case.built(solver) == case.key
+    case.padded = [first]
+
+
+def front_padded_case(api, case, L64, rng, C: int = 2):
+    """A C = 2 capacity bank: one admit and one padded admission of an
+    order n/2 factor (B5), lower or upper (the reversed mask), then 3
+    steady waves."""
+    o, n = case.opt, L64.shape[0]
+    d = n // 2
+    lower = o["lower"]
+    bank = api.FactorBank(case.grid, n, method=o["method"], n0=FRONT_N0,
+                          precision=o["precision"], capacity=C,
+                          lower=lower)
+    solver = api.Solver.from_bank(bank)
+    case.width = C
+    held = [None] * C
+    for s, order in enumerate((None, d)):
+        L = front_factor(L64, s + 1, order)
+        A = L if lower else L.T
+        held[bank.admit(A, pad_to=n if order else None)] = (A, order)
+    for i in range(1 + FRONT_STEADY):
+        B = front_rhs(rng, C, {s: h[1] for s, h in enumerate(held)}, n,
+                      np.float32)
+        B, X = case.solve(solver, B, f"wave {i}", held)
+        if i == 0:
+            case.key = case.built(solver)
+            first = (1, held[1][0], X[1].cpu(), B[1])
+    case.steady = case.built(solver) == case.key
+    case.padded = [first]
+
+
+def front_dead_case(api, case, L64, rng):
+    """A "rec" C = 4 capacity bank with slots 0-1 live and 2-3 never
+    admitted: B6 gates the dead lanes, which solve to exact zeros."""
+    o, n = case.opt, L64.shape[0]
+    bank = api.FactorBank(case.grid, n, method=o["method"], n0=FRONT_N0,
+                          precision=o["precision"], capacity=FRONT_C)
+    solver = api.Solver.from_bank(bank)
+    held = [None] * FRONT_C
+    for _ in range(2):
+        A = front_factor(L64, bank.size + 1)
+        held[bank.admit(A)] = (A, None)
+    for i in range(1 + FRONT_STEADY):
+        B = front_rhs(rng, FRONT_C, {0: None, 1: None}, n, np.float32)
+        case.solve(solver, B, f"wave {i}", held)
+        if i == 0:
+            case.key = case.built(solver)
+    case.steady = case.built(solver) == case.key
+
+
+def front_checks(api, case, one, label, gname) -> dict:
+    """Rank 0's checks of one phase-13 case, in fp64 on the card: every
+    request's relres against the factor its slot held (its leading d
+    rows for a padded slot, whose tail must be exactly zero), every dead
+    lane exactly zero, the X of each request against the p = 1 solve of
+    the same factor, preset and B, and a padded slot's leading block
+    bit-equal to the unpadded p > 1 solve of the same factor (an order
+    n/2 bank of the same width, its phase 1 the all-gather's B1).  Each
+    p = 1 solve is held to the preset's bound as well."""
+    o, dev = case.opt, one.device
+    bound = FRONT_RELRES[o["precision"]]
+    what = f"phase 13 {gname} {label}"
+    worst, worst_p1, p1_solves, on_card = 0.0, 0.0, {}, {}
+    for req, h, B, X in case.requests:
+        if h is None:
+            check(not torch.any(X), f"{what} {req}: a dead lane is not zero")
+            continue
+        A, d = h
+        d = d or A.shape[0]
+        if d < X.shape[0]:
+            check(not torch.any(X[d:]), f"{what} {req}: the padded tail "
+                                        f"is not zero")
+        if id(A) not in on_card:
+            on_card.clear()                  # one factor on the card at once
+            on_card[id(A)] = A.to(dev, torch.float64)
+        A64, X64 = on_card[id(A)], X[:d].to(dev, torch.float64)
+        B64 = torch.as_tensor(B[:d], device=dev, dtype=torch.float64)
+        rel = (torch.linalg.norm(A64 @ X64 - B64)
+               / torch.linalg.norm(B64)).item()
+        check(rel <= bound, f"{what} {req}: relres {rel} > {bound}")
+        worst = max(worst, rel)
+        # the p = 1 solve of the first request against each factor
+        key = id(A)
+        if key not in p1_solves:
+            s1 = api.Solver.from_factor(
+                A, one, method=o["method"], n0=FRONT_N0,
+                precision=o["precision"], lower=o.get("lower", True))
+            X1 = s1.solve(torch.as_tensor(B[:d], device=dev,
+                                          dtype=s1.dtype)).double()
+            # the p = 1 solve is served at the preset's bound too (for
+            # fp64_refine at n = 8192, ROADMAP C's open contract)
+            rel1 = (torch.linalg.norm(A64 @ X1 - B64)
+                    / torch.linalg.norm(B64)).item()
+            check(rel1 <= bound, f"{what} {req}: the p = 1 solve's relres "
+                                 f"{rel1} > {bound}")
+            gap = ((X64 - X1).abs().max() / X1.abs().max()).item()
+            check(gap <= FRONT_AGREE[o["precision"]],
+                  f"{what} {req}: {gap} from the p = 1 solve")
+            worst_p1 = max(worst_p1, gap)
+            p1_solves[key] = rel1
+    out = dict(relres=worst, vs_p1=worst_p1, requests=len(case.requests),
+               p1_solves=len(p1_solves),
+               relres_p1=max(p1_solves.values(), default=0.0))
+    return out
+
+
+def front_padded_bits(api, case) -> list:
+    """Every rank: each padded slot's first wave against an unpadded
+    p > 1 bank of order n/2 and the same width, lower flag and preset
+    (phase 1 on the all-gather: B1 on the same blocks B5 inverted),
+    solving the same leading rows: the leading block must be bit-equal
+    (``FactorBank.admit(pad_to=)``'s contract)."""
+    o = case.opt
+    rows = []
+    for slot, A, Xpad, Bpad in getattr(case, "padded", []):
+        d, C = A.shape[0], case.width
+        small = api.FactorBank(case.grid, d, method=o["method"], n0=FRONT_N0,
+                               precision=o["precision"], capacity=C,
+                               mode="allgather",
+                               lower=o.get("lower", True))
+        small.admit(A)
+        B = np.zeros((C, d, FRONT_K), np.float32)
+        B[0] = Bpad[:d]
+        X = api.Solver.from_bank(small).solve(torch.as_tensor(
+            B, device=case.grid.device))[0].cpu()
+        bit = torch.equal(Xpad[:d], X)
+        rows.append(dict(slot=slot, order=d, bit_equal=bit))
+        check(bit, f"phase 13 rank {case.grid.mesh.rank}: padded slot "
+                   f"{slot}'s leading block differs from the unpadded "
+                   f"p > 1 solve")
+    return rows
+
+
+FRONT_RUNNERS = {"solver": front_solver_case,
+                 "lifecycle": front_lifecycle_case,
+                 "padded": front_padded_case, "dead": front_dead_case}
+
+
+def front_rank(grid, L64, one) -> dict:
+    """One rank's part of phase 13 on ``grid`` (after phase 12, in the
+    same ranks): every case through the front door a user calls, the
+    kernel counts set to 0 just before it and read just after, its cost
+    trace, host-staged seconds and staged bytes per solve, the sum of
+    every X (the same in every rank); then, after the counts were read,
+    B1, B2, B3, B5 and B6 against their plain versions on the inputs
+    the case handed them, each padded slot against the unpadded p > 1
+    solve, and in rank 0 every request's relres and its gap to the
+    p = 1 solve.  Returns {label: record}."""
+    import torch.distributed as dist
+    from repro_torch import api
+    from repro_torch.core import comm
+    p1, p2, rank = grid.p1, grid.p2, grid.mesh.rank
+    gname = f"{p1}x{p1}x{p2}"
+    timer = Timer(grid.device) if rank == 0 else None
+    out = {}
+    for label, kind, opt in front_cases(p1, p2):
+        rng = np.random.default_rng(FRONT_SEED)
+        case = FrontCase(grid, opt)
+        torch.cuda.synchronize()
+        dist.barrier()                 # every rank starts the case at once
+        kept = DistKernelInputs()
+        reset_counts()
+        t0 = time.perf_counter()
+        with kept, comm.trace() as t:
+            FRONT_RUNNERS[kind](api, case, L64, rng)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        rec = dict(seconds=time.perf_counter() - t0, launches=launches,
+                   solve_s=[sv[0] for sv in case.solves],
+                   staged_bytes=[sv[1] for sv in case.solves],
+                   x_sums=case.sums, steady=case.steady,
+                   cost=dict(t.summary(), by_op=t.by_op(),
+                             residual=t.part("residual").summary()))
+        what = f"phase 13 {gname} rank {rank} {label}"
+        check(case.steady, f"{what}: the solve program was rebuilt")
+        for name, used in (
+                ("tri_inv_blocks", opt["method"] == "inv"),
+                ("trmm", opt["method"] == "inv"),
+                ("trsm_substitution", kind == "solver"
+                 and opt["method"] == "rec"),
+                ("tri_inv_blocks_valid", kind in ("lifecycle", "padded")),
+                ("trsm_substitution_valid", kind == "dead")):
+            check(not used or launches[name] > 0,
+                  f"{what}: {name} launched 0 times")
+        tc = time.perf_counter()
+        rec["vs_plain"] = kept.check(what, launches)
+        # rank 0 times the kernels at this case's inputs while the other
+        # ranks wait: a card shared by p ranks at once times contention
+        dist.barrier()
+        rec["kernel_ms"] = kept.times(timer) if rank == 0 else []
+        kept.kept.clear()
+        dist.barrier()
+        rec["padded_bits"] = front_padded_bits(api, case)
+        if rank == 0:
+            rec.update(front_checks(api, case, one, label, gname))
+        rec["checks_s"] = time.perf_counter() - tc
+        out[label] = rec
+        del case
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+FRONT_KERNELS = ("tri_inv_blocks", "trmm", "trsm_substitution",
+                 "tri_inv_blocks_valid", "trsm_substitution_valid")
+
+
+def front_report(ranks, gname: str, totals) -> None:
+    """Phase 13's lines for one grid: per case the host-staged ms per
+    solve, staged bytes per solve and launches in every rank, each
+    kernel's ms at the case's inputs (rank 0's, the card to itself),
+    relres, the gap to p = 1
+    and the padded bits; the cost traces and every X the same in every
+    rank; then every kernel the grid ran held against its plain
+    version (B1, B2, B5 and B6 everywhere, B3 on (2, 2))."""
+    held = {}
+    for label, rec in ranks[0]["front"].items():
+        recs = [r["front"][label] for r in ranks]
+        check(all(r["cost"] == rec["cost"] for r in recs),
+              f"phase 13 {gname} {label}: cost traces differ across ranks")
+        check(all(r["x_sums"] == rec["x_sums"] for r in recs),
+              f"phase 13 {gname} {label}: X differs across ranks")
+        for r in recs:
+            totals.update(r["launches"])
+        kernel_ms = {}
+        for r in recs:
+            for v in r["vs_plain"]:
+                a = held.setdefault(v["kernel"], dict(
+                    inputs=0, worst_rel_err=0.0, shapes=[]))
+                a["inputs"] += 1
+                a["worst_rel_err"] = max(a["worst_rel_err"], v["max_rel_err"])
+                if v["shapes"] not in a["shapes"]:
+                    a["shapes"].append(v["shapes"])
+        for v in rec["kernel_ms"]:
+            kernel_ms.setdefault(v["kernel"], []).append(
+                dict(shapes=v["shapes"], dtype=v["dtype"], ms=v["ms"]))
+        row = dict(
+            grid=gname, case=label,
+            host_staged_ms_per_solve=[
+                float(np.median(r["solve_s"])) * 1e3 for r in recs],
+            staged_bytes_per_solve=[
+                int(np.median(r["staged_bytes"])) for r in recs],
+            solves=len(rec["solve_s"]), case_seconds=[r["seconds"]
+                                                      for r in recs],
+            launches_per_rank=[{k: v for k, v in r["launches"].items() if v}
+                               for r in recs],
+            kernel_ms_rank0=kernel_ms,
+            cost=dict(s=rec["cost"]["s"], w=rec["cost"]["w"],
+                      f=rec["cost"]["f"], residual=rec["cost"]["residual"]),
+            padded_bits=rec["padded_bits"],
+            **{k: rec[k] for k in ("relres", "relres_p1", "vs_p1",
+                                   "requests", "p1_solves")})
+        print(json.dumps({"front_case": row}), flush=True)
+    want = FRONT_KERNELS if gname == "2x2x2" else tuple(
+        k for k in FRONT_KERNELS if k != "trsm_substitution")
+    for name in want:
+        check(name in held, f"phase 13 {gname}: {name} was held against its "
+                            f"plain version on no input")
+    print(json.dumps({"front_kernels": dict(
+        grid=gname, note="each kernel against its plain version on the "
+                         "inputs phase 13's cases handed it, every rank",
+        **held)}), flush=True)
+
+
 def distributed_phase(card: str) -> dict:
-    """Phase 12: It-Inv, rec, the one-shot ``core.trsm``, the 3D product
-    and the inversion at n = 8192 on the (2, 2), (2, 1) and (1, 4) grids:
-    one spawn of p ranks each (spawn start method: this process holds a
+    """Phases 12 and 13: It-Inv, rec, the one-shot ``core.trsm``, the 3D
+    product and the inversion, then the front door (``front_rank``), at
+    n = 8192 on the (2, 2), (2, 1) and (1, 4) grids: one spawn of p
+    ranks each, serving both phases (spawn start method: this process holds a
     CUDA context), gloo, every rank on cuda:0 with its own context.  NCCL
     refuses two ranks on one GPU, so every collective goes through host
     memory (staged) while every kernel launch runs on the card: this
     checks the algorithms and their kernels, not an interconnect.  Any
     rank's failure fails the phase.  Returns {kernel: launches}, summed
-    over ranks, grids and cases."""
+    over ranks, grids, cases and both phases."""
     from repro_torch.core import selfcheck
     t0 = time.perf_counter()
     print(json.dumps(dict(distributed=dict(
@@ -3125,6 +3608,7 @@ def distributed_phase(card: str) -> dict:
              "staged through host memory, kernels run on the card; NCCL "
              "(one GPU per rank) is not exercised"))), flush=True)
     totals = collections.Counter()
+    t13 = 0.0
     for p1, p2 in DIST_GRIDS:
         tg, t_spawn = time.perf_counter(), time.time()
         ranks = selfcheck.spawn(p1, p2, "cuda:0", dist_rank, N, DIST_K,
@@ -3135,6 +3619,8 @@ def distributed_phase(card: str) -> dict:
         for label, rec in ranks[0].items():
             if label == "setup":
                 setup = rec
+                continue
+            if label == "front":
                 continue
             costs = [r[label]["cost"] for r in ranks]
             check(all(c == costs[0] for c in costs),
@@ -3195,8 +3681,13 @@ def distributed_phase(card: str) -> dict:
                                            for r in ranks),
             rank0_inputs_s=setup["inputs_s"],
             rank0_checks_s=setup["checks_s"],
-            rank0_profile_s=setup["profile_s"])), flush=True)
-    print(json.dumps(dict(phase12_s=time.perf_counter() - t0)), flush=True)
+            rank0_profile_s=setup["profile_s"],
+            phase13_s_per_rank=[r["setup"]["front_s"] for r in ranks])),
+            flush=True)
+        t13 += max(r["setup"]["front_s"] for r in ranks)
+        front_report(ranks, gname, totals)
+    print(json.dumps(dict(phase12_s=time.perf_counter() - t0 - t13,
+                          phase13_s=t13)), flush=True)
     return dict(totals)
 
 
@@ -3274,7 +3765,7 @@ def main() -> int:
     del grid
     gc.collect()
     torch.cuda.empty_cache()
-    dist_launches = distributed_phase(card)                   # phase 12
+    dist_launches = distributed_phase(card)               # phases 12-13
 
     kernels = []
     for name, method, source, replaces in (
@@ -3298,6 +3789,8 @@ def main() -> int:
         launches = main_launches[method][name]
         check(launches > 0, f"{name} never launched on the {method} main "
                             f"path")
+        check(name == "trmm_masked" or dist_launches.get(name, 0) > 0,
+              f"{name} never launched at p > 1 (phases 12-13)")
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches,
                             max_abs_err=rec["max_abs_err"],

@@ -63,6 +63,13 @@
           X = server.submit(b).result(timeout=30)
 
 * :func:`trsm` — one-shot solve.
+
+On a grid with p > 1 (``make_trsm_mesh(p1, p2)`` in each of the p
+processes of a ``torch.distributed`` world) :func:`trsm`, :class:`Solver`
+and :class:`FactorBank` run in every rank, every preset included; each
+rank makes each call in the same order with the same arguments and
+gets the natural result back.  Structures, fleets, :class:`SolveServer`
+and :class:`AsyncSolveServer` there raise ``NotImplementedError``.
 """
 
 from repro_torch.core import trsm  # noqa: F401

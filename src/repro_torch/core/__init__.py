@@ -14,7 +14,12 @@ cache and the serving front door.
 ``trsm``, ``tri_inv.invert`` and ``mm3d.matmul`` also run on a grid with
 p > 1: one rank per process, in a ``torch.distributed`` world of p
 (``make_trsm_mesh``), each returning its natural-layout result on every
-rank; ``python -m repro_torch.core.selfcheck`` runs them on gloo ranks.
+rank; so do the front door's ``Solver`` (every constructor, every
+precision preset) and ``FactorBank`` (append-only and capacity, padded
+admission and cyclic ingestion), every rank making each call in the
+same order.  Structures, fleets, the serving tiers and multi-rank
+``cholesky`` and ``lu`` raise ``NotImplementedError`` there.
+``python -m repro_torch.core.selfcheck`` runs them on gloo ranks.
 """
 
 

@@ -26,6 +26,17 @@ nor uploads.  A "rec" program hands the liveness vector to every base
 case (kernel B6), so an empty or evicted lane solves to zeros without
 reading its factor; an "inv" lane of an empty slot solves to zeros
 against its zero Dt.
+
+**Over p > 1 ranks** (one process per rank, ``make_trsm_mesh`` inside
+a ``torch.distributed`` world) each rank holds its own pieces of every
+resident role: L_lo and L_hi (C, n/p1, n/(p1 p2)), Dt (C, m, n0/p1,
+n0/p1) (phase 1's transposed faces).  Admission and replacement run
+phase 1, which is collective: every rank calls ``admit``,
+``admit_stack``, ``admit_cyclic``, ``replace``, ``replace_run`` and
+``replace_cyclic`` in the same order with the same factor, and keeps
+its own pieces.  ``evict`` and the liveness bookkeeping are local and
+the same in every rank.  A structured bank at p > 1 comes with the
+next slice (``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -38,7 +49,7 @@ import torch
 
 from repro_torch.core import precision as preclib
 from repro_torch.core import session as sessionlib
-from repro_torch.core.grid import NEXT_SLICE, TrsmGrid
+from repro_torch.core.grid import NEXT_SLICE, TrsmGrid, cyclic_piece
 from repro_torch.core.session import CompiledSolverCache
 
 _CYCLIC_OPERATOR = (
@@ -87,11 +98,10 @@ class FactorBank:
         if grid.device is None:
             raise ValueError("a plan-only grid (plan_grid) has no device: "
                              "build banks on make_trsm_mesh")
-        if grid.p > 1:
-            raise NotImplementedError(f"factor banks (Solver.from_factor, "
-                                      f"fleets) over p > 1 ranks "
-                                      f"{NEXT_SLICE}")
         self.structure = solverlib._normalize_structure(structure)
+        if grid.p > 1 and self.structure is not None:
+            raise NotImplementedError(f"structured banks over p > 1 ranks "
+                                      f"{NEXT_SLICE}")
         if self.structure is not None:
             self.structure.validate_for(n, lower=lower,
                                         transpose=transpose)
@@ -183,14 +193,19 @@ class FactorBank:
         return 0 if self.capacity is None else self._gens[slot]
 
     def _roles(self) -> list:
-        """(shape, dtype) per resident role: L_lo[, Dt][, L_hi]."""
+        """(shape, dtype) per resident role: L_lo[, Dt][, L_hi], this
+        rank's pieces at p > 1: (n/p1, n/(p1 p2)) factors and (m,
+        n0/p1, n0/p1) faces."""
         pol = self.policy
-        roles = [((self.n, self.n), pol.storage)]
+        p1, p2 = self.grid.p1, self.grid.p2
+        piece = (self.n // p1, self.n // (p1 * p2))
+        roles = [(piece, pol.storage)]
         if self.method == "inv":
             from repro_torch.core import inv_trsm
-            roles.append((inv_trsm.dt_shape(self.n, self.n0), pol.storage))
+            m, n0, _ = inv_trsm.dt_shape(self.n, self.n0)
+            roles.append(((m, n0 // p1, n0 // p1), pol.storage))
         if pol.refines:
-            roles.append(((self.n, self.n), pol.residual))
+            roles.append((piece, pol.residual))
         return roles
 
     def _alloc_stacks(self) -> tuple:
@@ -268,7 +283,7 @@ class FactorBank:
         order as ``blockdiag(L, I)``: the tail solves to exact zeros and
         the leading d x k block of a solve is an unpadded order-d
         solve's at the same n0 (DESIGN.md Sec. 12).  Capacity banks
-        only."""
+        only.  At p > 1 collective: every rank admits the same factor."""
         L = torch.as_tensor(L)
         pad_from = self._resolve_pad(L, pad_to)
         self._check_square(L, 2, order=pad_from)
@@ -284,7 +299,8 @@ class FactorBank:
         bank, whose free slots may not be contiguous).  An append-only
         bank, and an EMPTY capacity bank filled to exactly C, admit the
         stack in one batched admission (whose output is the resident
-        stack); a partly filled capacity bank admits slot by slot."""
+        stack); a partly filled capacity bank admits slot by slot.  At
+        p > 1 collective: every rank admits the same stack."""
         Ls = torch.as_tensor(Ls)
         self._check_square(Ls, 3)
         M = Ls.shape[0]
@@ -311,7 +327,11 @@ class FactorBank:
         """Admit a factor ALREADY in the cyclic storage the producers
         emit (``cholesky_cyclic`` / ``lu_cyclic``): only the policy's
         casts (and phase 1) run.  At p = 1 cyclic storage is the natural
-        layout.  Only for lower=True, transpose=False, and never into a
+        layout; at p > 1 every rank passes the whole cyclic-layout
+        factor (``grid.to_cyclic_matrix(L, p1, p1 p2)``, the same on
+        every rank, collective) and keeps its own piece
+        (``grid.cyclic_piece``).  Only for lower=True, transpose=False,
+        and never into a
         structured bank (its mask is applied in natural layout)."""
         self._check_cyclic_operator()
         if self.structure is not None:
@@ -327,7 +347,7 @@ class FactorBank:
         dts = (self.policy.storage,) + ((self.policy.residual,)
                                         if self.policy.refines else ())
         self._chunks.append(self._entry(tuple(
-            L_cyc.to(self.grid.device, dt, copy=True)[None] for dt in dts)))
+            cyclic_piece(L_cyc, self.grid, dtype=dt)[None] for dt in dts)))
         self._size += 1
         return self.size - 1
 
@@ -410,7 +430,8 @@ class FactorBank:
         the admission pipeline for this factor alone and copies every
         role into the resident stacks.  No program is rebuilt, no
         occupancy changes.  ``pad_to=n`` takes a smaller (d, d) factor
-        as :meth:`admit` does.  Returns the slot."""
+        as :meth:`admit` does.  Returns the slot.  At p > 1 collective:
+        every rank replaces the same slot with the same factor."""
         L = torch.as_tensor(L)
         pad_from = self._resolve_pad(L, pad_to)
         self._check_square(L, 2, order=pad_from)
@@ -423,7 +444,8 @@ class FactorBank:
         """Refresh the CONTIGUOUS run of live slots ``start .. start +
         u - 1`` with a (u, d, d) stack in ONE updater call
         (``UpdateSpec.chunk = u``): one batched admission, one copy per
-        role.  Capacity banks only.  Returns the refreshed slots."""
+        role.  Capacity banks only.  Returns the refreshed slots.  At
+        p > 1 collective, as :meth:`replace`."""
         if self.capacity is None:
             raise ValueError(
                 "replace_run requires a capacity-allocated bank "
@@ -444,7 +466,8 @@ class FactorBank:
 
     def replace_cyclic(self, slot: int, L_cyc) -> int:
         """:meth:`replace` for a factor already in cyclic storage: casts
-        (and phase 1) only.  Same restriction as :meth:`admit_cyclic`."""
+        (and phase 1) only.  Same restriction as :meth:`admit_cyclic`,
+        and at p > 1 collective as it is."""
         self._check_cyclic_operator()
         L_cyc = torch.as_tensor(L_cyc)
         self._check_square(L_cyc, 2)
@@ -456,7 +479,8 @@ class FactorBank:
         """Return live ``slot`` to the free list (capacity banks only).
         Its stale data stays resident: a server gives its lane a zero
         panel, the liveness vector gates it off the "rec" base cases,
-        and the next ``admit`` overwrites it in place."""
+        and the next ``admit`` overwrites it in place.  Local: no
+        collective runs (at p > 1 every rank evicts the same slot)."""
         if self.capacity is None:
             raise ValueError(
                 "evict requires a capacity-allocated bank "

@@ -74,6 +74,7 @@ class Record:
     w: float          # bandwidth contribution (words)
     f: float          # flop contribution
     mult: float       # loop multiplier in effect
+    label: str = ""   # the enclosing :func:`labelled` scope ("" outside)
 
 
 @dataclasses.dataclass
@@ -105,6 +106,11 @@ class CostTrace:
     def summary(self) -> dict:
         return dict(s=self.s, w=self.w, f=self.f)
 
+    def part(self, label: str = "") -> "CostTrace":
+        """The records made inside :func:`labelled` scope ``label`` ("":
+        those made outside every labelled scope)."""
+        return CostTrace([r for r in self.records if r.label == label])
+
 
 _ACTIVE: contextvars.ContextVar[CostTrace | None] = \
     contextvars.ContextVar("repro_torch_comm_trace", default=None)
@@ -114,6 +120,8 @@ _LEAD: contextvars.ContextVar[int] = \
     contextvars.ContextVar("repro_torch_comm_lead", default=0)
 _MESH: contextvars.ContextVar["Mesh | None"] = \
     contextvars.ContextVar("repro_torch_comm_mesh", default=None)
+_LABEL: contextvars.ContextVar[str] = \
+    contextvars.ContextVar("repro_torch_comm_label", default="")
 
 
 @contextlib.contextmanager
@@ -138,15 +146,41 @@ def scope(mult: float):
 
 
 @contextlib.contextmanager
-def vmapped(lead: int = 1):
+def vmapped(lead: int = 1, *, exact: bool = False):
     """Collectives inside act on ``lead`` more leading batch dimensions:
     their ``axis`` arguments skip them and their costs are priced per
-    example (the reference's ``jax.vmap`` of a body)."""
-    tok = _LEAD.set(_LEAD.get() + lead)
+    example (the reference's ``jax.vmap`` of a body).  ``exact`` sets
+    the count to ``lead`` whatever encloses it, for a body that flattens
+    every leading axis into one."""
+    tok = _LEAD.set(lead if exact else _LEAD.get() + lead)
     try:
         yield
     finally:
         _LEAD.reset(tok)
+
+
+@contextlib.contextmanager
+def labelled(label: str):
+    """Tag the costs recorded inside with ``label``
+    (:meth:`CostTrace.part` selects them): a program's own scopes, such
+    as a refinement residual's product, apart from its solve."""
+    tok = _LABEL.set(label)
+    try:
+        yield
+    finally:
+        _LABEL.reset(tok)
+
+
+@contextlib.contextmanager
+def unrecorded():
+    """Record nothing inside: a body run once per example in a loop
+    prices like one run of it (the reference's ``lax.scan`` traces its
+    body once)."""
+    tok = _ACTIVE.set(None)
+    try:
+        yield
+    finally:
+        _ACTIVE.reset(tok)
 
 
 @contextlib.contextmanager
@@ -167,7 +201,8 @@ def _rec(op, axis, p, words, s, w, f):
     t = _ACTIVE.get()
     if t is not None:
         name = ",".join(axis) if isinstance(axis, (tuple, list)) else str(axis)
-        t.records.append(Record(op, name, p, words, s, w, f, _MULT.get()))
+        t.records.append(Record(op, name, p, words, s, w, f, _MULT.get(),
+                                _LABEL.get()))
 
 
 # ---------------------------------- mesh ----------------------------------

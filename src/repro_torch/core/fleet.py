@@ -278,6 +278,10 @@ class SolverFleet:
                  lower: bool = True, transpose: bool = False,
                  map_mode: str = "vmap", warm: bool = False):
         from repro_torch.core import session as sessionlib
+        from repro_torch.core.grid import NEXT_SLICE
+        if grid.p > 1:
+            raise NotImplementedError(f"fleets over p > 1 ranks "
+                                      f"{NEXT_SLICE}")
         self.grid = grid
         self.plan = plan
         self.cache = cache if cache is not None \

@@ -279,14 +279,34 @@ def gather_natural(piece: torch.Tensor, grid: TrsmGrid, layout: str, n: int,
     """The natural (n, k) matrix whose ``layout`` pieces the ranks hold,
     on every rank: one all-gather of the pieces over the mesh (not
     recorded in a cost trace), then one scatter into place.  Inverse of
-    :func:`local_piece` with the same ``reverse_rows``."""
-    with comm.on_mesh(grid.mesh):
-        G = comm.gather_all_unrecorded(piece)
+    :func:`local_piece` with the same ``reverse_rows``.  Leading axes
+    of the piece (a stack) are kept: (..., n, k) out."""
+    with comm.on_mesh(grid.mesh), comm.vmapped(0, exact=True):
+        G = comm.gather_all_unrecorded(piece)       # (p, ..., nl, kl)
     ranks, dest = _natural_index(layout, n, k, grid.p1, grid.p2,
                                  reverse_rows, piece.device)
-    out = torch.empty(n * k, dtype=piece.dtype, device=piece.device)
-    out[dest] = G.index_select(0, ranks).reshape(-1)
-    return out.view(n, k)
+    lead = tuple(piece.shape[:-2])
+    src = G.index_select(0, ranks).movedim(0, len(lead))
+    out = torch.empty(lead + (n * k,), dtype=piece.dtype,
+                      device=piece.device)
+    out[..., dest] = src.reshape(lead + (-1,))
+    return out.view(lead + (n, k))
+
+
+def cyclic_piece(L_cyc, grid: TrsmGrid, *, dtype=None) -> torch.Tensor:
+    """This rank's "L" piece of a factor already in the whole cyclic
+    storage the producers emit (``to_cyclic_matrix(L, p1, p1 p2)``, the
+    same on every rank), or of an (..., n, n) stack of them: cyclic
+    storage holds each rank's piece as one contiguous block, rows x's
+    and columns t's (t = z p1 + y), so the piece is a slice, cut where
+    ``L_cyc`` lives, then moved to the grid's device at ``dtype``."""
+    L_cyc = torch.as_tensor(L_cyc)
+    x, y, z = grid.coords
+    nl = L_cyc.shape[-2] // grid.p1
+    ncl = L_cyc.shape[-1] // (grid.p1 * grid.p2)
+    t = z * grid.p1 + y
+    piece = L_cyc[..., x * nl:(x + 1) * nl, t * ncl:(t + 1) * ncl]
+    return piece.to(grid.device, dtype, copy=True).contiguous()
 
 
 def check_divisibility(n: int, k: int, n0: int, grid: TrsmGrid) -> None:

@@ -18,8 +18,9 @@ carries a leading factor axis (the bank width M) where the reference
 maps one factor with ``vmap``.
 
 At p > 1 (:func:`invert_diag_blocks_shard`, :func:`sweep_shard`, one
-factor) each rank runs the body on its cyclic pieces
-(``repro_torch.core.grid``): L's, B's (rows cyclic over x, columns
+factor or a leading stack of them, a bank's, each collective once for
+the stack and priced per factor) each rank runs the body on its cyclic
+pieces (``repro_torch.core.grid``): L's, B's (rows cyclic over x, columns
 blocked over z) and X's (rows cyclic over y).  Phase 1 has the
 reference's three modes:
 
@@ -44,17 +45,15 @@ one allreduce over y.
 
 from __future__ import annotations
 
-import functools
 from typing import Callable
 
 import torch
 
 from repro_torch.core import blocked, comm
-from repro_torch.core import grid as gridlib
 from repro_torch.core import tri_inv as ti
 from repro_torch.core.comm import MESH_AXES
 from repro_torch.core.grid import TrsmGrid, check_divisibility
-from repro_torch.core.mm3d import _swap_perm
+from repro_torch.core.mm3d import _local_product, _swap_perm
 from repro_torch.core.precision import matmul_as
 
 
@@ -163,37 +162,63 @@ def _pieces_all_dests(binv: torch.Tensor, p1: int, p2: int) -> torch.Tensor:
 
 
 def invert_diag_blocks_shard(Lloc, *, n, n0, p1, p2, block_inv, mode,
-                             accum_dtype=None, overlap=False):
-    """Phase 1 at p > 1: this rank's L piece (n/p1, n/(p1 p2)) -> Dt
-    (m, n0/p1, n0/p1), the transposed faces of the inverted diagonal
-    blocks.  Runs under ``comm.on_mesh``.  When ``accum_dtype`` is wider
-    than L's dtype the blocks are inverted at it (cast up, invert, cast
-    back), as the reference does."""
+                             accum_dtype=None, overlap=False, valid=None):
+    """Phase 1 at p > 1: this rank's L piece (..., n/p1, n/(p1 p2)) ->
+    Dt (..., m, n0/p1, n0/p1), the transposed faces of the inverted
+    diagonal blocks.  Runs under ``comm.on_mesh``; leading axes are a
+    stack of factors, which the body counts as ``comm.vmapped`` batch
+    axes (one collective per step for the stack, priced per factor).  When ``accum_dtype`` is wider than L's dtype
+    the blocks are inverted at it (cast up, invert, cast back), as the
+    reference does.
+
+    ``valid`` (..., m) flags the diagonal blocks (a padded admission's
+    ``session.pad_block_mask``): a block flagged 0 gets a zero face.
+    "alltoall" and "allgather" route the flags with the blocks to the
+    hook (``block_inv(blocks, valid=...)``, kernel B5): rank f takes the
+    flags of its blocks [f mb, (f + 1) mb), every rank all of them.
+    The cooperative "doubling" inverts every block (B1 at its leaves:
+    the flags cannot follow a block through the doubling's products)
+    and zeroes the flagged faces after."""
+    with comm.vmapped(Lloc.ndim - 2, exact=True):
+        return _invert_diag_blocks_shard(
+            Lloc, n=n, n0=n0, p1=p1, p2=p2, block_inv=block_inv, mode=mode,
+            accum_dtype=accum_dtype, overlap=overlap, valid=valid)
+
+
+def _invert_diag_blocks_shard(Lloc, *, n, n0, p1, p2, block_inv, mode,
+                              accum_dtype, overlap, valid):
     if accum_dtype is not None and accum_dtype != Lloc.dtype:
         inner, ldt = block_inv, Lloc.dtype
 
-        def block_inv(blocks):
-            return inner(blocks.to(accum_dtype)).to(ldt)
+        def block_inv(blocks, **gate):
+            return inner(blocks.to(accum_dtype), **gate).to(ldt)
     m = n // n0
     p = p1 * p1 * p2
     a = n0 // p1
     x, y, _ = comm.current_mesh().coords
-    D = ti.diag_pieces(Lloc, m)                    # (m, a, b) local tiles
+    D = ti.diag_pieces(Lloc, m)                    # (..., m, a, b) tiles
+    lead = tuple(D.shape[:-3])
     if mode == "alltoall":
         if m % p:
             raise ValueError(f"alltoall phase 1 needs p | m (m={m}, p={p})")
         mb = m // p
+        f = comm.axis_index(MESH_AXES)
         # rank f receives the pieces of blocks [f mb, (f + 1) mb)
         Dr = comm.all_to_all(D, MESH_AXES, split_axis=0, concat_axis=0,
-                             tiled=True).reshape(p, mb, *D.shape[1:])
-        binv = ti.invert_blocks(ti.assemble_blocks(Dr, p1, p2), block_inv)
-        S = _pieces_all_dests(binv, p1, p2)
-        return comm.all_to_all(S.reshape(p * mb, a, a), MESH_AXES,
+                             tiled=True)
+        Dr = ti.by_rank(Dr.reshape(lead + (p, mb) + tuple(D.shape[-2:])),
+                        len(lead))
+        mine = None if valid is None else valid[..., f * mb:(f + 1) * mb]
+        binv = ti.invert_blocks(ti.assemble_blocks(Dr, p1, p2), block_inv,
+                                mine)                  # ((...) mb, n0, n0)
+        S = _pieces_all_dests(binv, p1, p2)        # (p, (...) mb, a, a)
+        S = S.reshape((p,) + lead + (mb, a, a)).movedim(0, len(lead))
+        return comm.all_to_all(S.reshape(lead + (p * mb, a, a)), MESH_AXES,
                                split_axis=0, concat_axis=0, tiled=True)
     if mode == "doubling":
         Linv = ti.block_diag_inv_shard(Lloc, n=n, n0=n0, p1=p1, p2=p2,
                                        block_inv=block_inv)
-        Dd = ti.diag_pieces(Linv, m)               # (m, a, b) cyclic
+        Dd = ti.diag_pieces(Linv, m)               # (..., m, a, b) cyclic
         if p1 > 1:
             if overlap:
                 Dd = comm.ppermute_finish(
@@ -202,27 +227,46 @@ def invert_diag_blocks_shard(Lloc, *, n, n0, p1, p2, block_inv, mode,
                 Dd = comm.ppermute(Dd, ("x", "y"), _swap_perm(p1))
         if p2 > 1:
             Dg = comm.all_gather(Dd, "z", axis=2, tiled=True)  # (m,a,p2 b)
-            Dd = Dg.reshape(m, a, p2, -1).transpose(-1, -2).reshape(m, a, a)
-        return Dd.contiguous()
+            Dd = Dg.reshape(lead + (m, a, p2, -1)).transpose(-1, -2).reshape(
+                lead + (m, a, a))
+        Dd = Dd.contiguous()
+        if valid is not None:
+            Dd.mul_((valid != 0).to(Dd.dtype)[..., None, None])
+        return Dd
     if mode == "allgather":
         Dg = comm.all_gather(D, MESH_AXES, axis=0, tiled=False)
-        binv = ti.invert_blocks(ti.assemble_blocks(Dg, p1, p2), block_inv)
-        return binv[:, y::p1, x::p1].contiguous()
+        binv = ti.invert_blocks(ti.assemble_blocks(
+            ti.by_rank(Dg, len(lead)), p1, p2), block_inv, valid)
+        return binv[:, y::p1, x::p1].reshape(lead + (m, a, a)).contiguous()
     raise ValueError(f"unknown phase-1 mode {mode!r}")
 
 
 def sweep_shard(Lloc, Dt, Bloc, *, n, k, n0, p1, p2, accum_dtype=None,
-                overlap=False, prefetched0=None):
+                overlap=False, prefetched0=None, fixed_order=False):
     """Phase 2 at p > 1, unrolled, against the faces Dt of
     :func:`invert_diag_blocks_shard`: this rank's pieces of L, Dt and B
-    (n/p1, k/p2) -> its piece of X (n/p1, k/p2), rows of y's residue.
-    Runs under ``comm.on_mesh``; B is not written.
+    (..., n/p1, k/p2) -> its piece of X (..., n/p1, k/p2), rows of y's
+    residue.  Runs under ``comm.on_mesh``; B is not written.  Leading
+    axes are a stack of factors (a bank), counted as ``comm.vmapped``
+    batch axes: B2 on the stacked faces, one batched product per
+    update, each collective once for the stack.
 
     The last column's update would only touch rows below the last
     block, so it is left out.  ``overlap`` starts column i+1's panel
     gather before column i's update runs (``prefetched0``: column 0's,
     started by the caller before phase 1); the operations and operands
-    are those of the sequential sweep, so X is the same, bit for bit."""
+    are those of the sequential sweep, so X is the same, bit for bit.
+    ``fixed_order`` forms each update's local product with ``ops.gemm``
+    (``mm3d._local_product``), its sums in an order that does not depend
+    on the panel's row count."""
+    with comm.vmapped(Bloc.ndim - 2, exact=True):
+        return _sweep_shard(Lloc, Dt, Bloc, n=n, k=k, n0=n0, p1=p1, p2=p2,
+                            accum_dtype=accum_dtype, overlap=overlap,
+                            prefetched0=prefetched0, fixed_order=fixed_order)
+
+
+def _sweep_shard(Lloc, Dt, Bloc, *, n, k, n0, p1, p2, accum_dtype, overlap,
+                 prefetched0, fixed_order):
     from repro_torch.kernels import ops
     m = n // n0
     nl = n // p1
@@ -230,9 +274,10 @@ def sweep_shard(Lloc, Dt, Bloc, *, n, k, n0, p1, p2, accum_dtype=None,
     b = n0 // (p1 * p2)
     ct = Bloc.dtype
     acc = accum_dtype if accum_dtype is not None else ct
+    lead = tuple(Bloc.shape[:-2])
 
     def panel_start(i):
-        return comm.all_gather_start(Lloc[:, i * b:(i + 1) * b], "z",
+        return comm.all_gather_start(Lloc[..., i * b:(i + 1) * b], "z",
                                      axis=0, tiled=False)
 
     Bcur = Bloc.clone()
@@ -244,9 +289,9 @@ def sweep_shard(Lloc, Dt, Bloc, *, n, k, n0, p1, p2, accum_dtype=None,
         rows = slice(i * a, (i + 1) * a)
         # solve via GEMM (l. 4-5): the face is lower triangular, so B2;
         # partials and the cross-x sum at acc, X_i at ct
-        part = ops.trmm(Dt[i].to(acc), Bcur[rows].to(acc))
+        part = ops.trmm(Dt[..., i, :, :].to(acc), Bcur[..., rows, :].to(acc))
         Xi = comm.psum(part, "x").to(ct)
-        X[rows] = Xi
+        X[..., rows, :] = Xi
         if i + 1 == m:
             break
         # update (l. 6-8): panel gathered over z, its columns t' = c p2 + z
@@ -255,56 +300,29 @@ def sweep_shard(Lloc, Dt, Bloc, *, n, k, n0, p1, p2, accum_dtype=None,
             pending = panel_start(i + 1) if i + 2 < m else None
         else:
             pg = comm.all_gather_finish(panel_start(i))
-        pg = pg.permute(1, 2, 0).reshape(nl, a)
-        upd = comm.psum(matmul_as(pg, Xi, acc, acc), "y").to(ct)
+        pg = pg.movedim(len(lead), -1).reshape(lead + (nl, a))
+        upd = comm.psum(_local_product(pg, Xi, acc, fixed_order),
+                        "y").to(ct)
         # the rows of the blocks below i (global row l p1 + x >= (i+1) n0)
-        Bcur[(i + 1) * a:] -= upd[(i + 1) * a:]
+        Bcur[..., (i + 1) * a:, :] -= upd[..., (i + 1) * a:, :]
     return X
 
 
-def it_inv_trsm_shard(Lloc, Bloc, *, n, k, n0, p1, p2, block_inv, mode,
+def phase1_prefetched(Lloc, *, n, n0, p1, p2, block_inv, mode,
                       accum_dtype=None, overlap=False):
-    """Phase 1 then the sweep, on this rank's pieces (p > 1, under
-    ``comm.on_mesh``).  With ``overlap`` column 0's panel gather starts
-    before phase 1, which never reads it."""
-    acc = accum_dtype if accum_dtype is not None else Bloc.dtype
+    """A one-shot solve's phase 1 at p > 1 (under ``comm.on_mesh``):
+    ``(Dt, pre0)``, with ``pre0`` column 0's panel gather started before
+    phase 1, which never reads it, when ``overlap`` (else None); the
+    first :func:`sweep_shard` takes it as ``prefetched0``."""
     pre0 = None
     if overlap and n // n0 > 1:
-        pre0 = comm.all_gather_start(Lloc[:, :n0 // (p1 * p2)], "z",
-                                     axis=0, tiled=False)
+        with comm.vmapped(Lloc.ndim - 2, exact=True):
+            pre0 = comm.all_gather_start(Lloc[..., :n0 // (p1 * p2)], "z",
+                                         axis=0, tiled=False)
     Dt = invert_diag_blocks_shard(Lloc, n=n, n0=n0, p1=p1, p2=p2,
                                   block_inv=block_inv, mode=mode,
-                                  accum_dtype=acc, overlap=overlap)
-    return sweep_shard(Lloc, Dt, Bloc, n=n, k=k, n0=n0, p1=p1, p2=p2,
-                       accum_dtype=acc, overlap=overlap, prefetched0=pre0)
-
-
-def it_inv_trsm_fn(grid: TrsmGrid, n: int, k: int, n0: int,
-                   block_inv: Callable | None = None,
-                   mode: str | None = None, accum_dtype=None,
-                   overlap: bool = False):
-    """The distributed solver for fixed shapes on a p > 1 grid: this
-    rank's pieces of L and B in (L's and B's layouts), its piece of X
-    out (X's layout).  ``block_inv`` defaults to the kernel hook."""
-    from repro_torch.kernels import ops
-    if grid.p == 1:
-        raise ValueError("it_inv_trsm_fn runs p > 1 grids; at p = 1 use "
-                         "invert_diag_blocks and sweep")
-    gridlib.require_mesh(grid)
-    check_divisibility(n, k, n0, grid)
-    mode = mode or pick_phase1_mode(n, n0, grid)
-    if mode == "alltoall" and (n // n0) % grid.p:
-        mode = pick_phase1_mode(n, n0, grid)
-    body = functools.partial(
-        it_inv_trsm_shard, n=n, k=k, n0=n0, p1=grid.p1, p2=grid.p2,
-        block_inv=block_inv if block_inv is not None
-        else ops.block_inv_kernel, mode=mode, accum_dtype=accum_dtype,
-        overlap=overlap)
-
-    def fn(Lloc, Bloc):
-        with comm.on_mesh(grid.mesh):
-            return body(Lloc, Bloc)
-    return fn
+                                  accum_dtype=accum_dtype, overlap=overlap)
+    return Dt, pre0
 
 
 def solve(L, B, grid: TrsmGrid, n0: int, *, block_inv=None,

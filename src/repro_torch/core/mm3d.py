@@ -38,19 +38,39 @@ def _swap_perm(p1: int) -> list[tuple[int, int]]:
     return [(x * p1 + y, y * p1 + x) for x in range(p1) for y in range(p1)]
 
 
+def _local_product(A, B, acc, fixed_order: bool) -> torch.Tensor:
+    """A @ B at ``acc``: cuBLAS, or with ``fixed_order`` ``ops.gemm`` on
+    operands cast to ``acc`` (each element summed over the contraction
+    in one order, whatever the shapes)."""
+    if not fixed_order:
+        return matmul_as(A, B, acc, acc)
+    from repro_torch.kernels import ops
+    lead = A.shape[:-2]
+    # the tri-GEMM reads A's columns at unit stride: a gathered panel
+    # one column wide can reshape to a view whose columns lie apart
+    out = ops.gemm(A.to(acc).reshape(-1, *A.shape[-2:]).contiguous(),
+                   B.to(acc).reshape(-1, *B.shape[-2:]).contiguous())
+    return out.reshape(lead + out.shape[-2:])
+
+
 def mm3d_shard(Lloc: torch.Tensor, Xloc: torch.Tensor, *, m: int, n: int,
-               k: int, p1: int, p2: int, accum_dtype=None) -> torch.Tensor:
+               k: int, p1: int, p2: int, accum_dtype=None,
+               fixed_order: bool = False) -> torch.Tensor:
     """The per-rank body: Lloc (..., m/p1, n/(p1 p2)) and Xloc
     (..., n/p1, k/(p1 p2)), this rank's cyclic pieces, -> its piece of
     L @ X, (..., m/p1, k/(p1 p2)).  Leading axes (a bank's factor axis
-    at p = 1, :func:`mm3d_shard_batched`'s batch) multiply alike.
-    ``accum_dtype`` is the precision of the partial sums and of the
-    cross-y reduction; the result has X's dtype."""
+    at p = 1, :func:`mm3d_shard_batched`'s batch, a stack under
+    ``comm.vmapped``) multiply alike.  ``accum_dtype`` is the precision
+    of the partial sums and of the cross-y reduction; the result has X's
+    dtype.  ``fixed_order`` forms the local GEMM with ``ops.gemm``
+    (:func:`_local_product`)."""
     acc = accum_dtype if accum_dtype is not None else Xloc.dtype
     if p1 * p1 * p2 == 1:
         if Lloc.shape[-2:] != (m, n) or Xloc.shape[-2:] != (n, k):
             raise ValueError(f"mm3d_shard shapes {tuple(Lloc.shape)} @ "
                              f"{tuple(Xloc.shape)} for m={m}, n={n}, k={k}")
+        if fixed_order:
+            return _local_product(Lloc, Xloc, acc, True).to(Xloc.dtype)
         return matmul_as(Lloc, Xloc, acc, Xloc.dtype)
     ml, ncl = Lloc.shape[-2:]
     nl, kcl = Xloc.shape[-2:]
@@ -76,7 +96,7 @@ def mm3d_shard(Lloc: torch.Tensor, Xloc: torch.Tensor, *, m: int, n: int,
     else:
         Xg = Xloc
     # 4. local GEMM over the y-residue class of the contraction
-    Pp = matmul_as(Lg, Xg, acc, acc)
+    Pp = _local_product(Lg, Xg, acc, fixed_order)
     # 5. finish the contraction over y; keep column chunk x' == y, which
     #    is the input layout
     if p1 > 1:
@@ -85,10 +105,11 @@ def mm3d_shard(Lloc: torch.Tensor, Xloc: torch.Tensor, *, m: int, n: int,
 
 
 def mm3d_shard_batched(Lloc, Xloc, *, m, n, k, p1, p2, accum_dtype=None):
-    """:func:`mm3d_shard` over a leading batch axis, one collective per
-    step for the whole batch, priced per example (the reference's vmap
-    of the body)."""
-    with comm.vmapped():
+    """:func:`mm3d_shard` over ONE leading batch axis, one collective
+    per step for the whole batch, priced per example (the reference's
+    vmap of the body).  The operands' leading axes are the whole batch,
+    so it counts one batch axis whatever vmapped body encloses it."""
+    with comm.vmapped(1, exact=True):
         return mm3d_shard(Lloc, Xloc, m=m, n=n, k=k, p1=p1, p2=p2,
                           accum_dtype=accum_dtype)
 

@@ -18,7 +18,9 @@ cases run in sequence; at p = 1 :func:`default_n0` is n, so the whole
 solve is one base case.
 
 Every tensor carries a leading factor axis (the bank width M) where
-the reference maps one factor with ``vmap``.  ``valid`` (a capacity
+the reference maps one factor with ``vmap``; at p > 1 the axis is
+optional (a one-shot solve has none) and each collective runs once for
+the stack, priced per factor (``comm.vmapped``).  ``valid`` (a capacity
 bank's (M,) liveness vector, on the device) reaches every base case,
 which then runs the validity-gated kernel B6: an empty or evicted
 slot's lane solves to zeros without reading its factor.  ``None`` (an
@@ -51,9 +53,12 @@ def _base_case(Lloc: torch.Tensor, Bloc: torch.Tensor, *, n0: int, k: int,
     dtype: the kernel widens it on load (exact for bf16 to fp32), so no
     widened copy of the factor is written.
 
-    At p > 1 (one factor, under ``comm.on_mesh``) L is gathered over the
-    whole mesh first, or ``pregathered`` (a ``comm.all_gather_start``
-    handle on Lloc over the mesh) is finished."""
+    At p > 1 (under ``comm.on_mesh``) L is gathered over the whole mesh
+    first, or ``pregathered`` (a ``comm.all_gather_start`` handle on
+    Lloc over the mesh) is finished.  Leading axes are a stack of
+    factors (a bank's, under ``comm.vmapped``): the pieces of the stack
+    are gathered in one collective and assembled into contiguous
+    (..., n0, n0) systems, B3's (B6's with ``valid``) input."""
     from repro_torch.kernels import ops
     acc = accum_dtype if accum_dtype is not None else Bloc.dtype
     if p1 * p1 * p2 == 1:
@@ -61,39 +66,44 @@ def _base_case(Lloc: torch.Tensor, Bloc: torch.Tensor, *, n0: int, k: int,
                                   valid=valid)
         return X.to(Bloc.dtype)
     kc = k // (p1 * p2)                # local column count
+    lead = tuple(Lloc.shape[:-2])
+    nd = len(lead)
     # line 6: gather L over the whole mesh and reassemble it
     if pregathered is not None:
-        Lg = comm.all_gather_finish(pregathered)             # (p, a, b)
+        Lg = comm.all_gather_finish(pregathered)        # (..., p, a, b)
     else:
         Lg = comm.all_gather(Lloc, MESH_AXES, axis=0, tiled=False)
-    a, b = Lloc.shape
-    R = Lg.reshape(p1, p1, p2, a, b).permute(3, 0, 4, 2, 1)  # [l,x,c',z,y]
-    # B3 reads unit-stride columns: pieces one column wide (b = 1)
-    # reshape to a view whose columns lie a apart, so copy that one
-    Lfull = R.reshape(n0, n0).contiguous()
+    a, b = Lloc.shape[-2:]
+    R = Lg.reshape(lead + (p1, p1, p2, a, b)).permute(
+        tuple(range(nd)) + tuple(nd + d for d in (3, 0, 4, 2, 1)))
+    # [..., l, x, c', z, y]; B3 reads unit-stride columns, and pieces one
+    # column wide (b = 1) reshape to a view whose columns lie a apart,
+    # so the assembled systems are copied contiguous
+    Lfull = R.reshape(lead + (n0, n0)).contiguous()
     # line 7: all-to-all over x, so each rank owns full rows of its
     # chunk x of the local columns (k/p of them)
     if p1 > 1:
         Bt = comm.all_to_all(Bloc, "x", split_axis=1, concat_axis=0,
                              tiled=True)              # x-major rows
-        Bt = Bt.reshape(p1, n0 // p1, kc // p1).transpose(0, 1).reshape(
-            n0, kc // p1)
+        Bt = Bt.reshape(lead + (p1, n0 // p1, kc // p1)).transpose(
+            -3, -2).reshape(lead + (n0, kc // p1))
     else:
         Bt = Bloc
-    # line 8: substitution on the owned columns (kernel B3)
+    # line 8: substitution on the owned columns (kernel B3, B6 gated)
     Xt = ops.trsm_substitution(Lfull, Bt.to(acc).contiguous(),
-                               accum_dtype=acc).to(Bloc.dtype)
+                               accum_dtype=acc, valid=valid
+                               ).to(Bloc.dtype)
     # line 9: all-to-all back to cyclic rows and local columns
     if p1 > 1:
-        Xt = Xt.reshape(n0 // p1, p1, kc // p1).transpose(0, 1).reshape(
-            n0, kc // p1)
+        Xt = Xt.reshape(lead + (n0 // p1, p1, kc // p1)).transpose(
+            -3, -2).reshape(lead + (n0, kc // p1))
         Xt = comm.all_to_all(Xt, "x", split_axis=0, concat_axis=1,
                              tiled=True)              # (n0/p1, kc)
     return Xt
 
 
 def _rec(Lloc, Bloc, *, n, k, n0, p1, p2, accum_dtype=None, valid=None,
-         overlap=False):
+         overlap=False, fixed_order=False):
     if n <= n0:
         return _base_case(Lloc, Bloc, n0=n, k=k, p1=p1, p2=p2,
                           accum_dtype=accum_dtype, valid=valid)
@@ -103,21 +113,23 @@ def _rec(Lloc, Bloc, *, n, k, n0, p1, p2, accum_dtype=None, valid=None,
     L21 = Lloc[..., hl:, :hc]
     L22 = Lloc[..., hl:, hc:]
     X1 = _rec(L11, Bloc[..., :hl, :], n=h, k=k, n0=n0, p1=p1, p2=p2,
-              accum_dtype=accum_dtype, valid=valid, overlap=overlap)
+              accum_dtype=accum_dtype, valid=valid, overlap=overlap,
+              fixed_order=fixed_order)
     pre22 = None
     if overlap and h <= n0 and p1 * p1 * p2 > 1:
         # the second half is a base case: start its L gather now, under
         # the trailing-update product (which never reads it)
         pre22 = comm.all_gather_start(L22, MESH_AXES, axis=0, tiled=False)
     U = mm3d_shard(L21, X1, m=h, n=h, k=k, p1=p1, p2=p2,
-                   accum_dtype=accum_dtype)
+                   accum_dtype=accum_dtype, fixed_order=fixed_order)
     if pre22 is not None:
         X2 = _base_case(L22, Bloc[..., hl:, :] - U, n0=h, k=k, p1=p1,
-                        p2=p2, accum_dtype=accum_dtype, pregathered=pre22)
+                        p2=p2, accum_dtype=accum_dtype, valid=valid,
+                        pregathered=pre22)
     else:
         X2 = _rec(L22, Bloc[..., hl:, :] - U, n=h, k=k, n0=n0, p1=p1,
                   p2=p2, accum_dtype=accum_dtype, valid=valid,
-                  overlap=overlap)
+                  overlap=overlap, fixed_order=fixed_order)
     return torch.cat([X1, X2], dim=-2)
 
 
@@ -142,28 +154,31 @@ def default_n0(n: int, k: int, p1: int, p2: int) -> int:
 
 def rec_trsm_sharded(grid: TrsmGrid, n: int, k: int,
                      n0: int | None = None, accum_dtype=None,
-                     overlap: bool = False):
+                     overlap: bool = False, fixed_order: bool = False):
     """Rec-TRSM for fixed shapes: ``(L, B) -> X``.  At p = 1 over an
-    (M, n, n) factor stack and (M, n, k) right-hand sides, with an
-    optional ``valid=`` liveness vector for the base cases; at p > 1
-    over this rank's pieces of one factor and its right-hand sides, all
-    in L's cyclic layout.  ``accum_dtype``: precision of the MM updates
+    (M, n, n) factor stack and (M, n, k) right-hand sides; at p > 1
+    over this rank's pieces of one factor and its right-hand sides, or
+    of an (M, ...) stack of them, all in L's cyclic layout.  A stack
+    takes an optional ``valid=`` liveness vector for the base cases.
+    ``accum_dtype``: precision of the MM updates
     and of the base-case substitution (defaults to the operand dtype).
     ``overlap`` starts each base case's L gather under the preceding
-    trailing update (the same X, bit for bit)."""
+    trailing update (the same X, bit for bit).  ``fixed_order`` (p > 1)
+    forms the updates' local GEMMs with ``ops.gemm``."""
     n0 = n0 or default_n0(n, k, grid.p1, grid.p2)
     if k % (grid.p1 * grid.p1 * grid.p2):
         raise ValueError(f"need p | k (k={k}, p={grid.p})")
     body = functools.partial(_rec, n=n, k=k, n0=n0, p1=grid.p1,
                              p2=grid.p2, accum_dtype=accum_dtype,
-                             overlap=overlap)
+                             overlap=overlap, fixed_order=fixed_order)
     if grid.p == 1:
         return body
     gridlib.require_mesh(grid)
 
-    def fn(Lloc, Bloc):
-        with comm.on_mesh(grid.mesh):
-            return body(Lloc, Bloc)
+    def fn(Lloc, Bloc, valid=None):
+        with comm.on_mesh(grid.mesh), \
+                comm.vmapped(Lloc.ndim - 2, exact=True):
+            return body(Lloc, Bloc, valid=valid)
     return fn
 
 

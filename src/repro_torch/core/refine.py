@@ -15,12 +15,20 @@ serve all four (lower, transpose) operator variants.  A structured
 factor (lower, not transposed: no gathers) forms the product with the
 block-masked ``trmm`` kernel, which reads only the blocks its structure
 keeps.
+
+On a p > 1 grid (:func:`distributed_operator`) a rank holds only its
+piece of the resident factor, so the product is distributed: X's "L"
+piece is cut locally, one ``mm3d`` against the resident piece forms
+this rank's piece of op(A) X (its collectives recorded under the
+``"residual"`` label of the cost trace), and one gather assembles the
+natural result on every rank.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import comm
 from repro_torch.core import grid as gridlib
 from repro_torch.core.precision import PrecisionPolicy, matmul_as
 
@@ -61,10 +69,45 @@ def apply_cyclic_operator(L_cyc: torch.Tensor, X: torch.Tensor, *, p1: int,
     return gridlib.cyclic_rows_device(Y, p1, inverse=True, reverse=reverse)
 
 
+def distributed_operator(grid, n: int, k: int, *, reverse: bool,
+                         accum_dtype, fixed_order: bool = False):
+    """``apply(L_hi, X) -> op(A) @ X`` on a p > 1 grid, natural layout
+    in and out on every rank, X (..., n, k) the same on every rank and
+    ``L_hi`` this rank's (..., n/p1, n/(p1 p2)) piece of the resident
+    reduced operator (reversal and transpose folded in at admission).
+
+    X's "L" piece (rows reversed as the factor's) is cut locally, with
+    no communication; one ``mm3d`` against the resident piece forms this
+    rank's piece of the product, partial sums and the cross-y reduction
+    at ``accum_dtype``, its collectives recorded under the ``"residual"``
+    label; ``grid.gather_natural`` undoes the cut.  ``mm3d`` needs
+    p | k, so X gets zero columns up to the next multiple of p, whose
+    product columns are zero and dropped: every k of the solve is
+    served.  ``fixed_order`` forms the local GEMM with ``ops.gemm``."""
+    from repro_torch.core.mm3d import mm3d_shard
+    p = grid.p
+    kp = -(-k // p) * p
+
+    def apply(L_hi, X):
+        if kp != k:
+            X = torch.cat([X, X.new_zeros(X.shape[:-1] + (kp - k,))], -1)
+        Xp = gridlib.local_piece(X, grid, "L", dtype=L_hi.dtype,
+                                 reverse_rows=reverse)
+        with comm.on_mesh(grid.mesh), comm.labelled("residual"), \
+                comm.vmapped(Xp.ndim - 2, exact=True):
+            Y = mm3d_shard(L_hi, Xp, m=n, n=n, k=kp, p1=grid.p1,
+                           p2=grid.p2, accum_dtype=accum_dtype,
+                           fixed_order=fixed_order)
+        Y = gridlib.gather_natural(Y, grid, "L", n, kp,
+                                   reverse_rows=reverse)
+        return Y[..., :k].to(accum_dtype)
+    return apply
+
+
 def refined_solve(base_solve, L_lo, L_hi, B, *, policy: PrecisionPolicy,
                   p1: int, p2: int, reverse: bool, block_mask=None,
-                  bt: int | None = None,
-                  fixed_order: bool = False) -> torch.Tensor:
+                  bt: int | None = None, fixed_order: bool = False,
+                  operator=None) -> torch.Tensor:
     """The refined solve body.
 
     ``base_solve(L_sweep, B) -> X`` is the compute-precision sweep
@@ -73,7 +116,9 @@ def refined_solve(base_solve, L_lo, L_hi, B, *, policy: PrecisionPolicy,
     the policy does not refine).  ``block_mask``/``bt`` (a structured
     factor's) send each residual to the block-masked kernel, and
     ``fixed_order`` to ``ops.gemm`` (``apply_cyclic_operator``).
-    Returns X at ``policy.io_dtype``."""
+    ``operator(L_hi, X)`` replaces ``apply_cyclic_operator`` (a p > 1
+    program's :func:`distributed_operator`).  Returns X at
+    ``policy.io_dtype``."""
     io = policy.io_dtype
     B = B.to(io)
     X = base_solve(L_lo, B.to(policy.compute))
@@ -82,10 +127,13 @@ def refined_solve(base_solve, L_lo, L_hi, B, *, policy: PrecisionPolicy,
     res = policy.residual
     X = X.to(res)
     for _ in range(policy.refine_steps):
-        r = B - apply_cyclic_operator(L_hi, X, p1=p1, p2=p2,
-                                      reverse=reverse, accum_dtype=res,
-                                      block_mask=block_mask, bt=bt,
-                                      fixed_order=fixed_order)
+        if operator is not None:
+            r = B - operator(L_hi, X)
+        else:
+            r = B - apply_cyclic_operator(L_hi, X, p1=p1, p2=p2,
+                                          reverse=reverse, accum_dtype=res,
+                                          block_mask=block_mask, bt=bt,
+                                          fixed_order=fixed_order)
         d = base_solve(L_lo, r.to(policy.compute))
         X = X + d.to(res)
     return X

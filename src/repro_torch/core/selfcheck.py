@@ -80,7 +80,31 @@ CASES = {
              (2, 2, 64, 16, "allgather"), (2, 1, 32, 8, "doubling"),
              (1, 2, 32, 8, "allgather")],
     "deferred": [(2, 1, 32, 8, 8)],
+    # the front door at p > 1: the reference's check_session (n, k, n0,
+    # method) and its refined sessions, check_bank (method, map_mode,
+    # precision) and its cyclic ingestion, then this package's capacity
+    # bank lifecycle, the padded identity and the bank's bit contracts
+    "session": [(2, 2, 64, 16, 16, "inv"), (2, 1, 32, 8, 8, "inv"),
+                (1, 2, 32, 8, 16, "rec"), (2, 2, 64, 16, 16, "rec"),
+                (1, 8, 64, 8, 8, "inv"), (1, 8, 64, 16, 16, "rec")],
+    "session_refine": [(2, 2, "inv"), (2, 2, "rec"), (2, 1, "inv"),
+                       (1, 2, "rec"), (1, 8, "inv")],
+    "bank": [(2, 2, "inv", "vmap", None), (2, 2, "inv", "scan", None),
+             (2, 1, "rec", "vmap", None),
+             (2, 2, "inv", "vmap", "bf16_refine"),
+             (1, 2, "rec", "scan", None), (1, 8, "inv", "vmap", None),
+             (2, 2, "rec", "vmap", "bf16_refine")],
+    "cyclic": [(2, 2), (1, 2), (2, 1)],
+    "capacity": [(2, 2, "inv", "bf16_refine"), (2, 2, "rec", "fp32"),
+                 (2, 1, "inv", None), (1, 2, "rec", None),
+                 (1, 8, "inv", None), (1, 8, "rec", "bf16_refine")],
+    "padded": [(2, 2, 128, 64, 16), (2, 1, 64, 32, 16),
+               (1, 2, 64, 32, 16), (1, 8, 128, 64, 16)],
+    "bank_bits": [(2, 2, "inv"), (2, 2, "rec"), (2, 1, "inv"),
+                  (1, 8, "rec")],
 }
+# the banks' shapes (the reference's check_bank's) and their block size
+BANK_M, BANK_N, BANK_K, BANK_N0 = 3, 64, 16, 16
 VARIANTS = ((True, False), (False, False), (True, True), (False, True))
 
 
@@ -94,7 +118,7 @@ def _traced(fn):
 
 
 def _result(line, ok, out=None, cost=None):
-    return dict(line=line, ok=bool(ok), out=out, cost=cost)
+    return dict(line=line, ok=bool(ok), out=out, cost=cost, live=None)
 
 
 def check_order(grid, case):
@@ -252,20 +276,32 @@ def check_face(grid, case):
 
 
 def check_deferred(grid, case):
-    """A refinement preset, a resident factor, a bank and a fleet on a
-    p > 1 grid raise NotImplementedError naming the next slice."""
-    from repro_torch import api, core
+    """What the next slice brings raises NotImplementedError naming it
+    on a p > 1 grid: a structure (one-shot or banked), a fleet, a
+    SolveServer and an AsyncSolveServer, multi-rank cholesky and lu."""
+    from repro_torch import api
+    from repro_torch.core import cholesky, lu
+    from repro_torch.core import precision as preclib
+    from repro_torch.core.solver import SolveSpec, solver_for
     p1, p2, n, k, n0 = case
     L, B = random_tril(n, n), rhs(7, n, k)
+    banded = api.FactorStructure.banded(n0)
     attempts = {
-        "bf16_refine": lambda: core.trsm(
-            torch.as_tensor(L, dtype=torch.float32), torch.as_tensor(B),
-            grid, n0=n0, precision="bf16_refine"),
-        "from_factor": lambda: api.Solver.from_factor(torch.as_tensor(L),
-                                                      grid, n0=n0),
-        "bank": lambda: api.FactorBank(grid, n, n0=n0),
+        "structured solve": lambda: solver_for(SolveSpec(
+            n=n, k=k, grid=grid, policy=preclib.resolve(None, torch.float64),
+            n0=n0, structure=banded)),
+        "structured bank": lambda: api.FactorBank(grid, n, n0=n0,
+                                                  structure=banded),
         "fleet": lambda: api.SolverFleet(grid, api.plan_fleet({n: 1}, grid,
                                                               k=k)),
+        "SolveServer": lambda: api.SolveServer(api.Solver.from_factor(
+            torch.as_tensor(L), grid, n0=n0), panel_k=k),
+        "AsyncSolveServer": lambda: api.AsyncSolveServer(
+            api.Solver.from_factor(torch.as_tensor(L), grid, n0=n0),
+            panel_k=k),
+        "cholesky": lambda: cholesky.cholesky(torch.as_tensor(L @ L.T),
+                                              grid),
+        "lu": lambda: lu.lu(torch.as_tensor(L @ L.T), grid),
     }
     raised = {}
     for what, fn in attempts.items():
@@ -279,11 +315,388 @@ def check_deferred(grid, case):
                    f"{'OK' if ok else 'FAIL'}", ok)
 
 
+def _traced_parts(fn):
+    """(fn's result as float64 numpy, the cost trace of its solve part
+    (the records outside every label), its ``"residual"`` part's S, W
+    and F)."""
+    from repro_torch.core import comm
+    with comm.trace() as t:
+        out = fn()
+    solve = t.part("")
+    cost = dict(solve.summary(), by_op=solve.by_op())
+    return (np.asarray(out.detach().cpu().double()), cost,
+            t.part("residual").summary())
+
+
+def _relres(A, X, B) -> float:
+    return float(np.linalg.norm(A @ X - B) / np.linalg.norm(B))
+
+
+def _one_shot(grid, L, B, method, n0, lower=True, transpose=False):
+    """The one-shot ``core.trsm`` of the same inputs (fp64), the bound
+    a banked fp64 solve is held to at 1e-10."""
+    from repro_torch import core
+    return core.trsm(torch.as_tensor(L), torch.as_tensor(B), grid,
+                     method=method, n0=n0, lower=lower,
+                     transpose=transpose).cpu().double().numpy()
+
+
+def _rel_gap(got, want) -> float:
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _steady(solver, Bs) -> tuple:
+    """(X of each RHS, whether solving them built no program): the
+    solve program's BUILD_COUNTS entry, read after warmup, unchanged."""
+    from repro_torch.core import session
+    k = Bs[0].shape[-1]
+    solver.warmup(k)
+    key = solver.program_for(k).key
+    before = session.BUILD_COUNTS[key]
+    outs = [solver.solve(solver.place_rhs(b)).reshape(b.shape).cpu()
+            .double().numpy() for b in Bs]
+    return outs, session.BUILD_COUNTS[key] == before
+
+
+def check_session(grid, case):
+    """The reference's check_session at p > 1: ``Solver.from_factor``
+    (fp64) in the four operator variants, each within 1e-8 in residual
+    and 1e-10 of the one-shot ``core.trsm``, and the steady state (no
+    program built over 3 more solves).  ``out`` stacks the four X;
+    ``cost`` is the lower solve's trace (the banked program's)."""
+    from repro_torch import api
+    p1, p2, n, k, n0, method = case
+    L, B = random_tril(n, n), rhs(n * k + 5, n, k)
+    outs, lines, ok, cost = [], [], True, None
+    for lower, transpose in VARIANTS:
+        A = L if lower else L.T
+        op = A.T if transpose else A
+        solver = api.Solver.from_factor(torch.as_tensor(A), grid,
+                                        method=method, n0=n0, lower=lower,
+                                        transpose=transpose)
+        X, c, _ = _traced_parts(lambda: solver.solve(torch.as_tensor(B)))
+        cost = cost or c
+        gap = _rel_gap(X, _one_shot(grid, A, B, method, n0, lower,
+                                    transpose))
+        err = np.abs(op @ X - B).max()
+        ok = ok and err < 1e-8 and gap <= 1e-10
+        outs.append(X)
+        lines.append(f"lower={lower} T={transpose} err={err:.2e} "
+                     f"vs-one-shot={gap:.1e}")
+    solver = api.Solver.from_factor(torch.as_tensor(L), grid, method=method,
+                                    n0=n0)
+    Bs = [rhs(100 + i, n, k) for i in range(3)]
+    xs, steady = _steady(solver, Bs)
+    err = max(np.abs(L @ x - b).max() for x, b in zip(xs, Bs))
+    ok = ok and steady and err < 1e-8
+    return _result(f"session {method} p1={p1} p2={p2} n={n}: "
+                   f"{'; '.join(lines)}; steady err={err:.2e} "
+                   f"builds={'0' if steady else 'NONZERO'} "
+                   f"{'OK' if ok else 'FAIL'}", ok, np.stack(outs), cost)
+
+
+PRESET_BOUND = {"bf16_refine": 1e-5, "fp32": 1e-5, "fp64_refine": 1e-11}
+
+
+def check_session_refine(grid, case):
+    """Every precision preset through ``Solver.from_factor`` at p > 1
+    (n = 64, n0 = 16, k = 16): relres within the preset's bound
+    (``tests/test_api_solver.py``), the steady state, X at the io
+    dtype; a refined program's residual part of the cost trace is
+    ``refine_steps`` mm3d products (``cost_model.mm_cost``'s S and W)
+    and its solve part ``1 + refine_steps`` times the unrefined
+    program's.  ``out`` is the bf16_refine X, ``cost`` the fp32 solve's
+    trace."""
+    from repro_torch import api
+    from repro_torch.core import cost_model
+    from repro_torch.core import precision as preclib
+    p1, p2, method = case
+    n, k, n0 = 64, 16, 16
+    L = random_tril(5, n, np.float32)
+    L64 = L.astype(np.float64)
+    B = rhs(6, n, k).astype(np.float32)
+    runs, lines, ok = {}, [], True
+    for preset in ("fp32", "bf16_refine", "fp64_refine"):
+        pol = preclib.resolve(preset)
+        Lp = L64 if preset == "fp64_refine" else L
+        solver = api.Solver.from_factor(torch.as_tensor(Lp), grid,
+                                        method=method, n0=n0,
+                                        precision=preset)
+        Bp = torch.as_tensor(B, dtype=pol.io_dtype)
+        X, cost, res = _traced_parts(lambda: solver.solve(Bp))
+        (x2,), steady = _steady(solver, [Bp])
+        rel = _relres(Lp.astype(np.float64), X, B.astype(np.float64))
+        good = (rel < PRESET_BOUND[preset] and steady
+                and solver.dtype == pol.io_dtype and np.array_equal(X, x2))
+        if pol.refines:
+            mm = cost_model.mm_cost(n, -(-k // grid.p) * grid.p, grid.p,
+                                    p1, p2)
+            steps = pol.refine_steps
+            good = good and (res["s"], res["w"]) == (steps * mm.s,
+                                                     steps * mm.w)
+            base = runs["fp32"][1]
+            good = good and all(cost[key] == (1 + steps) * base[key]
+                                for key in ("s", "w", "f"))
+        runs[preset] = (X, cost)
+        ok = ok and good
+        lines.append(f"{preset} relres={rel:.2e}"
+                     f"{'' if good else ' FAIL'}")
+    return _result(f"session_refine {method} p1={p1} p2={p2}: "
+                   f"{'; '.join(lines)} {'OK' if ok else 'FAIL'}", ok,
+                   runs["bf16_refine"][0], runs["fp32"][1])
+
+
+def _bank_inputs(precision):
+    dt = np.float32 if precision else np.float64
+    Ls = np.stack([random_tril(10 + i, BANK_N, dt) for i in range(BANK_M)])
+    B = rhs(11, BANK_M * BANK_N, BANK_K).reshape(
+        BANK_M, BANK_N, BANK_K).astype(dt)
+    return Ls, B
+
+
+def check_bank(grid, case):
+    """The reference's check_bank at p > 1: an append-only bank of 3
+    factors (``admit_stack`` of 2, then ``admit``) served through
+    ``Solver.from_bank`` in its map mode and preset, each slot within
+    the bound in relres, an fp64 slot within 1e-10 of the one-shot
+    solve, the steady state; ``Solver.from_factors`` and
+    ``Solver.from_spec`` on the same stack give the same X.  ``out`` is
+    the (M, n, k) X, ``cost`` its trace's solve part."""
+    from repro_torch import api
+    from repro_torch.core.solver import SolveSpec
+    p1, p2, method, map_mode, precision = case
+    Ls, B = _bank_inputs(precision)
+    bank = api.FactorBank(grid, BANK_N, method=method, n0=BANK_N0,
+                          dtype=None if precision else torch.float64,
+                          precision=precision, map_mode=map_mode)
+    bank.admit_stack(torch.as_tensor(Ls[:2]))
+    bank.admit(torch.as_tensor(Ls[2]))
+    solver = api.Solver.from_bank(bank)
+    X, cost, _ = _traced_parts(lambda: solver.solve(torch.as_tensor(B)))
+    rel = max(_relres(Ls[i].astype(np.float64), X[i], B[i])
+              for i in range(BANK_M))
+    ok = rel < (1e-5 if precision else 1e-10)
+    gap = 0.0
+    if not precision:
+        gap = max(_rel_gap(X[i], _one_shot(grid, Ls[i], B[i], method,
+                                           BANK_N0))
+                  for i in range(BANK_M))
+        ok = ok and gap <= 1e-10
+    xs, steady = _steady(solver, [torch.as_tensor(B)] * 2)
+    kw = dict(method=method, n0=BANK_N0, map_mode=map_mode,
+              precision=precision,
+              dtype=None if precision else torch.float64)
+    Xf = api.Solver.from_factors(torch.as_tensor(Ls), grid, **kw).solve(
+        torch.as_tensor(B)).cpu().double().numpy()
+    spec = SolveSpec(n=BANK_N, k=BANK_K, grid=grid, policy=bank.policy,
+                     method=method, n0=BANK_N0, bank_width=BANK_M,
+                     map_mode=map_mode)
+    Xs = api.Solver.from_spec(spec, torch.as_tensor(Ls)).solve(
+        torch.as_tensor(B)).cpu().double().numpy()
+    spread = max(_rel_gap(Y, X) for Y in [Xf, Xs] + xs)
+    same = spread <= 1e-12
+    ok = ok and steady and same
+    return _result(f"bank {method} p1={p1} p2={p2} {map_mode} "
+                   f"{precision or 'uniform'}: relres={rel:.2e} "
+                   f"vs-one-shot={gap:.1e} builds="
+                   f"{'0' if steady else 'NONZERO'} "
+                   f"from_factors/from_spec/steady within {spread:.1e} "
+                   f"{'OK' if ok else 'FAIL'}", ok, X, cost)
+
+
+def check_cyclic(grid, case):
+    """``admit_cyclic`` at p > 1: every rank passes the whole
+    cyclic-layout factor and keeps its piece; the solve within 1e-10 in
+    relres and equal to the natural admission's X."""
+    from repro_torch import api
+    from repro_torch.core import grid as gridlib
+    p1, p2 = case
+    n, k = BANK_N, BANK_K
+    L, B = random_tril(20, n), rhs(21, n, k)
+    Lc = gridlib.to_cyclic_matrix(L, p1, p1 * p2)
+    bank = api.FactorBank(grid, n, n0=BANK_N0, dtype=torch.float64)
+    bank.admit_cyclic(torch.as_tensor(Lc))
+    cap = api.FactorBank(grid, n, n0=BANK_N0, dtype=torch.float64,
+                         capacity=2)
+    cap.admit(torch.as_tensor(L))
+    cap.replace_cyclic(0, torch.as_tensor(Lc))
+    X = api.Solver.from_bank(bank).solve(torch.as_tensor(B)[None])[0]
+    X = X.cpu().numpy()
+    Xn = api.Solver.from_factor(torch.as_tensor(L), grid, n0=BANK_N0
+                                ).solve(torch.as_tensor(B)).cpu().numpy()
+    Bc = np.zeros((2, n, k))
+    Bc[0] = B
+    Xc = api.Solver.from_bank(cap).solve(torch.as_tensor(Bc))[0]
+    Xc = Xc.cpu().numpy()
+    rel = _relres(L, X, B)
+    ok = (rel < 1e-10 and np.array_equal(X, Xn)
+          and _rel_gap(Xc, Xn) <= 1e-12)
+    return _result(f"cyclic p1={p1} p2={p2}: relres={rel:.2e} "
+                   f"same-as-natural={np.array_equal(X, Xn)} "
+                   f"{'OK' if ok else 'FAIL'}", ok, X)
+
+
+def capacity_script(bank, n, d, seed0, dt, solve):
+    """The capacity lifecycle every rank runs on a C = 4 bank: two
+    admits, a padded admission of an order-d factor, a solve; replace,
+    a replace_run of 2, evict, a solve; re-admit, a solve; factors
+    and right-hand sides are numpy arrays and ``solve(bank, B)`` gives
+    X as one (the reference's banks run the same script).  Returns
+    every wave's (B, X, the slots live at it, the (factor, padded) each
+    slot held at it)."""
+    held = [None] * bank.capacity
+    waves = []
+    seeds = iter(range(seed0, seed0 + 100))
+
+    def factor(order):
+        return random_tril(next(seeds), order, dt)
+
+    def padded(Ld):
+        full = np.eye(n, dtype=Ld.dtype)
+        full[:d, :d] = Ld
+        return full
+
+    def wave():
+        B = np.zeros((bank.capacity, n, BANK_K), dt)
+        for s in bank.live_slots():
+            B[s] = rhs(next(seeds), n, BANK_K)
+            if held[s][1]:                     # padded: a zero tail
+                B[s, d:] = 0
+        waves.append((B, solve(bank, B), tuple(bank.live_slots()),
+                      list(held)))
+
+    for _ in range(2):
+        L = factor(n)
+        held[bank.admit(L)] = (L, False)
+    Ld = factor(d)
+    held[bank.admit(Ld, pad_to=n)] = (padded(Ld), True)
+    wave()
+    L = factor(n)
+    held[bank.replace(1, L)] = (L, False)
+    run = np.stack([factor(n), factor(n)])
+    for j, s in enumerate(bank.replace_run(0, run)):
+        held[s] = (run[j], False)
+    bank.evict(1)
+    wave()
+    L = factor(n)
+    held[bank.admit(L)] = (L, False)
+    wave()
+    return waves
+
+
+def check_capacity(grid, case):
+    """A capacity bank's lifecycle at p > 1 (``capacity_script``): every
+    live slot's relres within the bound against the factor it held,
+    dead lanes and padded tails exactly zero, the solve program built
+    once over the whole turnover and each updater once per UpdateSpec.
+    ``out`` is the last wave's X, dead lanes included (``live`` flags
+    the slots the reference is compared on)."""
+    from repro_torch import api
+    from repro_torch.core import session
+    p1, p2, method, precision = case
+    n, d = BANK_N, BANK_N // 2
+    dt = np.float32 if precision else np.float64
+    bank = api.FactorBank(grid, n, method=method, n0=BANK_N0,
+                          dtype=None if precision else torch.float64,
+                          precision=precision, capacity=4)
+    builds0 = sum(session.BUILD_COUNTS.values())
+    waves = capacity_script(
+        bank, n, d, 30, dt, lambda bank, B: api.Solver.from_bank(bank).solve(
+            torch.as_tensor(B)).cpu().double().numpy())
+    key = api.Solver.from_bank(bank).spec_for(BANK_K)
+    bound = 1e-5 if precision else 1e-10
+    worst, zeros, ok = 0.0, True, True
+    for B, X, live, held in waves:
+        for s in range(bank.capacity):
+            if s not in live:
+                zeros = zeros and not np.any(X[s])
+                continue
+            L, pad = held[s]
+            worst = max(worst, _relres(L.astype(np.float64), X[s], B[s]))
+            if pad:
+                zeros = zeros and not np.any(X[s, d:])
+    # one solve program; updaters: natural, padded, a run of 2
+    builds = sum(session.BUILD_COUNTS.values()) - builds0
+    ok = worst < bound and zeros and session.BUILD_COUNTS[key] == 1 \
+        and builds == 4
+    res = _result(f"capacity {method} p1={p1} p2={p2} "
+                  f"{precision or 'uniform'}: relres={worst:.2e} "
+                  f"dead-and-tails-zero={zeros} builds={builds} "
+                  f"{'OK' if ok else 'FAIL'}", ok, waves[-1][1])
+    res["live"] = list(waves[-1][2])
+    return res
+
+
+def check_padded(grid, case):
+    """The padded identity at p > 1: a capacity bank's padded slot
+    (blockdiag(L, I), phase 1 on B5 with the flags routed to the
+    inverting ranks) solves its leading d rows bit for bit as an
+    unpadded order-d bank at the same n0 (its phase 1 on the
+    all-gather, B1 on the same blocks), for lower, upper and transposed
+    factors, in fp64 and bf16_refine; the tail is exactly zero."""
+    from repro_torch import api
+    p1, p2, n, d, n0 = case
+    lines, ok = [], True
+    for precision in (None, "bf16_refine"):
+        dt = np.float32 if precision else np.float64
+        kw = dict(n0=n0, precision=precision, capacity=2,
+                  dtype=None if precision else torch.float64)
+        for lower, transpose in ((True, False), (False, False),
+                                 (True, True)):
+            L = random_tril(d + 3, d, dt)
+            A = L if lower else L.T
+            big = api.FactorBank(grid, n, lower=lower, transpose=transpose,
+                                 **kw)
+            small = api.FactorBank(grid, d, lower=lower,
+                                   transpose=transpose, mode="allgather",
+                                   **kw)
+            big.admit(torch.as_tensor(A), pad_to=n)
+            small.admit(torch.as_tensor(A))
+            b = rhs(d + 4, d, BANK_K).astype(dt)
+            Bb = np.zeros((2, n, BANK_K), dt)
+            Bb[0, :d] = b
+            Bs = np.zeros((2, d, BANK_K), dt)
+            Bs[0] = b
+            Xb = api.Solver.from_bank(big).solve(torch.as_tensor(Bb))[0]
+            Xs = api.Solver.from_bank(small).solve(torch.as_tensor(Bs))[0]
+            bit = torch.equal(Xb[:d], Xs)
+            tail = not torch.any(Xb[d:])
+            ok = ok and bit and tail
+            lines.append(f"{precision or 'fp64'} lower={lower} "
+                         f"T={transpose}: bit-equal={bit} tail-zero={tail}")
+    return _result(f"padded p1={p1} p2={p2} n={n} d={d}: "
+                   f"{'; '.join(lines)} {'OK' if ok else 'FAIL'}", ok)
+
+
+def check_bank_bits(grid, case):
+    """A bank's program gives the same bits in map mode "scan" as in
+    "vmap", and with overlap on as with it off (fp64, append-only)."""
+    from repro_torch import api
+    p1, p2, method = case
+    Ls, B = _bank_inputs(None)
+    outs = {}
+    for map_mode, overlap in (("vmap", "on"), ("scan", "on"),
+                              ("vmap", "off")):
+        solver = api.Solver.from_factors(
+            torch.as_tensor(Ls), grid, method=method, n0=BANK_N0,
+            map_mode=map_mode, overlap=overlap)
+        outs[(map_mode, overlap)] = solver.solve(torch.as_tensor(B))
+    ref = outs[("vmap", "on")]
+    scan = torch.equal(outs[("scan", "on")], ref)
+    off = torch.equal(outs[("vmap", "off")], ref)
+    ok = scan and off
+    return _result(f"bank_bits {method} p1={p1} p2={p2}: scan==vmap={scan} "
+                   f"overlap-off==on={off} {'OK' if ok else 'FAIL'}", ok)
+
+
 RUN = {"order": check_order, "mm3d": check_mm3d, "tri_inv": check_tri_inv,
        "doubling": check_doubling, "it_inv_trsm": check_it_inv_trsm,
        "rec_trsm": check_rec_trsm, "trsm": check_trsm,
        "overlap": check_overlap, "face": check_face,
-       "deferred": check_deferred}
+       "deferred": check_deferred, "session": check_session,
+       "session_refine": check_session_refine, "bank": check_bank,
+       "cyclic": check_cyclic, "capacity": check_capacity,
+       "padded": check_padded, "bank_bits": check_bank_bits}
 
 
 def _run_items(grid, items):
@@ -331,6 +744,13 @@ def _rank_main(rank, p1, p2, device, tmp, target, args, log_dir):
     except BaseException:
         traceback.print_exc()
         raise
+    # the result is written and the world is gone: exit at once.  In the
+    # interpreter's teardown gloo's threads have aborted a rank whose
+    # every collective had finished ("terminate called without an
+    # active exception", SIGABRT), failing a run that had passed
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def spawn(p1: int, p2: int, device, target, *args, log_dir=None) -> list:
@@ -422,7 +842,8 @@ def main(argv=None) -> int:
                 os.makedirs(args.out, exist_ok=True)
                 np.savez(os.path.join(args.out, f"{name}_{i}.npz"),
                          out=np.asarray(res["out"], np.float64), ok=ok,
-                         cost=json.dumps(res["cost"]))
+                         cost=json.dumps(res["cost"]),
+                         live=json.dumps(res["live"]))
     print(f"selfcheck: {fails} failures")
     return 1 if fails else 0
 

@@ -25,7 +25,9 @@
   written into the resident stacks.  The reference's donated scatter
   is a ``copy_`` into ``stack[slot]`` (``stack.narrow(0, start, u)``
   for a run): a Python-int view moves no data and uploads nothing, so
-  the device-resident slot ids the reference pins are not needed.
+  the device-resident slot ids the reference pins are not needed.  At
+  p > 1 every rank runs it on the same factor (phase 1 is collective)
+  and writes its own pieces into its own stacks.
 * A "rec" program takes a capacity bank's liveness vector as an
   operand (``valid=``), never as a constant captured at build time,
   and hands it to every base case (kernel B6): occupancy changes
@@ -42,14 +44,19 @@
   kernel (and order) follows the shape: a padded slot's leading block
   is then the unpadded solve's bit for bit.
 
-* On a grid with p > 1 (:func:`_build_distributed_solver`) the
-  one-shot program runs in every rank: its prep cuts this rank's cyclic
-  piece of the natural factor, the operator reduction folded into the
-  same two gathers, and its solve cuts the right-hand side's piece,
-  runs the shard body (``inv_trsm.it_inv_trsm_fn`` or
-  ``rec_trsm.rec_trsm_sharded``) and returns the natural X on every
-  rank.  Banks, refinement and structures at p > 1 come with the next
-  slice of the distributed port and raise ``NotImplementedError``.
+* On a grid with p > 1 (:func:`_build_distributed_solver`) every
+  program runs in every rank, each call collective: admission cuts
+  this rank's cyclic pieces of the natural factor (the operator
+  reduction folded into the same two gathers; a cyclic-layout factor
+  is sliced) and phase 1 runs through
+  ``inv_trsm.invert_diag_blocks_shard``; a solve cuts the right-hand
+  side's piece, runs the stacked shard body (``inv_trsm.sweep_shard``
+  or ``rec_trsm.rec_trsm_sharded``), returns the natural X on every
+  rank and refines with the distributed residual
+  (``refine.distributed_operator``).  A padded updater routes the
+  block flags with the blocks (B5).  Structures at p > 1 come with the
+  next slice of the distributed port and raise
+  ``NotImplementedError``.
 
 PyTorch runs eagerly, so a "program" is a Python function over device
 tensors; building it resolves every plan decision once, and its gather
@@ -70,6 +77,7 @@ gathers so the sweep only ever sees a lower-triangular operand:
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import threading
@@ -77,6 +85,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core import comm
 from repro_torch.core import grid as gridlib
 from repro_torch.core import inv_trsm
 from repro_torch.core import refine as refinelib
@@ -231,9 +240,21 @@ def _build_prep(grid: TrsmGrid, lower: bool, transpose: bool,
     an (M, n, n) stack of factors.  A ``structure`` (with its block
     size ``n0``, both in the memo key) is enforced here: every element
     outside its block mask is zeroed, in natural layout, before the
-    gather."""
+    gather.  At p > 1 the copy is this rank's (M, n/p1, n/(p1 p2))
+    piece (``grid.local_piece``, the reduction folded into its two
+    gathers, cut where the factor lives)."""
     p1, p2 = grid.p1, grid.p2
     rev = _needs_reversal(lower, transpose)
+    if grid.p > 1:
+        if structure is not None:
+            raise NotImplementedError(f"structured admission over p > 1 "
+                                      f"ranks {gridlib.NEXT_SLICE}")
+
+        def prep_piece(L):
+            return gridlib.local_piece(L, grid, "L", dtype=dtype,
+                                       reverse_rows=rev, reverse_cols=rev,
+                                       transpose=transpose)
+        return prep_piece
 
     def prep(L):
         A = torch.as_tensor(L)
@@ -282,12 +303,23 @@ def _build_phase1(grid: TrsmGrid, n: int, n0: int, mode: str, accum,
     admission and program prep.  ``block_inv=None`` is the port's
     default, the hand-written ``kernels.ops.block_inv_kernel``.  At
     p = 1 every mode's routing is the identity, so each inverts the
-    diagonal blocks in one batched call (p > 1 runs its modes in
-    ``inv_trsm.invert_diag_blocks_shard``)."""
+    diagonal blocks in one batched call, ``valid`` an (M m,) mask.  At
+    p > 1 this rank's (M, n/p1, n/(p1 p2)) pieces -> its (M, m, n0/p1,
+    n0/p1) faces through ``inv_trsm.invert_diag_blocks_shard`` in the
+    mode asked, ``valid`` an (M, m) mask; collective: every rank runs
+    it on the same factors."""
     from repro_torch.kernels import ops
     if mode not in ("alltoall", "doubling", "allgather"):
         raise ValueError(f"unknown phase-1 mode {mode!r}")
     binv = block_inv if block_inv is not None else ops.block_inv_kernel
+    if grid.p > 1:
+        def ph1(L_lo, valid=None):
+            with comm.on_mesh(grid.mesh):
+                return inv_trsm.invert_diag_blocks_shard(
+                    L_lo, n=n, n0=n0, p1=grid.p1, p2=grid.p2,
+                    block_inv=binv, mode=mode, accum_dtype=accum,
+                    valid=valid)
+        return ph1
     return functools.partial(inv_trsm.invert_diag_blocks, n0=n0,
                              block_inv=binv, accum_dtype=accum)
 
@@ -399,54 +431,149 @@ def _build_solver(spec) -> SolverProgram:
     return SolverProgram(key=spec, solve=solve, prep=prep)
 
 
+def _map_factors(body, map_mode: str):
+    """A stacked shard body over its factors: "vmap" runs it once on the
+    whole (M, ...) stack (every collective once for the stack); "scan"
+    runs it factor by factor on (1, ...) slices of every operand, the
+    same operations one factor at a time, and records the costs of the
+    first alone (a scan's body prices like the vmapped one).  Both give
+    the same X, bit for bit: every kernel they run works matrix by
+    matrix, and a p > 1 bank's local GEMMs are ``ops.gemm``'s
+    (``SolveSpec.fixed_order``), whose order does not follow the batch
+    as cuBLAS's does."""
+    if map_mode != "scan":
+        return body
+
+    def scanned(*stacks, **kw):
+        outs = []
+        for f in range(stacks[-1].shape[0]):
+            one = {key: v if v is None else v[f:f + 1]
+                   for key, v in kw.items()}
+            with comm.unrecorded() if f else contextlib.nullcontext():
+                outs.append(body(*(t[f:f + 1] for t in stacks), **one))
+        return torch.cat(outs)
+    return scanned
+
+
 def _build_distributed_solver(spec) -> SolverProgram:
-    """The one-shot program of a spec on a p > 1 grid, run in every
-    rank: ``prep(L_nat)`` is this rank's piece of the reduced operator
-    at the storage dtype (the operator reduction folded into the two
-    gathers that cut it); ``solve(piece, B_nat)`` cuts B's piece at the
-    compute dtype, runs the shard body and assembles the natural X on
-    every rank, at the policy's io dtype."""
+    """The program of a spec on a p > 1 grid, run in every rank (each
+    call is collective: every rank calls it with the same operands).
+
+    A banked program (``bank_width`` set) is ``solve(factor, B_nat,
+    valid=None)`` against a bank's resident pieces: (L_lo, Dt[, L_hi])
+    for "inv", the sweep alone with phase 1 hoisted to admission, or
+    (L_lo[, L_hi]) for "rec", whose base cases take the bank's liveness
+    vector ``valid`` (kernel B6), an operand, never a constant of the
+    build.  ``map_mode`` "vmap" runs the stacked shard body once for
+    the stack, "scan" one factor at a time (:func:`_map_factors`).  A
+    one-shot program's ``prep(L_nat)`` is this rank's pieces of the
+    reduced operator at the storage (and residual) dtype, and
+    ``solve(pieces, B_nat)`` runs phase 1 once per call for "inv"
+    (column 0's panel gather started before it under ``overlap``), then
+    the same body on a stack of one.
+
+    B (the natural right-hand sides, the same on every rank) is cut to
+    this rank's piece at the compute dtype (the reversal folded into
+    the cut), the shard body runs, and the natural X is assembled on
+    every rank.  A refining policy runs its fixed passes with the
+    distributed residual (``refine.distributed_operator``: one mm3d
+    against the resident L_hi piece).  ``fixed_order`` (every banked
+    spec at p > 1, ``Solver.spec_for``) forms every local GEMM, the
+    sweep's trailing updates, rec's and the residual's mm3d, with
+    ``ops.gemm``.  Structures raise ``NotImplementedError``."""
+    from repro_torch.kernels import ops
     grid = spec.grid
     n, k, n0, policy = spec.n, spec.k, spec.n0, spec.policy
-    if spec.bank_width is not None:
-        raise NotImplementedError(f"banked programs over p > 1 ranks "
-                                  f"{gridlib.NEXT_SLICE}")
-    if policy.refines:
-        raise NotImplementedError(f"refinement ({policy.name}) over p > 1 "
-                                  f"ranks {gridlib.NEXT_SLICE}")
     if spec.structure is not None:
         raise NotImplementedError(f"structured solves over p > 1 ranks "
                                   f"{gridlib.NEXT_SLICE}")
+    p1, p2 = grid.p1, grid.p2
     rev = _needs_reversal(spec.lower, spec.transpose)
     overlap = spec.overlap == "on"
+    banked = spec.bank_width is not None
+    compute, accum = policy.compute, policy.accumulate
     if spec.method == "inv":
-        body = inv_trsm.it_inv_trsm_fn(
-            grid, n, k, n0, block_inv=spec.block_inv, mode=spec.mode,
-            accum_dtype=policy.accumulate, overlap=overlap)
+        gridlib.check_divisibility(n, k, n0, grid)
+        mode = spec.mode or inv_trsm.pick_phase1_mode(n, n0, grid)
+        if mode == "alltoall" and (n // n0) % grid.p:
+            mode = inv_trsm.pick_phase1_mode(n, n0, grid)
+        binv = spec.block_inv if spec.block_inv is not None \
+            else ops.block_inv_kernel
+        rhs = out = None
         rhs, out = "B", "X"
+
+        def sweep(L_lo, Dt, Bp, prefetched0=None):
+            with comm.on_mesh(grid.mesh):
+                return inv_trsm.sweep_shard(
+                    L_lo, Dt, Bp, n=n, k=k, n0=n0, p1=p1, p2=p2,
+                    accum_dtype=accum, overlap=overlap,
+                    prefetched0=prefetched0, fixed_order=spec.fixed_order)
+        core = _map_factors(sweep, spec.map_mode) if banked else sweep
     elif spec.method == "rec":
         from repro_torch.core import rec_trsm
-        body = rec_trsm.rec_trsm_sharded(grid, n, k, n0,
-                                         accum_dtype=policy.accumulate,
-                                         overlap=overlap)
+        rec = rec_trsm.rec_trsm_sharded(grid, n, k, n0, accum_dtype=accum,
+                                        overlap=overlap,
+                                        fixed_order=spec.fixed_order)
         rhs = out = "L"
+        core = _map_factors(rec, spec.map_mode) if banked else rec
     else:
         raise ValueError(f"unknown method {spec.method!r}")
 
-    def prep(L):
-        return (gridlib.local_piece(L, grid, "L", dtype=policy.storage,
-                                    reverse_rows=rev, reverse_cols=rev,
-                                    transpose=spec.transpose),)
+    def base_solve(sweep_factor, B, **kw):
+        Bp = gridlib.local_piece(B, grid, rhs, dtype=compute,
+                                 reverse_rows=rev)
+        args = sweep_factor if isinstance(sweep_factor, tuple) \
+            else (sweep_factor,)
+        return gridlib.gather_natural(core(*args, Bp, **kw), grid, out, n,
+                                      k, reverse_rows=rev)
 
-    def solve(factor, B):
-        Bloc = gridlib.local_piece(torch.as_tensor(B).to(policy.io_dtype),
-                                   grid, rhs, dtype=policy.compute,
-                                   reverse_rows=rev)
-        X = gridlib.gather_natural(body(factor[0], Bloc), grid, out, n, k,
-                                   reverse_rows=rev)
-        return X.to(policy.io_dtype)
+    operator = None
+    if policy.refines:
+        operator = refinelib.distributed_operator(
+            grid, n, k, reverse=rev, accum_dtype=policy.residual,
+            fixed_order=spec.fixed_order)
+
+    def run(sweep_factor, L_hi, B, **kw):
+        solve = functools.partial(base_solve, **kw) if kw else base_solve
+        return refinelib.refined_solve(solve, sweep_factor, L_hi, B,
+                                       policy=policy, p1=p1, p2=p2,
+                                       reverse=rev, operator=operator)
 
     BUILD_COUNTS[spec] += 1
+    if banked:
+        def program(factor, B, valid=None):
+            B = torch.as_tensor(B, device=grid.device)
+            L_hi = factor[-1] if policy.refines else None
+            if spec.method == "inv":
+                return run(tuple(factor[:2]), L_hi, B)
+            kw = {} if valid is None else dict(valid=valid)
+            return run(factor[0], L_hi, B, **kw)
+        return SolverProgram(key=spec, solve=program)
+
+    preps = _factor_preps(grid, spec.lower, spec.transpose, policy)
+
+    def prep(L):
+        return tuple(pr(torch.as_tensor(L)[None]) for pr in preps)
+
+    def solve(factor, B):
+        B = torch.as_tensor(B, device=grid.device)[None]
+        L_hi = factor[-1] if policy.refines else None
+        if spec.method == "rec":
+            return run(factor[0], L_hi, B)[0]
+        L_lo = factor[0]
+        with comm.on_mesh(grid.mesh):
+            Dt, pre0 = inv_trsm.phase1_prefetched(
+                L_lo, n=n, n0=n0, p1=p1, p2=p2, block_inv=binv, mode=mode,
+                accum_dtype=accum, overlap=overlap)
+        first = [pre0]                   # the first sweep finishes it
+
+        def once(pair, Bn):
+            return base_solve(pair, Bn, prefetched0=first.pop()
+                              if first else None)
+        return refinelib.refined_solve(once, (L_lo, Dt), L_hi, B,
+                                       policy=policy, p1=p1, p2=p2,
+                                       reverse=rev, operator=operator)[0]
+
     return SolverProgram(key=spec, solve=solve, prep=prep)
 
 
@@ -493,14 +620,19 @@ def _build_updater(uspec) -> UpdaterProgram:
         raise ValueError("a plan-only grid (plan_grid) cannot run an "
                          "updater: build banks on make_trsm_mesh")
     n, u = uspec.n, uspec.chunk
+    distributed = grid.p > 1
     if uspec.ingest == "natural":
         preps = _admission_preps(grid, n, uspec.n0, uspec.lower,
                                  uspec.transpose, policy, uspec.structure)
     else:
         dts = (policy.storage,) + ((policy.residual,)
                                    if policy.refines else ())
-        preps = tuple(functools.partial(torch.Tensor.to, dtype=dt)
-                      for dt in dts)
+        if distributed:
+            preps = tuple(functools.partial(gridlib.cyclic_piece, grid=grid,
+                                            dtype=dt) for dt in dts)
+        else:
+            preps = tuple(functools.partial(torch.Tensor.to, dtype=dt)
+                          for dt in dts)
     ph1 = None
     gate = {}
     if uspec.method == "inv":
@@ -514,20 +646,31 @@ def _build_updater(uspec) -> UpdaterProgram:
                                                    uspec.transpose)) * u
             valid = torch.tensor(flags, dtype=torch.int32,
                                  device=grid.device)
-            # added to the diagonal of every gated (all-zero) block
+            # added to the diagonal of every gated (all-zero) block; at
+            # p > 1 to the faces binv[y::p1, x::p1] of an identity, whose
+            # diagonal is the identity's where x == y and zero elsewhere
             pad_eye = (1 - valid).to(policy.storage)[:, None]
+            x, y, _ = grid.coords
+            if distributed:
+                valid = valid.view(u, -1)         # (u, m): routed by block
+                if x != y:
+                    pad_eye = None
             gate = dict(valid=valid)
 
     def update(stacks, slot: int, L):
-        L = torch.as_tensor(L).to(grid.device)
+        # at p > 1 the factor stays where it lives: only this rank's
+        # pieces cross to the device
+        L = torch.as_tensor(L)
+        if not distributed:
+            L = L.to(grid.device)
         L = L.reshape((u,) + tuple(L.shape[-2:]))
         if uspec.pad_from is not None:
             L = _pad_factor(L, n)
         parts = tuple(p(L) for p in preps)           # (L_lo[, L_hi])
         if ph1 is not None:
             Dt = ph1(parts[0], **gate)
-            if gate:
-                Dt.view(-1, uspec.n0, uspec.n0).diagonal(
+            if gate and pad_eye is not None:
+                Dt.view(-1, *Dt.shape[-2:]).diagonal(
                     dim1=-2, dim2=-1).add_(pad_eye)
             parts = (parts[0], Dt) + parts[1:]
         for stack, part in zip(stacks, parts):

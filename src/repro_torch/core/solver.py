@@ -25,9 +25,15 @@
 
 On a grid with p > 1 (one rank per process, ``make_trsm_mesh`` inside
 a ``torch.distributed`` world) a :class:`SolveSpec` builds the one-shot
-program (``core.trsm``); a :class:`Solver`, a bank, a fleet or a
-refinement preset there raises ``NotImplementedError``: they come with
-the next slice of the distributed port (ROADMAP A12).
+program (``core.trsm``) and a :class:`Solver` serves its bank
+(``from_factor``, ``from_factors``, ``from_bank``, ``from_spec``,
+append-only or capacity, every precision preset), every rank calling
+each constructor, admission, update and ``solve`` in the same order
+with the same arguments: the caller passes the natural B, the same on
+every rank, and gets the natural X back on every rank.  A structure,
+a fleet, a :class:`SolveServer` or an ``AsyncSolveServer`` there raises
+``NotImplementedError``: they come with the next slice of the
+distributed port (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -163,9 +169,10 @@ class SolveSpec:
       refinement residuals on the hand-written tri-GEMM, whose sums run
       in an order that does not depend on n, in place of cuBLAS; a
       capacity bank narrower than :data:`FIXED_ORDER_WIDTH` on the card,
-      and every capacity bank on the CPU, sets it
-      (:meth:`Solver.spec_for`), so that a padded slot solves as the
-      unpadded factor does, bit for bit.  The port's own field: the
+      every capacity bank on the CPU and every bank over p > 1 ranks
+      set it (:meth:`Solver.spec_for`), so that a padded slot solves as
+      the unpadded factor does, bit for bit (and at p > 1 "scan" as
+      "vmap").  The port's own field: the
       reference's XLA products need no such choice.
     """
     n: int
@@ -388,7 +395,12 @@ def solver_for(spec: SolveSpec, cache=None):
 # bit-equal on the H100 (widths 2, 4 and 16; PERF.md), and the tri-GEMM
 # is several times slower.  On the CPU, torch's fp32 batched product
 # sums by shape at every width, so every CPU capacity bank takes the
-# fixed order.
+# fixed order.  So does every bank over p > 1 ranks, capacity or not:
+# there a padded and an unpadded bank multiply pieces of other shapes,
+# and a bank's "scan" multiplies one factor where "vmap" multiplies the
+# stack, and cuBLAS sums each in its own order (a "rec" bank's "scan"
+# and "vmap" differed in the last bits on the H100); the exchange
+# between ranks, not the product, sets the time there.
 FIXED_ORDER_WIDTH = 2
 
 
@@ -601,9 +613,10 @@ class Solver:
                          block_inv=b.block_inv, bank_width=b.width,
                          map_mode=b.map_mode, structure=b.structure,
                          overlap=b.overlap,
-                         fixed_order=b.capacity is not None and (
-                             b.width < FIXED_ORDER_WIDTH
-                             or b.grid.device.type == "cpu"))
+                         fixed_order=b.grid.p > 1 or (
+                             b.capacity is not None and (
+                                 b.width < FIXED_ORDER_WIDTH
+                                 or b.grid.device.type == "cpu")))
 
     def program_for(self, k: int):
         """The :class:`~repro_torch.core.session.SolverProgram` for RHS
@@ -738,6 +751,10 @@ class SolveServer:
 
     def __init__(self, solver, panel_k: int):
         from repro_torch.core.fleet import SolverFleet
+        from repro_torch.core.grid import NEXT_SLICE
+        if not isinstance(solver, SolverFleet) and solver.grid.p > 1:
+            raise NotImplementedError(f"SolveServer over p > 1 ranks "
+                                      f"{NEXT_SLICE}")
         self.fleet = solver if isinstance(solver, SolverFleet) else None
         self.solver = None if self.fleet is not None else solver
         self.panel_k = panel_k

@@ -44,15 +44,19 @@ def _check_p1(p1: int, p2: int, what: str) -> None:
                                   f"{gridlib.NEXT_SLICE}")
 
 
-def invert_blocks(blocks: torch.Tensor, block_inv=None) -> torch.Tensor:
+def invert_blocks(blocks: torch.Tensor, block_inv=None,
+                  valid=None) -> torch.Tensor:
     """Inverses of a (..., s, s) stack of lower-triangular blocks through
     ``block_inv`` (default ``kernels.ops.block_inv_kernel``), which takes
-    an (m, s, s) stack: the leading axes are flattened into m."""
+    an (m, s, s) stack: the leading axes are flattened into m.
+    ``valid`` (one flag per block, in the same order) goes to the hook
+    as ``valid=``: a block flagged 0 comes out as zeros (kernel B5)."""
     if block_inv is None:
         from repro_torch.kernels.ops import block_inv_kernel as block_inv
     s = blocks.shape[-1]
-    return block_inv(blocks.reshape(-1, s, s).contiguous()).reshape(
-        blocks.shape)
+    gate = {} if valid is None else dict(valid=valid.reshape(-1))
+    return block_inv(blocks.reshape(-1, s, s).contiguous(), **gate
+                     ).reshape(blocks.shape)
 
 
 # ------------------------ local-piece helpers ------------------------
@@ -63,6 +67,15 @@ def diag_pieces(Lloc: torch.Tensor, m: int) -> torch.Tensor:
     nl, ncl = Lloc.shape[-2:]
     v = Lloc.unflatten(-1, (m, ncl // m)).unflatten(-3, (m, nl // m))
     return torch.diagonal(v, dim1=-4, dim2=-2).movedim(-1, -3)
+
+
+def by_rank(D: torch.Tensor, lead: int) -> torch.Tensor:
+    """(*lead, p, mb, a, b) pieces, a rank axis after ``lead`` leading
+    axes -> (p, (*lead) mb, a, b): the rank axis first and the leading
+    axes folded into the blocks, factor-major (:func:`assemble_blocks`'s
+    input)."""
+    D = D.movedim(lead, 0)
+    return D.reshape(D.shape[0], -1, *D.shape[-2:])
 
 
 def assemble_blocks(Dg: torch.Tensor, p1: int, p2: int) -> torch.Tensor:
@@ -99,31 +112,37 @@ def _invert_diag_blocks_inplace(L, *, n, s0, p1, p2, block_inv, mode=None):
     """Invert the n/s0 diagonal s0-blocks of the contiguous piece L in
     place.  At p > 1 ``mode`` routes them: "alltoall" (p | n/s0) sends
     whole blocks to ranks and their inverses back, "allgather" gathers
-    them all to every rank."""
+    them all to every rank.  Leading axes of L are a stack of factors
+    (under ``comm.vmapped``), routed by the same collectives."""
     if p1 * p1 * p2 == 1:
         d = diag_blocks(L, s0)
         d.copy_(invert_blocks(d, block_inv))
         return L
     m0 = n // s0
     p = p1 * p1 * p2
-    D = diag_pieces(L, m0)                         # (m0, a, b) view
+    D = diag_pieces(L, m0)                         # (..., m0, a, b) view
+    lead = tuple(D.shape[:-3])
     if mode == "alltoall":
         if m0 % p:
             raise ValueError(f"alltoall routing needs p | n/s0 "
                              f"(n/s0={m0}, p={p})")
         mb = m0 // p
         Dr = comm.all_to_all(D, MESH_AXES, split_axis=0, concat_axis=0,
-                             tiled=True)           # (m0, a, b) regrouped
-        Dr = Dr.reshape(p, mb, *Dr.shape[1:])
+                             tiled=True)           # (..., m0, a, b)
+        Dr = by_rank(Dr.reshape(lead + (p, mb) + tuple(Dr.shape[-2:])),
+                     len(lead))
         binv = invert_blocks(assemble_blocks(Dr, p1, p2), block_inv)
-        S = _pieces_for_all(binv, p1, p2)          # (p, mb, a, b)
-        D.copy_(comm.all_to_all(S.reshape(m0, *S.shape[2:]), MESH_AXES,
+        S = _pieces_for_all(binv, p1, p2)          # (p, (...) mb, a, b)
+        S = S.reshape((p,) + lead + (mb,) + tuple(S.shape[-2:])).movedim(
+            0, len(lead))                          # (..., p, mb, a, b)
+        D.copy_(comm.all_to_all(S.reshape(D.shape), MESH_AXES,
                                 split_axis=0, concat_axis=0, tiled=True))
     elif mode == "allgather":
         x, y, z = comm.current_mesh().coords
         Dg = comm.all_gather(D, MESH_AXES, axis=0, tiled=False)
-        binv = invert_blocks(assemble_blocks(Dg, p1, p2), block_inv)
-        D.copy_(_cyclic_piece(binv, x, y, z, p1, p2))
+        binv = invert_blocks(assemble_blocks(by_rank(Dg, len(lead)), p1,
+                                             p2), block_inv)
+        D.copy_(_cyclic_piece(binv, x, y, z, p1, p2).reshape(D.shape))
     else:
         raise ValueError(f"unknown phase-A mode {mode!r}")
     return L

@@ -86,6 +86,13 @@ def _gemm_entry(dtype: torch.dtype):
     return fn
 
 
+def _check_gemm_layout(A: torch.Tensor, X: torch.Tensor) -> None:
+    if A.stride(-1) != 1 or not X.is_contiguous():
+        raise ValueError(f"gemm takes A with unit column stride and a "
+                         f"contiguous X, got strides {A.stride()} and "
+                         f"{X.stride()}")
+
+
 def gemm(A: torch.Tensor, X: torch.Tensor, *,
          lower: bool = False) -> torch.Tensor:
     """C = A @ X, or tril(A) @ X when ``lower``, for A (b, M, K) with
@@ -94,7 +101,10 @@ def gemm(A: torch.Tensor, X: torch.Tensor, *,
     contiguous: fp32 (fp64) partial sums in a fixed k order that does
     not depend on M or K, the result in X's dtype.  On the card the
     tri-GEMM's tiles (tri_a = ``lower``, so a lower A skips the tiles
-    above its diagonal as B2 does), on the CPU :func:`gemm_plain`."""
+    above its diagonal as B2 does), on the CPU :func:`gemm_plain`.  The
+    layout is held on every device, so a CPU run refuses what the
+    kernel would."""
+    _check_gemm_layout(A, X)
     if A.device.type == "cpu" and X.device.type == "cpu":
         return gemm_plain(A, X, lower)
     if A.device != X.device or A.device.type != "cuda":
@@ -108,10 +118,6 @@ def gemm(A: torch.Tensor, X: torch.Tensor, *,
             or X.shape[2] < 1:
         raise ValueError(f"gemm takes (b, M, K) @ (b, K, N), got "
                          f"{tuple(A.shape)} and {tuple(X.shape)}")
-    if A.stride(-1) != 1 or not X.is_contiguous():
-        raise ValueError(f"gemm takes A with unit column stride and a "
-                         f"contiguous X, got strides {A.stride()} and "
-                         f"{X.stride()}")
     b, M, K = A.shape
     N = X.shape[2]
     C = torch.empty((b, M, N), dtype=X.dtype, device=X.device)

@@ -49,7 +49,12 @@ GRIDS = [(2, 2), (2, 1), (1, 2), (1, 8)]
 DEADLINE_S = 420
 COMPARED = ("mm3d", "tri_inv", "doubling", "it_inv_trsm", "rec_trsm", "trsm")
 COSTED = ("mm3d", "tri_inv", "doubling", "it_inv_trsm", "rec_trsm")
-PORT_ONLY = ("order", "overlap", "face", "deferred")
+PORT_ONLY = ("order", "overlap", "face", "deferred", "padded", "bank_bits")
+# the front door: Solver and FactorBank at p > 1 against the reference's
+# Solver and FactorBank; the banked programs' costs against the
+# reference's traced vmapped sweep and recursion
+FRONT = ("session", "session_refine", "bank", "cyclic", "capacity")
+FRONT_COSTED = ("session", "session_refine", "bank")
 
 # The reference side: each compared case's output and traced cost.
 REFERENCE = r'''
@@ -60,7 +65,10 @@ jax.config.update("jax_enable_x64", True)
 from repro import core
 from repro.core import comm, grid as gridlib, inv_trsm, mm3d, rec_trsm, tri_inv
 from repro.kernels import ops
-from repro_torch.core.selfcheck import CASES, VARIANTS, random_tril, rhs
+from repro.core.bank import FactorBank
+from repro_torch.core.selfcheck import (BANK_K, BANK_M, BANK_N, BANK_N0,
+                                        CASES, VARIANTS, _bank_inputs,
+                                        capacity_script, random_tril, rhs)
 
 out_dir = sys.argv[1]
 f64 = jnp.float64
@@ -125,6 +133,83 @@ for i, (p1, p2, n, k, n0) in enumerate(CASES["rec_trsm"]):
     save("rec_trsm", i, rec_trsm.solve(L, B, grid, n0),
          cost_of(comm.traced_cost(rec_trsm.rec_trsm_sharded(grid, n, k, n0),
                                   sds(n, n), sds(n, k))))
+
+# the front door at p > 1: "inv" banks through the Pallas hook (the
+# reference's default phase 1 fails on jax 0.9); costs of the vmapped
+# (banked) programs, one factor's per example
+HOOK = dict(block_inv=ops.block_inv_kernel)
+
+
+def banked_cost(grid, method, M, n, k, n0):
+    if method == "inv":
+        return cost_of(comm.traced_cost(jax.vmap(inv_trsm.it_inv_sweep_sharded(
+            grid, n, k, n0, unroll=True)), sds(M, n, n),
+            sds(M, n // n0, n0, n0), sds(M, n, k)))
+    return cost_of(comm.traced_cost(jax.vmap(rec_trsm.rec_trsm_sharded(
+        grid, n, k, n0)), sds(M, n, n), sds(M, n, k)))
+
+
+def hook(method):
+    return HOOK if method == "inv" else {}
+
+
+for i, (p1, p2, n, k, n0, method) in enumerate(CASES["session"]):
+    grid = gridlib.make_trsm_mesh(p1, p2)
+    L, B = random_tril(n, n), rhs(n * k + 5, n, k)
+    outs = []
+    for lower, transpose in VARIANTS:
+        A = L if lower else L.T
+        solver = core.Solver.from_factor(A, grid, method=method, n0=n0,
+                                         lower=lower, transpose=transpose,
+                                         **hook(method))
+        outs.append(np.asarray(solver.solve(B, donate=False)))
+    save("session", i, np.stack(outs), banked_cost(grid, method, 1, n, k, n0))
+
+for i, (p1, p2, method) in enumerate(CASES["session_refine"]):
+    grid = gridlib.make_trsm_mesh(p1, p2)
+    n, k, n0 = 64, 16, 16
+    L = random_tril(5, n, np.float32)
+    B = rhs(6, n, k).astype(np.float32)
+    solver = core.Solver.from_factor(L, grid, method=method, n0=n0,
+                                     precision="bf16_refine", **hook(method))
+    save("session_refine", i, np.asarray(solver.solve(B, donate=False)),
+         banked_cost(grid, method, 1, n, k, n0))
+
+M, N, K, N0 = BANK_M, BANK_N, BANK_K, BANK_N0
+for i, (p1, p2, method, map_mode, precision) in enumerate(CASES["bank"]):
+    grid = gridlib.make_trsm_mesh(p1, p2)
+    Ls, B = _bank_inputs(precision)
+    bank = FactorBank(grid, N, method=method, n0=N0,
+                      dtype=None if precision else np.float64,
+                      precision=precision, map_mode=map_mode, **hook(method))
+    bank.admit_stack(Ls[:2])
+    bank.admit(Ls[2])
+    X = core.Solver.from_bank(bank).solve(B, donate=False)
+    save("bank", i, X, banked_cost(grid, method, M, N, K, N0))
+
+for i, (p1, p2) in enumerate(CASES["cyclic"]):
+    grid = gridlib.make_trsm_mesh(p1, p2)
+    L, B = random_tril(20, N), rhs(21, N, K)
+    bank = FactorBank(grid, N, n0=N0, dtype=np.float64, **HOOK)
+    bank.admit_cyclic(gridlib.to_cyclic_matrix(L, p1, p1 * p2))
+    save("cyclic", i, np.asarray(core.Solver.from_bank(bank).solve(
+        B[None], donate=False))[0])
+
+
+def solve_bank(bank, B):
+    return np.asarray(core.Solver.from_bank(bank).solve(B, donate=False),
+                      np.float64)
+
+
+for i, (p1, p2, method, precision) in enumerate(CASES["capacity"]):
+    grid = gridlib.make_trsm_mesh(p1, p2)
+    bank = FactorBank(grid, N, method=method, n0=N0,
+                      dtype=None if precision else np.float64,
+                      precision=precision, capacity=4, **hook(method))
+    waves = capacity_script(bank, N, N // 2, 30,
+                            np.float32 if precision else np.float64,
+                            solve_bank)
+    save("capacity", i, waves[-1][1])
 
 for i, (p1, p2, n, k, n0, method) in enumerate(CASES["trsm"]):
     grid = gridlib.make_trsm_mesh(p1, p2)
@@ -271,9 +356,73 @@ def test_cost_trace_matches_reference(runs, name, i):
 def test_port_check(runs, name, i):
     """``overlap``: the same bits as the sequential program; ``face``: the
     faces are lower triangular on every rank; ``order``: x-major rank
-    order of the tuple-axis collectives; ``deferred``: a refinement
-    preset, a resident factor and a bank raise, naming the next slice."""
+    order of the tuple-axis collectives; ``deferred``: structures,
+    fleets, the serving tiers and multi-rank cholesky and lu raise,
+    naming the next slice; ``padded``: a padded slot's leading block is
+    the unpadded bank's, bit for bit, lower, upper and transposed;
+    ``bank_bits``: a bank's "scan" gives "vmap"'s bits, overlap on gives
+    off's."""
     assert bool(_port(runs, name, i)["ok"])
+
+
+def _front_case(name, i) -> tuple:
+    """(method, precision) of a front-door case."""
+    case = selfcheck.CASES[name][i]
+    if name == "session":
+        return case[-1], None
+    if name == "session_refine":
+        return case[2], "bf16_refine"
+    if name == "cyclic":
+        return "inv", None
+    return case[2], case[-1]                       # bank, capacity
+
+
+def _front_tol(name, i) -> float:
+    """fp32 and bf16_refine 2e-5 (``torch_parity``); fp64 "rec" 1e-10;
+    fp64 "inv" 2e-5: the reference's banked "inv" inverts through the
+    Pallas hook, which is fp32-grade in fp64 (the port's fp64 banks are
+    held to 1e-10 of its own one-shot solve by the selfcheck)."""
+    method, precision = _front_case(name, i)
+    return 1e-10 if method == "rec" and precision is None else 2e-5
+
+
+@pytest.mark.parametrize("name,i", _cases(FRONT))
+def test_front_door_matches_reference(runs, name, i):
+    """``Solver.from_factor`` in four variants, every preset's refined
+    session, append-only banks in "vmap" and "scan", ``admit_cyclic``
+    and a capacity bank's lifecycle (compared on its live slots: the
+    reference's "rec" capacity bank solves dead lanes to NaN), each
+    against the reference's run of the same inputs."""
+    port = _port(runs, name, i)
+    got, want = port["out"], _reference(runs, name, i)["out"]
+    assert got.shape == want.shape
+    if name == "capacity":
+        live = list(json.loads(str(port["live"])))
+        got, want = got[live], want[live]
+    tol = _front_tol(name, i)
+    for g, w in zip(got.reshape((-1,) + want.shape[-2:]),
+                    want.reshape((-1,) + want.shape[-2:])):
+        assert_close(g, w, tol)
+
+
+@pytest.mark.parametrize("name,i", _cases(FRONT_COSTED))
+def test_banked_cost_trace_matches_reference(runs, name, i):
+    """A banked solve's trace outside its residual equals the
+    reference's ``traced_cost`` of the vmapped sweep (unrolled) or
+    recursion, exactly, once per pass of the preset (1 + its refine
+    steps); the residual's mm3d is the port's own part, held to
+    ``mm_cost`` by the selfcheck."""
+    from repro_torch.core import precision as preclib
+    got = json.loads(str(_port(runs, name, i)["cost"]))
+    want = json.loads(str(_reference(runs, name, i)["cost"]))
+    precision = _front_case(name, i)[1] if name == "bank" else None
+    passes = 1 + (preclib.resolve(precision).refine_steps
+                  if precision else 0)
+    assert (got["s"], got["w"], got["f"]) == (passes * want["s"],
+                                              passes * want["w"],
+                                              passes * want["f"])
+    assert got["by_op"] == {op: {key: passes * v for key, v in d.items()}
+                            for op, d in want["by_op"].items()}
 
 
 @pytest.mark.parametrize("p_row,p_col", [(2, 4), (3, 2), (1, 8), (4, 1)])

@@ -1357,21 +1357,29 @@ DIST_N, DIST_K = 512, 64
 def _dist_solve(grid, method):
     """One rank's part: the one-shot solve at n = 512 ("inv" at n0 = 64,
     m = p, all-to-all phase 1; "rec" at its default n0), X on every rank,
-    and the launches of B1, B2 and B3 it made; for "refine", the message
-    of the NotImplementedError a bf16_refine solve raises."""
+    and the launches of B1, B2 and B3 it made; for "refine", the relres
+    of a bf16_refine solve and the message of the NotImplementedError a
+    structured solve raises."""
     from repro_torch import core
+    from repro_torch.core import precision as preclib
     from repro_torch.core import selfcheck
+    from repro_torch.core.solver import SolveSpec, solver_for
+    from repro_torch.core.structure import FactorStructure
     counters = (tri_inv_block.tri_inv_blocks, trmm.trmm,
                 trsm_block.trsm_substitution)
     L = torch.as_tensor(selfcheck.random_tril(DIST_N, DIST_N))
     B = torch.as_tensor(selfcheck.rhs(5, DIST_N, DIST_K))
     if method == "refine":
+        X = core.trsm(L.float(), B.float(), grid, n0=64,
+                      precision="bf16_refine").cpu().double()
+        relres = (torch.linalg.norm(L @ X - B) / torch.linalg.norm(B)).item()
         try:
-            core.trsm(L.float(), B.float(), grid, n0=64,
-                      precision="bf16_refine")
+            solver_for(SolveSpec(n=DIST_N, k=DIST_K, grid=grid,
+                                 policy=preclib.resolve(None, L.dtype),
+                                 n0=64, structure=FactorStructure.banded(64)))
         except NotImplementedError as e:
-            return str(e)
-        return "no error"
+            return relres, str(e)
+        return relres, "no error"
     for c in counters:
         c.launches = 0
     X = core.trsm(L, B, grid, method=method,
@@ -1398,11 +1406,51 @@ def test_distributed_solve_on_the_card(cuda, method, kernels):
 
 @pytest.mark.gpu
 def test_distributed_refinement_preset_raises(cuda):
-    """A refinement preset on a p > 1 grid raises in every rank, naming
-    the next slice, instead of answering."""
+    """A refinement preset on a p > 1 grid now answers in every rank
+    within its bound (the distributed residual), and what the next slice
+    brings (a structured solve) raises there, naming it, instead of
+    answering."""
     from repro_torch.core import selfcheck
-    for msg in selfcheck.spawn(2, 2, "cuda:0", _dist_solve, "refine"):
+    for relres, msg in selfcheck.spawn(2, 2, "cuda:0", _dist_solve,
+                                       "refine"):
+        assert relres < 1e-5, relres
         assert "next slice" in msg, msg
+
+
+def _dist_bank(grid):
+    """One rank's part of the bank case: a capacity bank's lifecycle
+    ("inv" bf16_refine with a padded admission, "rec" fp32 with dead
+    lanes) and the padded identity (``selfcheck.check_capacity`` and
+    ``check_padded``), with the gated launches (B5, B6) they made."""
+    from repro_torch.core import selfcheck
+    counters = (tri_inv_block.tri_inv_blocks, trsm_block.trsm_substitution)
+    for c in counters:
+        c.valid_launches = 0
+    out = [selfcheck.check_capacity(grid, case) for case in
+           ((2, 2, "inv", "bf16_refine"), (2, 2, "rec", "fp32"))]
+    out.append(selfcheck.check_padded(grid, (2, 2, 128, 64, 16)))
+    return ([(r["ok"], r["line"], r["out"]) for r in out],
+            [c.valid_launches for c in counters])
+
+
+@pytest.mark.gpu
+def test_distributed_bank_on_the_card(cuda):
+    """A p > 1 capacity bank on the card (8 gloo ranks on cuda:0): every
+    lifecycle and padded-identity check passes in every rank, the last
+    wave's X within 2e-5 of the same ranks' plain CPU run, B5 (padded
+    phase 1) and B6 (rec's dead lanes) launched in every rank on the
+    card and in none on the CPU."""
+    import numpy as np
+    from repro_torch.core import selfcheck
+    on_card = selfcheck.spawn(2, 2, "cuda:0", _dist_bank)
+    plain = selfcheck.spawn(2, 2, "cpu", _dist_bank)
+    for (rows, launches), (cpu_rows, cpu_launches) in zip(on_card, plain):
+        for (ok, line, X), (_, _, want) in zip(rows, cpu_rows):
+            assert ok, line
+            if X is not None:
+                assert np.abs(X - want).max() <= 2e-5 * np.abs(want).max()
+        assert all(v > 0 for v in launches), launches
+        assert cpu_launches == [0, 0]
 
 
 @pytest.mark.gpu
@@ -1420,5 +1468,6 @@ def test_distributed_selfcheck_runs_on_the_card(cuda):
     proc = subprocess.run([sys.executable, "-m", "repro_torch.core.selfcheck"],
                           capture_output=True, text=True, env=env,
                           timeout=600)
+    failed = [line for line in proc.stdout.splitlines() if "FAIL" in line]
     assert proc.returncode == 0 and "selfcheck: 0 failures" in proc.stdout, \
-        f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}"
+        "\n".join(failed) + f"\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}"

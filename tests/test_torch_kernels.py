@@ -209,3 +209,19 @@ def test_bfloat16_numpy_round_trip():
     t = to_tensor(a)
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.float().numpy(), a.astype(np.float32))
+
+
+@pytest.mark.parametrize("strided", ["A", "X"])
+def test_gemm_holds_the_kernel_layout_on_the_cpu(strided):
+    """``ops.gemm`` refuses on the CPU what the tri-GEMM refuses on the
+    card (A with non-unit column stride, X not contiguous), so a CPU run
+    finds a layout the card would reject: a distributed trailing update
+    once handed it a one-column panel whose reshape left its columns
+    apart.  The conforming operands give A @ X."""
+    A = torch.randn(2, 6, 4, dtype=torch.float64)
+    X = torch.randn(2, 4, 3, dtype=torch.float64)
+    torch.testing.assert_close(ops.gemm(A, X), A @ X)
+    bad_A = A.transpose(-1, -2).contiguous().transpose(-1, -2)
+    bad_X = X.transpose(-1, -2).contiguous().transpose(-1, -2)
+    with pytest.raises(ValueError, match="unit column stride"):
+        ops.gemm(bad_A, X) if strided == "A" else ops.gemm(A, bad_X)
