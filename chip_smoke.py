@@ -187,8 +187,8 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    inverse; B1, B2 and B3 launched in every rank on their paths; every
    rank's cost trace the same.  Printed per case: host-staged seconds
    and staged bytes per rank, launches, the cost trace, and for the
-   first "inv" and the "rec" case on (2, 2) each rank's device ms of
-   kernels and of staging copies (profiler); B1, B2 and B3 against
+   first "inv" case on (2, 2) each rank's device ms of kernels and of
+   staging copies (profiler); B1, B2 and B3 against
    their plain versions on the inputs each case handed them, in every
    rank; the phase's seconds.
 13. The front door at p > 1 (``front_rank``), in phase 12's ranks after
@@ -204,20 +204,46 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    its X against the p = 1 solve of the same factor, preset and B,
    dead lanes and padded tails exactly zero, each padded slot's leading
    block bit-equal to an unpadded p > 1 bank's, the solve program built
-   once over 3 steady solves and the slot turnover, the cost trace and
+   once over a steady solve and the slot turnover, the cost trace and
    every X the same in every rank, B1, B2, B3, B5 and B6 launched where
    the case runs them and held against their plain versions on the
    inputs they were handed.  Printed per case: host-staged ms and
    staged bytes per solve, launches per rank, each kernel's ms at the
    case's inputs (rank 0 with the card to itself); the phase's seconds.
-14. The card line, the kernels' JSON summary, then the last line
+14. Structured solves and banks and the multi-rank producers at p > 1
+   (``front_rank`` on ``struct_cases``, then ``producer_rank``), in
+   phase 13's ranks after its cases, at n = 8192, k = 16, n0 = 1024,
+   the factor phase 13's, masked by admission: on (2, 2)
+   ``Solver.from_factor`` "inv" bf16_refine with banded:1024 and with
+   the 8x8 block-sparse mask, "rec" banded:1024 in fp32 and in
+   bf16_refine, and a banded C = 4 "inv" bf16_refine capacity bank
+   through phase 13's lifecycle (two admits, a padded admission,
+   replace, a ``replace_run``, evict, re-admit); on (2, 1) and (1, 4)
+   the banded "inv" bf16_refine solve.  Per case: every request's
+   relres in fp64 against the MASKED factor (1e-5), its X against the
+   p = 1 structured solve, staged bytes per solve beside the dense
+   solve of the same factor on the same grid (an "inv" case must stage
+   fewer: its panels are cut to their spans), the padded slot
+   bit-equal to an unpadded structured bank, B4 once per residual pass
+   and in no case without one, B2 once per face, B1 per admission, the
+   solve program built once, the cost trace and every X the same in
+   every rank; B4, B2, B1 (B3 and B5 where run) against their plain
+   versions on the inputs the case handed them, in every rank.  Then
+   the producers on the damped Gram matrix of phase 11 (cond(A) ~ 30):
+   ``cholesky_cyclic`` in fp32 at n = 8192 on (2, 2) and at n = 4096 on
+   (2, 1) and (1, 4), ``lu`` at n = 4096 on (2, 2) (randn + n I): each
+   residual in fp64 within 10x of the p = 1 factorization's of the same
+   matrix, the gap to it, B1 launched in every rank (held against its
+   plain version there), host-staged seconds; on (2, 2) the Cholesky
+   piece admitted into a bf16_refine bank (``admit_cyclic``) and
+   served, relres <= 1e-5 against the factor the bank holds.
+15. The card line, the kernels' JSON summary, then the last line
    ``{"ok": true, "device": {...}}``.  Each kernel's launches are those
    of its main path's run: B1 and B2 the inv configuration at the
    default n0, B3 the rec one, B4 the first structured one, B6 the rec
    churn phase, B5 the fleet phase; ``launches_distributed`` adds its
-   launches in phases 12-13, summed over ranks, grids and cases, and
-   is above 0 for every kernel but B4 (structure at p > 1 is the next
-   slice).
+   launches in phases 12-14, summed over ranks, grids and cases, and
+   is above 0 for every kernel.
 """
 
 import collections
@@ -325,11 +351,16 @@ DIST_MM3D_TOL = 1e-12
 FRONT_K = 16
 FRONT_N0 = N // 8           # m = 8: p | m on every grid, all-to-all phase 1
 FRONT_C = 4
-FRONT_STEADY = 3
+FRONT_STEADY = 1            # steady solves a case: 1 keeps the script in time
 FRONT_SEED = 170
 FRONT_RELRES = {"fp32": 1e-5, "bf16_refine": 1e-5,
                 "fp64_refine": 1e-11}         # tests/test_api_solver.py
 FRONT_AGREE = {"fp32": 1e-4, "bf16_refine": 1e-4, "fp64_refine": 1e-10}
+# phase 14: structured solves and banks and the producers at p > 1, in
+# the same ranks (the factor phase 13's, masked by admission)
+PRODUCER_SEED = 190
+PRODUCER_SMALL = N // 2         # the producers' order on (2, 1) and (1, 4)
+PRODUCER_AGREE = 1e-4           # fp32 factor against the p = 1 one
 
 
 class SmokeFailure(RuntimeError):
@@ -2872,9 +2903,10 @@ def dist_cases(p1: int, p2: int, n: int) -> list:
     all-to-all phase 1) in fp64 and fp32, at n0 = n/2 (m = 2 < p: the
     cooperative doubling) and with the all-gather phase 1, and "rec" at
     its default n0; (2, 2) also ``core.trsm`` upper and transposed, the
-    3D product and the inversion.  On (2, 2) the first "inv" and the
-    "rec" case run once more under the profiler (its start and stop
-    take ~5 s a case, so the other grids run none)."""
+    3D product and the inversion.  On (2, 2) the first "inv" case runs
+    once more under the profiler (its start and stop take ~5 s a case,
+    so the other cases and grids run none: the "rec" case's rerun was
+    cut for phase 14's time)."""
     a, b = n // 8, n // 2
     prof = (p1, p2) == (2, 2)
     cases = [(f"inv float64 n0={a}", "inv", "float64", dict(n0=a), prof),
@@ -2882,7 +2914,7 @@ def dist_cases(p1: int, p2: int, n: int) -> list:
              (f"inv float64 n0={b}", "inv", "float64", dict(n0=b), False),
              ("inv float64 allgather", "inv", "float64",
               dict(n0=a, mode="allgather"), False),
-             ("rec float64", "rec", "float64", dict(n0=None), prof)]
+             ("rec float64", "rec", "float64", dict(n0=None), False)]
     if (p1, p2) == (2, 2):
         cases += [("trsm upper float64", "inv", "float64",
                    dict(n0=a, lower=False), False),
@@ -3005,8 +3037,17 @@ def dist_rank(grid, n: int, k: int, seed: int) -> dict:
         out[label] = rec
         del res
     t13 = time.perf_counter()
-    out["front"] = front_rank(grid, L64, one)          # phase 13
+    out["front"] = front_rank(grid, L64, one, front_cases(p1, p2),
+                              13)                            # phase 13
     out["setup"]["front_s"] = time.perf_counter() - t13
+    t14 = time.perf_counter()
+    out["struct"] = front_rank(grid, L64, one, struct_cases(p1, p2), 14,
+                               out["front"])                 # phase 14
+    del L64
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["producer"] = producer_rank(grid, one)
+    out["setup"]["phase14_s"] = time.perf_counter() - t14
     out["setup"]["exit"] = time.time()
     return out
 
@@ -3068,8 +3109,8 @@ class DistKernelInputs:
     """Keeps, while entered, the last inputs of each (kernel, shapes,
     dtype) that reach B1's, B2's and B3's wrappers through
     ``kernels.ops`` (as the distributed solvers call them; B5 and B6 are
-    their gated calls), and passes every call through unchanged (the
-    counts stay the wrappers').  ``check`` then holds each kernel
+    their gated calls, B4 ``trmm``'s with a block mask), and passes
+    every call through unchanged (the counts stay the wrappers').  ``check`` then holds each kernel
     against its plain version on each kept input, after the case's
     counts were read, and ``times`` times it there."""
 
@@ -3105,8 +3146,11 @@ class DistKernelInputs:
     @staticmethod
     def gated_name(name: str, args, kw) -> str:
         """The kernel a kept call launched: B5 (``tri_inv_blocks`` with
-        a mask, passed second) and B6 (``trsm_substitution`` with
-        ``valid=``) under their own names."""
+        a mask, passed second), B6 (``trsm_substitution`` with
+        ``valid=``) and B4 (``trmm`` with ``block_mask=``) under their
+        own names."""
+        if name == "trmm" and kw.get("block_mask") is not None:
+            return "trmm_masked"
         gated = (kw.get("valid") is not None
                  or (name == "tri_inv_blocks" and len(args) > 1
                      and args[1] is not None))
@@ -3126,17 +3170,18 @@ class DistKernelInputs:
                                trsm_block.trsm_substitution_plain))
         seen = {self.gated_name(key[0], *val)
                 for key, val in self.kept.items()}
-        for name in DIST_VS_PLAIN:
-            for counted in (name, f"{name}_valid"):
-                check(launches.get(counted, 0) == 0 or counted in seen,
-                      f"{what}: {counted} launched but no input was kept")
+        for counted in counters():
+            check(launches.get(counted, 0) == 0 or counted in seen,
+                  f"{what}: {counted} launched but no input was kept")
         out = []
         for (name, shapes, dtype), (args, kw) in self.kept.items():
             kernel, plain = pairs[name]
             if name == "trmm":
-                check(kw.get("block_mask") is None,
-                      f"{what}: trmm called with a block mask (B4)")
+                # B4's plain version takes the mask and block size
                 plain_kw = {}
+                if kw.get("block_mask") is not None:
+                    plain = trmm.trmm_masked_plain
+                    plain_kw = dict(block_mask=kw["block_mask"], bt=kw["bt"])
             else:
                 plain_kw = kw
             got, want = kernel(*args, **kw), plain(*args, **plain_kw)
@@ -3211,14 +3256,20 @@ def front_factor(L64, j: int, order: int | None = None,
 
 
 class FrontCase:
-    """One rank's run of one phase-13 case: the calls a user makes, each
-    solve's host-clock seconds to a synchronize (the collectives staged
-    through the host) and staged bytes, the solve program's builds, and,
-    in rank 0, every request's X and the factor it was solved against
-    (kept for the checks after the counts were read)."""
+    """One rank's run of one phase-13 or phase-14 case: the calls a user
+    makes, each solve's host-clock seconds to a synchronize (the
+    collectives staged through the host) and staged bytes, the solve
+    program's builds, and, in rank 0, every request's X and the factor
+    it was solved against (kept for the checks after the counts were
+    read).  ``opt["structure"]`` (a CLI spelling) makes every solver and
+    bank of the case structured."""
 
-    def __init__(self, grid, opt):
-        self.grid, self.opt = grid, opt
+    def __init__(self, grid, opt, phase: int = 13):
+        from repro_torch import api
+        self.grid, self.opt, self.phase = grid, opt, phase
+        self.structure = None
+        if "structure" in opt:
+            self.structure = api.FactorStructure.parse(opt["structure"], n=N)
         self.rank0 = grid.mesh.rank == 0
         self.solves = []              # (seconds, staged bytes)
         self.requests = []            # rank 0: (label, A, B, X, pad d)
@@ -3260,12 +3311,14 @@ def front_rhs(rng, C: int, live: dict, n: int, dt) -> np.ndarray:
 
 
 def front_solver_case(api, case, L64, rng):
-    """``Solver.from_factor`` at the preset, then 3 steady solves."""
+    """``Solver.from_factor`` at the preset, then ``FRONT_STEADY``
+    steady solves."""
     o, n = case.opt, L64.shape[0]
     dt = torch.float64 if o["precision"] == "fp64_refine" else torch.float32
     A = front_factor(L64, 0, dtype=dt)
     solver = api.Solver.from_factor(A, case.grid, method=o["method"],
-                                    n0=FRONT_N0, precision=o["precision"])
+                                    n0=FRONT_N0, precision=o["precision"],
+                                    structure=case.structure)
     npdt = np.float64 if dt == torch.float64 else np.float32
     for i in range(1 + FRONT_STEADY):
         B = rng.standard_normal((1, n, FRONT_K)).astype(npdt)
@@ -3277,13 +3330,14 @@ def front_solver_case(api, case, L64, rng):
 
 def front_lifecycle_case(api, case, L64, rng):
     """A C = 4 capacity bank: two admits, a padded admission of an order
-    n/2 factor (B5), 3 steady waves; replace, a replace_run of 2, evict,
-    a wave; re-admit, a wave.  The solve program is built once over all
-    of it."""
+    n/2 factor (B5), a wave and ``FRONT_STEADY`` steady ones; replace,
+    a replace_run of 2, evict, a wave; re-admit, a wave.  The solve
+    program is built once over all of it."""
     o, n = case.opt, L64.shape[0]
     d = n // 2
     bank = api.FactorBank(case.grid, n, method=o["method"], n0=FRONT_N0,
-                          precision=o["precision"], capacity=FRONT_C)
+                          precision=o["precision"], capacity=FRONT_C,
+                          structure=case.structure)
     solver = api.Solver.from_bank(bank)
     held = [None] * FRONT_C
     j = iter(range(1, 100))
@@ -3330,8 +3384,8 @@ def front_lifecycle_case(api, case, L64, rng):
 
 def front_padded_case(api, case, L64, rng, C: int = 2):
     """A C = 2 capacity bank: one admit and one padded admission of an
-    order n/2 factor (B5), lower or upper (the reversed mask), then 3
-    steady waves."""
+    order n/2 factor (B5), lower or upper (the reversed mask), then a
+    wave and ``FRONT_STEADY`` steady ones."""
     o, n = case.opt, L64.shape[0]
     d = n // 2
     lower = o["lower"]
@@ -3376,17 +3430,18 @@ def front_dead_case(api, case, L64, rng):
 
 
 def front_checks(api, case, one, label, gname) -> dict:
-    """Rank 0's checks of one phase-13 case, in fp64 on the card: every
-    request's relres against the factor its slot held (its leading d
-    rows for a padded slot, whose tail must be exactly zero), every dead
-    lane exactly zero, the X of each request against the p = 1 solve of
-    the same factor, preset and B, and a padded slot's leading block
-    bit-equal to the unpadded p > 1 solve of the same factor (an order
-    n/2 bank of the same width, its phase 1 the all-gather's B1).  Each
-    p = 1 solve is held to the preset's bound as well."""
-    o, dev = case.opt, one.device
+    """Rank 0's checks of one phase-13 or phase-14 case, in fp64 on the
+    card: every request's relres against the factor its slot held (its
+    leading d rows for a padded slot, whose tail must be exactly zero;
+    for a structured case the factor MASKED to the structure, the
+    operator admission made of it), every dead lane exactly zero, the X
+    of each request against the p = 1 solve of the same factor, preset,
+    structure and B.  Each p = 1 solve is held to the preset's bound as
+    well."""
+    from repro_torch.core.structure import apply_block_mask
+    o, dev, st = case.opt, one.device, case.structure
     bound = FRONT_RELRES[o["precision"]]
-    what = f"phase 13 {gname} {label}"
+    what = f"phase {case.phase} {gname} {label}"
     worst, worst_p1, p1_solves, on_card = 0.0, 0.0, {}, {}
     for req, h, B, X in case.requests:
         if h is None:
@@ -3399,7 +3454,9 @@ def front_checks(api, case, one, label, gname) -> dict:
                                         f"is not zero")
         if id(A) not in on_card:
             on_card.clear()                  # one factor on the card at once
-            on_card[id(A)] = A.to(dev, torch.float64)
+            A64 = A.to(dev, torch.float64)
+            on_card[id(A)] = A64 if st is None else apply_block_mask(
+                A64, st, FRONT_N0)
         A64, X64 = on_card[id(A)], X[:d].to(dev, torch.float64)
         B64 = torch.as_tensor(B[:d], device=dev, dtype=torch.float64)
         rel = (torch.linalg.norm(A64 @ X64 - B64)
@@ -3411,7 +3468,8 @@ def front_checks(api, case, one, label, gname) -> dict:
         if key not in p1_solves:
             s1 = api.Solver.from_factor(
                 A, one, method=o["method"], n0=FRONT_N0,
-                precision=o["precision"], lower=o.get("lower", True))
+                precision=o["precision"], lower=o.get("lower", True),
+                structure=st)
             X1 = s1.solve(torch.as_tensor(B[:d], device=dev,
                                           dtype=s1.dtype)).double()
             # the p = 1 solve is served at the preset's bound too (for
@@ -3444,7 +3502,8 @@ def front_padded_bits(api, case) -> list:
         small = api.FactorBank(case.grid, d, method=o["method"], n0=FRONT_N0,
                                precision=o["precision"], capacity=C,
                                mode="allgather",
-                               lower=o.get("lower", True))
+                               lower=o.get("lower", True),
+                               structure=case.structure)
         small.admit(A)
         B = np.zeros((C, d, FRONT_K), np.float32)
         B[0] = Bpad[:d]
@@ -3452,9 +3511,9 @@ def front_padded_bits(api, case) -> list:
             B, device=case.grid.device))[0].cpu()
         bit = torch.equal(Xpad[:d], X)
         rows.append(dict(slot=slot, order=d, bit_equal=bit))
-        check(bit, f"phase 13 rank {case.grid.mesh.rank}: padded slot "
-                   f"{slot}'s leading block differs from the unpadded "
-                   f"p > 1 solve")
+        check(bit, f"phase {case.phase} rank {case.grid.mesh.rank}: "
+                   f"padded slot {slot}'s leading block differs from the "
+                   f"unpadded p > 1 solve")
     return rows
 
 
@@ -3463,26 +3522,49 @@ FRONT_RUNNERS = {"solver": front_solver_case,
                  "padded": front_padded_case, "dead": front_dead_case}
 
 
-def front_rank(grid, L64, one) -> dict:
-    """One rank's part of phase 13 on ``grid`` (after phase 12, in the
-    same ranks): every case through the front door a user calls, the
-    kernel counts set to 0 just before it and read just after, its cost
-    trace, host-staged seconds and staged bytes per solve, the sum of
-    every X (the same in every rank); then, after the counts were read,
-    B1, B2, B3, B5 and B6 against their plain versions on the inputs
-    the case handed them, each padded slot against the unpadded p > 1
-    solve, and in rank 0 every request's relres and its gap to the
-    p = 1 solve.  Returns {label: record}."""
+def dense_staged(api, grid, L64, opt) -> int:
+    """Bytes one rank stages in one solve of phase 13's factor at the
+    case's method and preset with no structure: the baseline an "inv"
+    structured solve's narrowed panels are held under."""
+    A = front_factor(L64, 0)
+    solver = api.Solver.from_factor(A, grid, method=opt["method"],
+                                    n0=FRONT_N0, precision=opt["precision"])
+    B = torch.zeros((1, L64.shape[0], FRONT_K), device=grid.device,
+                    dtype=solver.dtype)
+    torch.cuda.synchronize()
+    staged0 = grid.mesh.staged_bytes
+    solver.solve(B)
+    torch.cuda.synchronize()
+    return grid.mesh.staged_bytes - staged0
+
+
+def front_rank(grid, L64, one, cases, phase: int, front=None) -> dict:
+    """One rank's part of phase 13 (``front_cases``) or of phase 14's
+    structured cases (``struct_cases``) on ``grid`` (after phase 12, in
+    the same ranks): every case through the front door a user calls,
+    the kernel counts set to 0 just before it and read just after, its
+    cost trace, host-staged seconds and staged bytes per solve, the sum
+    of every X (the same in every rank); then, after the counts were
+    read, every kernel it ran (B1-B6) against its plain version on the
+    inputs the case handed them, rank 0's kernel times there, each
+    padded slot against the unpadded p > 1 solve, for a structured
+    "inv" case the dense solve's staged bytes (phase 13's solve of the
+    same factor and preset where ``front`` has it, else one here), and
+    in rank 0 every request's relres and its gap to the p = 1 solve.
+    Returns {label: record}."""
     import torch.distributed as dist
     from repro_torch import api
     from repro_torch.core import comm
     p1, p2, rank = grid.p1, grid.p2, grid.mesh.rank
     gname = f"{p1}x{p1}x{p2}"
     timer = Timer(grid.device) if rank == 0 else None
-    out = {}
-    for label, kind, opt in front_cases(p1, p2):
+    out, dense = {}, {}
+    if front and "inv bf16_refine" in front:
+        dense[("inv", "bf16_refine")] = int(np.median(
+            front["inv bf16_refine"]["staged_bytes"]))
+    for label, kind, opt in cases:
         rng = np.random.default_rng(FRONT_SEED)
-        case = FrontCase(grid, opt)
+        case = FrontCase(grid, opt, phase)
         torch.cuda.synchronize()
         dist.barrier()                 # every rank starts the case at once
         kept = DistKernelInputs()
@@ -3498,17 +3580,23 @@ def front_rank(grid, L64, one) -> dict:
                    x_sums=case.sums, steady=case.steady,
                    cost=dict(t.summary(), by_op=t.by_op(),
                              residual=t.part("residual").summary()))
-        what = f"phase 13 {gname} rank {rank} {label}"
+        what = f"phase {phase} {gname} rank {rank} {label}"
         check(case.steady, f"{what}: the solve program was rebuilt")
+        residual = case.structure is not None \
+            and opt["precision"] != "fp32"
         for name, used in (
                 ("tri_inv_blocks", opt["method"] == "inv"),
                 ("trmm", opt["method"] == "inv"),
                 ("trsm_substitution", kind == "solver"
                  and opt["method"] == "rec"),
+                ("trmm_masked", residual),
                 ("tri_inv_blocks_valid", kind in ("lifecycle", "padded")),
                 ("trsm_substitution_valid", kind == "dead")):
             check(not used or launches[name] > 0,
                   f"{what}: {name} launched 0 times")
+        # B4 forms a structured residual's local product, and nothing else
+        check(residual or launches["trmm_masked"] == 0,
+              f"{what}: trmm_masked launched with no structured residual")
         tc = time.perf_counter()
         rec["vs_plain"] = kept.check(what, launches)
         # rank 0 times the kernels at this case's inputs while the other
@@ -3518,6 +3606,16 @@ def front_rank(grid, L64, one) -> dict:
         kept.kept.clear()
         dist.barrier()
         rec["padded_bits"] = front_padded_bits(api, case)
+        if case.structure is not None and opt["method"] == "inv":
+            key = (opt["method"], opt["precision"])
+            if key not in dense:
+                dense[key] = dense_staged(api, grid, L64, opt)
+            rec["dense_staged_bytes"] = dense[key]
+            if kind == "solver":
+                check(max(rec["staged_bytes"]) < dense[key],
+                      f"{what}: a structured solve staged "
+                      f"{max(rec['staged_bytes'])} bytes, the dense one "
+                      f"{dense[key]}")
         if rank == 0:
             rec.update(front_checks(api, case, one, label, gname))
         rec["checks_s"] = time.perf_counter() - tc
@@ -3530,34 +3628,35 @@ def front_rank(grid, L64, one) -> dict:
 
 FRONT_KERNELS = ("tri_inv_blocks", "trmm", "trsm_substitution",
                  "tri_inv_blocks_valid", "trsm_substitution_valid")
+# phase 14 holds these against their plain versions on every grid (B3
+# and B5 on (2, 2) alone, its "rec" and lifecycle cases)
+PHASE14_KERNELS = ("tri_inv_blocks", "trmm", "trmm_masked",
+                   "trsm_substitution", "tri_inv_blocks_valid")
 
 
-def front_report(ranks, gname: str, totals) -> None:
-    """Phase 13's lines for one grid: per case the host-staged ms per
-    solve, staged bytes per solve and launches in every rank, each
-    kernel's ms at the case's inputs (rank 0's, the card to itself),
-    relres, the gap to p = 1
-    and the padded bits; the cost traces and every X the same in every
-    rank; then every kernel the grid ran held against its plain
-    version (B1, B2, B5 and B6 everywhere, B3 on (2, 2))."""
+def front_report(ranks, gname: str, totals, part: str = "front",
+                 line: str = "front_case") -> dict:
+    """Phase 13's lines (or phase 14's structured ones: ``part``
+    "struct", ``line`` "struct_case") for one grid: per case the
+    host-staged ms per solve, staged bytes per solve (and the dense
+    solve's, for a structured "inv" case) and launches in every rank,
+    each kernel's ms at the case's inputs (rank 0's, the card to
+    itself), relres, the gap to p = 1 and the padded bits; the cost
+    traces and every X the same in every rank.  Returns every kernel
+    the cases held against its plain version (``held_rows``)."""
     held = {}
-    for label, rec in ranks[0]["front"].items():
-        recs = [r["front"][label] for r in ranks]
+    phase = 13 if part == "front" else 14
+    for label, rec in ranks[0][part].items():
+        recs = [r[part][label] for r in ranks]
         check(all(r["cost"] == rec["cost"] for r in recs),
-              f"phase 13 {gname} {label}: cost traces differ across ranks")
+              f"phase {phase} {gname} {label}: cost traces differ across "
+              f"ranks")
         check(all(r["x_sums"] == rec["x_sums"] for r in recs),
-              f"phase 13 {gname} {label}: X differs across ranks")
+              f"phase {phase} {gname} {label}: X differs across ranks")
         for r in recs:
             totals.update(r["launches"])
+        held_rows(recs, held)
         kernel_ms = {}
-        for r in recs:
-            for v in r["vs_plain"]:
-                a = held.setdefault(v["kernel"], dict(
-                    inputs=0, worst_rel_err=0.0, shapes=[]))
-                a["inputs"] += 1
-                a["worst_rel_err"] = max(a["worst_rel_err"], v["max_rel_err"])
-                if v["shapes"] not in a["shapes"]:
-                    a["shapes"].append(v["shapes"])
         for v in rec["kernel_ms"]:
             kernel_ms.setdefault(v["kernel"], []).append(
                 dict(shapes=v["shapes"], dtype=v["dtype"], ms=v["ms"]))
@@ -3577,29 +3676,260 @@ def front_report(ranks, gname: str, totals) -> None:
             padded_bits=rec["padded_bits"],
             **{k: rec[k] for k in ("relres", "relres_p1", "vs_p1",
                                    "requests", "p1_solves")})
-        print(json.dumps({"front_case": row}), flush=True)
-    want = FRONT_KERNELS if gname == "2x2x2" else tuple(
-        k for k in FRONT_KERNELS if k != "trsm_substitution")
+        if "dense_staged_bytes" in rec:
+            row["dense_staged_bytes_per_solve"] = [
+                r["dense_staged_bytes"] for r in recs]
+        print(json.dumps({line: row}), flush=True)
+    return held
+
+
+def kernels_line(key: str, phase: int, gname: str, held: dict,
+                 want) -> None:
+    """Fail unless each kernel of ``want`` was held against its plain
+    version on some input of the phase's cases, then print ``held``."""
     for name in want:
-        check(name in held, f"phase 13 {gname}: {name} was held against its "
-                            f"plain version on no input")
-    print(json.dumps({"front_kernels": dict(
-        grid=gname, note="each kernel against its plain version on the "
-                         "inputs phase 13's cases handed it, every rank",
-        **held)}), flush=True)
+        check(name in held, f"phase {phase} {gname}: {name} was held "
+                            f"against its plain version on no input")
+    print(json.dumps({key: dict(
+        grid=gname, note=f"each kernel against its plain version on the "
+                         f"inputs phase {phase}'s cases handed it, every "
+                         f"rank", **held)}), flush=True)
+
+
+def struct_cases(p1: int, p2: int) -> list:
+    """Phase 14's structured cases on one grid: (label, kind, options).
+    Every grid: ``Solver.from_factor`` "inv" bf16_refine with a band of
+    n0 (banded:1024); (2, 2) also the 8x8 block-sparse mask, "rec"
+    banded in fp32 (no residual) and bf16_refine, and a banded C = 4
+    "inv" bf16_refine capacity bank's lifecycle.  n0 = 1024."""
+    band = f"banded:{FRONT_N0}"
+    banded = (f"inv {band} bf16_refine", "solver",
+              dict(method="inv", precision="bf16_refine", structure=band))
+    if (p1, p2) != (2, 2):
+        return [banded]
+    return [banded,
+            ("inv block-sparse 8x8 bf16_refine", "solver",
+             dict(method="inv", precision="bf16_refine",
+                  structure="block-sparse")),
+            (f"rec {band} fp32", "solver",
+             dict(method="rec", precision="fp32", structure=band)),
+            (f"rec {band} bf16_refine", "solver",
+             dict(method="rec", precision="bf16_refine", structure=band)),
+            (f"capacity inv {band} bf16_refine lifecycle", "lifecycle",
+             dict(method="inv", precision="bf16_refine", structure=band))]
+
+
+def producer_cases(p1: int, p2: int) -> list:
+    """Phase 14's producer cases: (label, kind, n).  (2, 2):
+    ``cholesky_cyclic`` at n = 8192 (its piece then banked and served)
+    and ``lu`` at 4096; (2, 1) and (1, 4): ``cholesky_cyclic`` at 4096."""
+    if (p1, p2) == (2, 2):
+        return [(f"cholesky_cyclic n={N}", "cholesky", N),
+                (f"lu n={PRODUCER_SMALL}", "lu", PRODUCER_SMALL)]
+    return [(f"cholesky_cyclic n={PRODUCER_SMALL}", "cholesky",
+             PRODUCER_SMALL)]
+
+
+def producer_input(kind: str, n: int, device) -> torch.Tensor:
+    """The same matrix in every rank (a seeded CUDA generator): for
+    Cholesky phase 11's damped Gram matrix G G^T / 2n + 1e-2 I (cond ~
+    30), for LU randn + n I, fp32."""
+    g = torch.Generator(device=device).manual_seed(PRODUCER_SEED + n)
+    if kind == "lu":
+        A = torch.randn((n, n), generator=g, device=device)
+        A.diagonal().add_(n)
+        return A
+    G = torch.randn((n, 2 * n), generator=g, device=device)
+    A = G @ G.T / (2 * n)
+    A.diagonal().add_(FACTOR_SHIFT)
+    return A
+
+
+def producer_rank(grid, one) -> dict:
+    """One rank's part of phase 14's producer cases: each factorization
+    through its entry point, the kernel counts set to 0 just before and
+    read just after, host-staged seconds and staged bytes; then B1
+    against its plain version on the stacks it was handed, the natural
+    factor gathered (outside the count) and, in rank 0, its residual in
+    fp64 beside the p = 1 factorization's of the same matrix and the
+    gap to it.  On (2, 2) the Cholesky piece goes into a bf16_refine
+    bank (``admit_cyclic``, counted apart) and is served: relres against
+    the factor the bank holds.  Returns {label: record}."""
+    import torch.distributed as dist
+    from repro_torch import api
+    from repro_torch.core import cholesky, comm, lu
+    from repro_torch.core import grid as gridlib
+    p1, p2, rank = grid.p1, grid.p2, grid.mesh.rank
+    gname = f"{p1}x{p1}x{p2}"
+    out = {}
+    for label, kind, n in producer_cases(p1, p2):
+        A = producer_input(kind, n, grid.device)
+        what = f"phase 14 {gname} rank {rank} {label}"
+        run = (lambda: cholesky.cholesky_cyclic(A, grid)) \
+            if kind == "cholesky" else (lambda: lu.lu(A, grid))
+        staged0 = grid.mesh.staged_bytes
+        torch.cuda.synchronize()
+        dist.barrier()
+        kept = DistKernelInputs()
+        reset_counts()
+        t0 = time.perf_counter()
+        with kept, comm.trace() as t:
+            res = run()
+        torch.cuda.synchronize()
+        rec = dict(seconds=time.perf_counter() - t0, launches=read_counts(),
+                   staged_bytes=grid.mesh.staged_bytes - staged0,
+                   cost=dict(t.summary()))
+        check(rec["launches"]["tri_inv_blocks"] > 0,
+              f"{what}: tri_inv_blocks launched 0 times")
+        tc = time.perf_counter()
+        rec["vs_plain"] = kept.check(what, rec["launches"])
+        kept.kept.clear()
+        if kind == "cholesky":
+            piece = res
+            check(tuple(piece.shape) == (n // p1, n // (p1 * p2)),
+                  f"{what}: the cyclic output is {tuple(piece.shape)}, not "
+                  f"this rank's piece")
+            factors = (gridlib.gather_natural(piece, grid, "L", n, n),)
+        else:
+            factors = res
+        if rank == 0:
+            A64 = A.double()
+            if kind == "cholesky":
+                L64 = factors[0].double()
+                R = L64 @ L64.T - A64
+                L1 = cholesky.cholesky(A, one)
+                R1 = L1.double() @ L1.double().T - A64
+                want = (L1,)
+            else:
+                R = factors[0].double() @ factors[1].double() - A64
+                L1, U1 = lu.lu(A, one)
+                R1 = L1.double() @ U1.double() - A64
+                want = (L1, U1)
+            r, r1 = fro_rel(R, A64), fro_rel(R1, A64)
+            del R, R1, A64
+            gap = max(((F.double() - W.double()).abs().max()
+                       / W.double().abs().max()).item()
+                      for F, W in zip(factors, want))
+            check(r <= 10 * r1, f"{what}: residual {r} > 10x the p = 1 "
+                                f"factorization's {r1}")
+            check(gap <= PRODUCER_AGREE, f"{what}: {gap} from the p = 1 "
+                                         f"factorization")
+            rec.update(rel_residual=r, rel_residual_p1=r1, vs_p1=gap)
+        if kind == "cholesky" and (p1, p2) == (2, 2):
+            rec["bank"] = producer_bank(api, grid, piece, factors[0], what)
+        rec["checks_s"] = time.perf_counter() - tc
+        out[label] = rec
+        del A, res, factors
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def producer_bank(api, grid, piece, L, what) -> dict:
+    """The Cholesky piece into a bf16_refine bank through
+    ``admit_cyclic`` and one solve of k = 16, counted from 0 around
+    both; relres (every rank) against the factor the bank holds, the
+    natural fp32 ``L``."""
+    from repro_torch.core import comm
+    n = L.shape[0]
+    B = torch.as_tensor(np.random.default_rng(PRODUCER_SEED).standard_normal(
+        (1, n, FRONT_K)).astype(np.float32), device=grid.device)
+    kept = DistKernelInputs()
+    torch.cuda.synchronize()
+    torch.distributed.barrier()    # rank 0's checks ran before this
+    staged0 = grid.mesh.staged_bytes
+    reset_counts()
+    t0 = time.perf_counter()
+    with kept, comm.trace():
+        bank = api.FactorBank(grid, n, method="inv", n0=FRONT_N0,
+                              precision="bf16_refine")
+        bank.admit_cyclic(piece)
+        X = api.Solver.from_bank(bank).solve(B)
+    torch.cuda.synchronize()
+    rec = dict(seconds=time.perf_counter() - t0, launches=read_counts(),
+               staged_bytes=grid.mesh.staged_bytes - staged0)
+    for name in ("tri_inv_blocks", "trmm"):
+        check(rec["launches"][name] > 0, f"{what} bank: {name} launched 0 "
+                                         f"times")
+    rec["vs_plain"] = kept.check(f"{what} bank", rec["launches"])
+    kept.kept.clear()
+    L64, X64, B64 = L.double(), X[0].double(), B[0].double()
+    rel = (torch.linalg.norm(L64 @ X64 - B64) / torch.linalg.norm(B64)
+           ).item()
+    check(rel <= FACTOR_RELRES, f"{what} bank: relres {rel} > "
+                                f"{FACTOR_RELRES}")
+    rec.update(relres=rel, relres_bound=FACTOR_RELRES,
+               config=f"inv bf16_refine n0={FRONT_N0}, admit_cyclic of "
+                      f"this rank's piece")
+    return rec
+
+
+def held_rows(recs, held: dict) -> None:
+    """Sum the kernel-against-plain rows of one case in every rank (a
+    producer case's bank's included) into ``held``: kernel -> inputs,
+    worst error, shapes."""
+    for rec in recs:
+        rows = list(rec["vs_plain"])
+        if "bank" in rec:
+            rows += rec["bank"]["vs_plain"]
+        for v in rows:
+            a = held.setdefault(v["kernel"], dict(
+                inputs=0, worst_rel_err=0.0, shapes=[]))
+            a["inputs"] += 1
+            a["worst_rel_err"] = max(a["worst_rel_err"], v["max_rel_err"])
+            if v["shapes"] not in a["shapes"]:
+                a["shapes"].append(v["shapes"])
+
+
+def producer_report(ranks, gname: str, totals, held: dict) -> None:
+    """Phase 14's producer lines for one grid: per factorization the
+    host-staged seconds, staged MB and B1 launches per rank, the
+    residual beside p = 1's and the gap to it, the bank's relres on
+    (2, 2); every rank's cost trace the same; its kernels' checks
+    summed into ``held``."""
+    for label, rec in ranks[0]["producer"].items():
+        recs = [r["producer"][label] for r in ranks]
+        check(all(r["cost"] == rec["cost"] for r in recs),
+              f"phase 14 {gname} {label}: cost traces differ across ranks")
+        for r in recs:
+            totals.update(r["launches"])
+            if "bank" in r:
+                totals.update(r["bank"]["launches"])
+        held_rows(recs, held)
+        row = dict(
+            grid=gname, case=label,
+            host_staged_seconds=[r["seconds"] for r in recs],
+            staged_mb_per_rank=[r["staged_bytes"] / 1e6 for r in recs],
+            b1_launches_per_rank=[r["launches"]["tri_inv_blocks"]
+                                  for r in recs],
+            cost=rec["cost"],
+            **{k: rec[k] for k in ("rel_residual", "rel_residual_p1",
+                                   "vs_p1")})
+        if "bank" in rec:
+            row["bank"] = dict(
+                relres=[r["bank"]["relres"] for r in recs],
+                seconds=[r["bank"]["seconds"] for r in recs],
+                staged_mb_per_rank=[r["bank"]["staged_bytes"] / 1e6
+                                    for r in recs],
+                launches_per_rank=[{k: v for k, v in
+                                    r["bank"]["launches"].items() if v}
+                                   for r in recs],
+                config=rec["bank"]["config"])
+        print(json.dumps({"producer_case": row}), flush=True)
 
 
 def distributed_phase(card: str) -> dict:
-    """Phases 12 and 13: It-Inv, rec, the one-shot ``core.trsm``, the 3D
-    product and the inversion, then the front door (``front_rank``), at
-    n = 8192 on the (2, 2), (2, 1) and (1, 4) grids: one spawn of p
-    ranks each, serving both phases (spawn start method: this process holds a
+    """Phases 12-14: It-Inv, rec, the one-shot ``core.trsm``, the 3D
+    product and the inversion, then the front door (``front_rank``),
+    then structure and the producers (``front_rank`` on
+    ``struct_cases``, ``producer_rank``), at n = 8192 on the (2, 2), (2, 1) and (1, 4)
+    grids: one spawn of p ranks each, serving the three phases (spawn start method: this process holds a
     CUDA context), gloo, every rank on cuda:0 with its own context.  NCCL
     refuses two ranks on one GPU, so every collective goes through host
     memory (staged) while every kernel launch runs on the card: this
     checks the algorithms and their kernels, not an interconnect.  Any
     rank's failure fails the phase.  Returns {kernel: launches}, summed
-    over ranks, grids, cases and both phases."""
+    over ranks, grids, cases and the three phases."""
     from repro_torch.core import selfcheck
     t0 = time.perf_counter()
     print(json.dumps(dict(distributed=dict(
@@ -3608,7 +3938,7 @@ def distributed_phase(card: str) -> dict:
              "staged through host memory, kernels run on the card; NCCL "
              "(one GPU per rank) is not exercised"))), flush=True)
     totals = collections.Counter()
-    t13 = 0.0
+    t13 = t14 = 0.0
     for p1, p2 in DIST_GRIDS:
         tg, t_spawn = time.perf_counter(), time.time()
         ranks = selfcheck.spawn(p1, p2, "cuda:0", dist_rank, N, DIST_K,
@@ -3620,7 +3950,7 @@ def distributed_phase(card: str) -> dict:
             if label == "setup":
                 setup = rec
                 continue
-            if label == "front":
+            if label in ("front", "struct", "producer"):
                 continue
             costs = [r[label]["cost"] for r in ranks]
             check(all(c == costs[0] for c in costs),
@@ -3682,12 +4012,24 @@ def distributed_phase(card: str) -> dict:
             rank0_inputs_s=setup["inputs_s"],
             rank0_checks_s=setup["checks_s"],
             rank0_profile_s=setup["profile_s"],
-            phase13_s_per_rank=[r["setup"]["front_s"] for r in ranks])),
+            phase13_s_per_rank=[r["setup"]["front_s"] for r in ranks],
+            phase14_s_per_rank=[r["setup"]["phase14_s"] for r in ranks])),
             flush=True)
         t13 += max(r["setup"]["front_s"] for r in ranks)
-        front_report(ranks, gname, totals)
-    print(json.dumps(dict(phase12_s=time.perf_counter() - t0 - t13,
+        t14 += max(r["setup"]["phase14_s"] for r in ranks)
+        kernels_line("front_kernels", 13, gname,
+                     front_report(ranks, gname, totals),
+                     FRONT_KERNELS if gname == "2x2x2" else tuple(
+                         k for k in FRONT_KERNELS
+                         if k != "trsm_substitution"))
+        held = front_report(ranks, gname, totals, "struct", "struct_case")
+        producer_report(ranks, gname, totals, held)
+        kernels_line("phase14_kernels", 14, gname, held,
+                     PHASE14_KERNELS if gname == "2x2x2"
+                     else PHASE14_KERNELS[:3])
+    print(json.dumps(dict(phase12_s=time.perf_counter() - t0 - t13 - t14,
                           phase13_s=t13)), flush=True)
+    print(json.dumps(dict(phase14_s=t14)), flush=True)
     return dict(totals)
 
 
@@ -3765,7 +4107,7 @@ def main() -> int:
     del grid
     gc.collect()
     torch.cuda.empty_cache()
-    dist_launches = distributed_phase(card)               # phases 12-13
+    dist_launches = distributed_phase(card)               # phases 12-14
 
     kernels = []
     for name, method, source, replaces in (
@@ -3789,8 +4131,8 @@ def main() -> int:
         launches = main_launches[method][name]
         check(launches > 0, f"{name} never launched on the {method} main "
                             f"path")
-        check(name == "trmm_masked" or dist_launches.get(name, 0) > 0,
-              f"{name} never launched at p > 1 (phases 12-13)")
+        check(dist_launches.get(name, 0) > 0,
+              f"{name} never launched at p > 1 (phases 12-14)")
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches,
                             max_abs_err=rec["max_abs_err"],

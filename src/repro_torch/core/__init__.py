@@ -17,8 +17,10 @@ p > 1: one rank per process, in a ``torch.distributed`` world of p
 rank; so do the front door's ``Solver`` (every constructor, every
 precision preset) and ``FactorBank`` (append-only and capacity, padded
 admission and cyclic ingestion), every rank making each call in the
-same order.  Structures, fleets, the serving tiers and multi-rank
-``cholesky`` and ``lu`` raise ``NotImplementedError`` there.
+same order, structured factors included; so do ``cholesky`` and ``lu``
+(natural results on every rank; the ``_cyclic`` producers return this
+rank's piece, which ``FactorBank.admit_cyclic`` takes).  Fleets and
+the serving tiers raise ``NotImplementedError`` there.
 ``python -m repro_torch.core.selfcheck`` runs them on gloo ranks.
 """
 

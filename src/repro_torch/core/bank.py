@@ -35,8 +35,11 @@ phase 1, which is collective: every rank calls ``admit``,
 ``admit_stack``, ``admit_cyclic``, ``replace``, ``replace_run`` and
 ``replace_cyclic`` in the same order with the same factor, and keeps
 its own pieces.  ``evict`` and the liveness bookkeeping are local and
-the same in every rank.  A structured bank at p > 1 comes with the
-next slice (``NotImplementedError``).
+the same in every rank.  A structured bank masks the natural factor to
+its structure before the pieces are cut.  ``admit_cyclic`` and
+``replace_cyclic`` take either the whole cyclic-layout factor (every
+rank the same) or this rank's own piece of it, as a multi-rank
+``cholesky_cyclic`` or ``lu_cyclic`` returns it.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ import torch
 
 from repro_torch.core import precision as preclib
 from repro_torch.core import session as sessionlib
-from repro_torch.core.grid import NEXT_SLICE, TrsmGrid, cyclic_piece
+from repro_torch.core.grid import TrsmGrid, cyclic_piece
 from repro_torch.core.session import CompiledSolverCache
 
 _CYCLIC_OPERATOR = (
@@ -99,9 +102,13 @@ class FactorBank:
             raise ValueError("a plan-only grid (plan_grid) has no device: "
                              "build banks on make_trsm_mesh")
         self.structure = solverlib._normalize_structure(structure)
-        if grid.p > 1 and self.structure is not None:
-            raise NotImplementedError(f"structured banks over p > 1 ranks "
-                                      f"{NEXT_SLICE}")
+        if grid.p > 1 and self.structure is not None and method == "rec" \
+                and n0 is None:
+            # rec's base case follows k at p > 1, and the admission mask
+            # and the residual's (B4) must use one block size
+            raise ValueError("a structured 'rec' bank over p > 1 ranks "
+                             "needs n0: its admission mask and its "
+                             "residual's block mask use that block size")
         if self.structure is not None:
             self.structure.validate_for(n, lower=lower,
                                         transpose=transpose)
@@ -323,16 +330,28 @@ class FactorBank:
             return list(range(M))
         return [self.admit(Ls[j]) for j in range(M)]
 
+    def _check_cyclic(self, L_cyc) -> None:
+        """A cyclic factor: the whole (n, n) cyclic-layout matrix or, at
+        p > 1, this rank's (n/p1, n/(p1 p2)) piece of it."""
+        p1, p2 = self.grid.p1, self.grid.p2
+        piece = (self.n // p1, self.n // (p1 * p2))
+        if self.grid.p > 1 and L_cyc.ndim == 2 \
+                and tuple(L_cyc.shape) == piece:
+            return
+        self._check_square(L_cyc, 2)
+
     def admit_cyclic(self, L_cyc) -> int:
         """Admit a factor ALREADY in the cyclic storage the producers
         emit (``cholesky_cyclic`` / ``lu_cyclic``): only the policy's
         casts (and phase 1) run.  At p = 1 cyclic storage is the natural
-        layout; at p > 1 every rank passes the whole cyclic-layout
-        factor (``grid.to_cyclic_matrix(L, p1, p1 p2)``, the same on
-        every rank, collective) and keeps its own piece
-        (``grid.cyclic_piece``).  Only for lower=True, transpose=False,
-        and never into a
-        structured bank (its mask is applied in natural layout)."""
+        layout.  At p > 1 (collective) every rank passes either the
+        whole cyclic-layout factor (``grid.to_cyclic_matrix(L, p1, p1
+        p2)``, the same on every rank) and keeps its own piece
+        (``grid.cyclic_piece``), or its own (n/p1, n/(p1 p2)) piece, as
+        a multi-rank ``cholesky_cyclic`` returns it, which is only cast
+        and moved to the device.  Only for lower=True, transpose=False,
+        and never into a structured bank (its mask is applied in
+        natural layout)."""
         self._check_cyclic_operator()
         if self.structure is not None:
             raise ValueError(
@@ -341,13 +360,14 @@ class FactorBank:
                 "in natural layout, before distribution (mask the "
                 "factor yourself and use natural admission)")
         L_cyc = torch.as_tensor(L_cyc)
-        self._check_square(L_cyc, 2)
+        self._check_cyclic(L_cyc)
         if self.capacity is not None:
             return self._admit_slot(L_cyc, "cyclic")
         dts = (self.policy.storage,) + ((self.policy.residual,)
                                         if self.policy.refines else ())
         self._chunks.append(self._entry(tuple(
-            cyclic_piece(L_cyc, self.grid, dtype=dt)[None] for dt in dts)))
+            cyclic_piece(L_cyc, self.grid, dtype=dt, n=self.n)[None]
+            for dt in dts)))
         self._size += 1
         return self.size - 1
 
@@ -470,7 +490,7 @@ class FactorBank:
         and at p > 1 collective as it is."""
         self._check_cyclic_operator()
         L_cyc = torch.as_tensor(L_cyc)
-        self._check_square(L_cyc, 2)
+        self._check_cyclic(L_cyc)
         self._check_live(slot)
         self._scatter(slot, L_cyc, "cyclic")
         return slot

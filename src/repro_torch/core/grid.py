@@ -178,9 +178,10 @@ def cyclic_matrix_device(A: torch.Tensor, p_row: int, p_col: int, *,
     return A.contiguous()
 
 
-# what a p > 1 grid does not run yet says so with this
+# what a p > 1 grid does not run yet says so with this: fleets and the
+# serving tiers, which need a cross-rank request protocol
 NEXT_SLICE = ("comes with the next slice of the distributed port (ROADMAP "
-              "A12)")
+              "A12 item 4: fleets and servers over p > 1 ranks)")
 
 
 def require_mesh(grid: TrsmGrid) -> None:
@@ -293,14 +294,21 @@ def gather_natural(piece: torch.Tensor, grid: TrsmGrid, layout: str, n: int,
     return out.view(lead + (n, k))
 
 
-def cyclic_piece(L_cyc, grid: TrsmGrid, *, dtype=None) -> torch.Tensor:
+def cyclic_piece(L_cyc, grid: TrsmGrid, *, dtype=None,
+                 n: int | None = None) -> torch.Tensor:
     """This rank's "L" piece of a factor already in the whole cyclic
     storage the producers emit (``to_cyclic_matrix(L, p1, p1 p2)``, the
     same on every rank), or of an (..., n, n) stack of them: cyclic
     storage holds each rank's piece as one contiguous block, rows x's
     and columns t's (t = z p1 + y), so the piece is a slice, cut where
-    ``L_cyc`` lives, then moved to the grid's device at ``dtype``."""
+    ``L_cyc`` lives, then moved to the grid's device at ``dtype``.  Given
+    the factor's order ``n``, a piece already cut (its trailing shape
+    (n/p1, n/(p1 p2)), not (n, n)) is only cast and moved."""
     L_cyc = torch.as_tensor(L_cyc)
+    if n is not None and tuple(L_cyc.shape[-2:]) != (n, n):
+        # already this rank's piece (a multi-rank producer's output):
+        # only cast and moved, never sent through the host
+        return L_cyc.to(grid.device, dtype, copy=True).contiguous()
     x, y, z = grid.coords
     nl = L_cyc.shape[-2] // grid.p1
     ncl = L_cyc.shape[-1] // (grid.p1 * grid.p2)

@@ -242,7 +242,8 @@ def _invert_diag_blocks_shard(Lloc, *, n, n0, p1, p2, block_inv, mode,
 
 
 def sweep_shard(Lloc, Dt, Bloc, *, n, k, n0, p1, p2, accum_dtype=None,
-                overlap=False, prefetched0=None, fixed_order=False):
+                overlap=False, prefetched0=None, fixed_order=False,
+                spans=None):
     """Phase 2 at p > 1, unrolled, against the faces Dt of
     :func:`invert_diag_blocks_shard`: this rank's pieces of L, Dt and B
     (..., n/p1, k/p2) -> its piece of X (..., n/p1, k/p2), rows of y's
@@ -252,39 +253,72 @@ def sweep_shard(Lloc, Dt, Bloc, *, n, k, n0, p1, p2, accum_dtype=None,
     update, each collective once for the stack.
 
     The last column's update would only touch rows below the last
-    block, so it is left out.  ``overlap`` starts column i+1's panel
-    gather before column i's update runs (``prefetched0``: column 0's,
-    started by the caller before phase 1); the operations and operands
-    are those of the sequential sweep, so X is the same, bit for bit.
-    ``fixed_order`` forms each update's local product with ``ops.gemm``
+    block, so it is left out.  ``spans`` (from ``structure.analyze``,
+    one ``(lo, hi)`` or None per column) makes the sweep
+    LEVEL-SCHEDULED, as the reference's: block row g lives on the local
+    rows [g a, (g + 1) a) of every rank (a = n0/p1), so column i's
+    panel is cut to the rows of blocks [lo, hi) BEFORE its z-gather
+    (fewer bytes staged, not only fewer flops), only those rows are
+    updated, and a column whose span is None skips its update and both
+    of the update's collectives.  ``overlap`` starts the next live
+    column's panel gather before this column's update runs
+    (``prefetched0``: the first live column's, started by the caller
+    before phase 1); the operations and operands are those of the
+    sequential sweep, so X is the same, bit for bit.  ``fixed_order``
+    forms each update's local product with ``ops.gemm``
     (``mm3d._local_product``), its sums in an order that does not depend
     on the panel's row count."""
     with comm.vmapped(Bloc.ndim - 2, exact=True):
         return _sweep_shard(Lloc, Dt, Bloc, n=n, k=k, n0=n0, p1=p1, p2=p2,
                             accum_dtype=accum_dtype, overlap=overlap,
-                            prefetched0=prefetched0, fixed_order=fixed_order)
+                            prefetched0=prefetched0, fixed_order=fixed_order,
+                            spans=spans)
+
+
+def _live_columns(m: int, spans) -> list:
+    """The columns whose update runs: every one but the last, or, level
+    scheduled, those with a span."""
+    return [i for i in range(m - 1) if spans is None or spans[i] is not None]
+
+
+def _panel_rows(i: int, nl: int, a: int, spans) -> tuple:
+    """The local rows [r0, r1) of column i's panel: all of them, or the
+    rows of the blocks in its span."""
+    if spans is None:
+        return 0, nl
+    lo, hi = spans[i]
+    return lo * a, hi * a
+
+
+def _panel_start(Lloc, i: int, *, n, n0, p1, p2, spans):
+    """Issue column i's panel z-gather (it reads only Lloc)."""
+    b = n0 // (p1 * p2)
+    r0, r1 = _panel_rows(i, n // p1, n0 // p1, spans)
+    return comm.all_gather_start(Lloc[..., r0:r1, i * b:(i + 1) * b], "z",
+                                 axis=0, tiled=False)
 
 
 def _sweep_shard(Lloc, Dt, Bloc, *, n, k, n0, p1, p2, accum_dtype, overlap,
-                 prefetched0, fixed_order):
+                 prefetched0, fixed_order, spans):
     from repro_torch.kernels import ops
     m = n // n0
     nl = n // p1
     a = n0 // p1
-    b = n0 // (p1 * p2)
     ct = Bloc.dtype
     acc = accum_dtype if accum_dtype is not None else ct
     lead = tuple(Bloc.shape[:-2])
 
     def panel_start(i):
-        return comm.all_gather_start(Lloc[..., i * b:(i + 1) * b], "z",
-                                     axis=0, tiled=False)
+        return _panel_start(Lloc, i, n=n, n0=n0, p1=p1, p2=p2, spans=spans)
 
+    live = _live_columns(m, spans)
+    updates, succ = set(live), dict(zip(live, live[1:]))
     Bcur = Bloc.clone()
     X = torch.empty_like(Bloc)
     pending = None
-    if m > 1 and overlap:
-        pending = prefetched0 if prefetched0 is not None else panel_start(0)
+    if live and overlap:
+        pending = prefetched0 if prefetched0 is not None \
+            else panel_start(live[0])
     for i in range(m):
         rows = slice(i * a, (i + 1) * a)
         # solve via GEMM (l. 4-5): the face is lower triangular, so B2;
@@ -292,33 +326,41 @@ def _sweep_shard(Lloc, Dt, Bloc, *, n, k, n0, p1, p2, accum_dtype, overlap,
         part = ops.trmm(Dt[..., i, :, :].to(acc), Bcur[..., rows, :].to(acc))
         Xi = comm.psum(part, "x").to(ct)
         X[..., rows, :] = Xi
-        if i + 1 == m:
-            break
+        if i not in updates:
+            continue
         # update (l. 6-8): panel gathered over z, its columns t' = c p2 + z
         if overlap:
             pg = comm.all_gather_finish(pending)
-            pending = panel_start(i + 1) if i + 2 < m else None
+            pending = panel_start(succ[i]) if i in succ else None
         else:
             pg = comm.all_gather_finish(panel_start(i))
-        pg = pg.movedim(len(lead), -1).reshape(lead + (nl, a))
+        r0, r1 = _panel_rows(i, nl, a, spans)
+        pg = pg.movedim(len(lead), -1).reshape(lead + (r1 - r0, a))
         upd = comm.psum(_local_product(pg, Xi, acc, fixed_order),
                         "y").to(ct)
-        # the rows of the blocks below i (global row l p1 + x >= (i+1) n0)
-        Bcur[..., (i + 1) * a:, :] -= upd[..., (i + 1) * a:, :]
+        if spans is None:
+            # the rows of the blocks below i (global row l p1 + x >=
+            # (i+1) n0)
+            Bcur[..., (i + 1) * a:, :] -= upd[..., (i + 1) * a:, :]
+        else:
+            # every span row is strictly below block i (lo >= i + 1)
+            Bcur[..., r0:r1, :] -= upd
     return X
 
 
 def phase1_prefetched(Lloc, *, n, n0, p1, p2, block_inv, mode,
-                      accum_dtype=None, overlap=False):
+                      accum_dtype=None, overlap=False, spans=None):
     """A one-shot solve's phase 1 at p > 1 (under ``comm.on_mesh``):
-    ``(Dt, pre0)``, with ``pre0`` column 0's panel gather started before
-    phase 1, which never reads it, when ``overlap`` (else None); the
-    first :func:`sweep_shard` takes it as ``prefetched0``."""
+    ``(Dt, pre0)``, with ``pre0`` the first live column's panel gather
+    (narrowed to its span under ``spans``) started before phase 1,
+    which never reads it, when ``overlap`` (else None); the first
+    :func:`sweep_shard` takes it as ``prefetched0``."""
     pre0 = None
-    if overlap and n // n0 > 1:
+    live = _live_columns(n // n0, spans)
+    if overlap and live:
         with comm.vmapped(Lloc.ndim - 2, exact=True):
-            pre0 = comm.all_gather_start(Lloc[..., :n0 // (p1 * p2)], "z",
-                                         axis=0, tiled=False)
+            pre0 = _panel_start(Lloc, live[0], n=n, n0=n0, p1=p1, p2=p2,
+                                spans=spans)
     Dt = invert_diag_blocks_shard(Lloc, n=n, n0=n0, p1=p1, p2=p2,
                                   block_inv=block_inv, mode=mode,
                                   accum_dtype=accum_dtype, overlap=overlap)

@@ -1,4 +1,4 @@
-"""LU factorization without pivoting on the paper's primitives, at p = 1.
+"""LU factorization without pivoting on the paper's primitives.
 
 The counterpart of ``repro.core.lu``:
 
@@ -13,7 +13,10 @@ Both triangular solves use selective inversion (invert + MM), the upper
 one reduced to the lower case through the cyclic-storage transpose
 (``repro_torch.core.cholesky``); every inversion goes through the
 ``tri_inv_blocks`` kernel (B1) on the card.  No pivoting: for
-diagonally dominant, preconditioner-style matrices.
+diagonally dominant, preconditioner-style matrices.  At p > 1 every
+rank calls the entry points with the same natural A (collective), as
+for ``cholesky``: the base case gathers its block over the mesh and
+each rank keeps its pieces.
 """
 
 from __future__ import annotations
@@ -24,25 +27,29 @@ import torch
 
 from repro_torch.core import precision as preclib
 from repro_torch.core import tri_inv as ti
-from repro_torch.core.cholesky import base_order, transpose_shard
-from repro_torch.core.grid import TrsmGrid, cyclic_matrix_device
+from repro_torch.core.cholesky import (base_order, cyclic_input,
+                                       gather_block, natural_output,
+                                       on_grid, own_piece, transpose_shard)
+from repro_torch.core.grid import TrsmGrid
 from repro_torch.core.mm3d import mm3d_shard
 
 
 def _lu_base(Aloc, *, n, p1, p2):
-    """Base case: the reference's row-serial elimination.  Step i
-    divides column i below the pivot by it (L's column i) and takes
-    the rank-1 update off the rows below; the reference updates the
-    whole matrix with those rows masked, which leaves the kept entries
-    the same, and its ``triu`` discards the rest."""
-    ti._check_p1(p1, p2, "lu")
-    U = Aloc.clone(memory_format=torch.contiguous_format)
+    """Base case: the reference's row-serial elimination, on the whole
+    block (at p > 1 gathered over the mesh; each rank keeps its pieces
+    of L and U).  Step i divides column i below the pivot by it (L's
+    column i) and takes the rank-1 update off the rows below; the
+    reference updates the whole matrix with those rows masked, which
+    leaves the kept entries the same, and its ``triu`` discards the
+    rest."""
+    U = gather_block(Aloc, p1, p2).clone(
+        memory_format=torch.contiguous_format)
     L = torch.eye(n, dtype=U.dtype, device=U.device)
     for i in range(n - 1):
         col = U[i + 1:, i] / U[i, i]
         L[i + 1:, i] = col
         U[i + 1:, i:].sub_(torch.outer(col, U[i, i:]))
-    return L, torch.triu(U)
+    return own_piece(L, p1, p2), own_piece(torch.triu(U), p1, p2)
 
 
 def _lu_rec(Aloc, *, n, n0, p1, p2):
@@ -74,31 +81,28 @@ def _lu_rec(Aloc, *, n, n0, p1, p2):
 
 
 def lu_fn(grid: TrsmGrid, n: int, n0: int | None = None):
-    """The recursive LU for fixed shapes on ``grid`` (cyclic storage in,
-    the pair (L, U) in cyclic storage out)."""
-    ti._check_p1(grid.p1, grid.p2, "lu")
-    return functools.partial(_lu_rec, n=n, n0=base_order(grid, n, n0),
-                             p1=grid.p1, p2=grid.p2)
+    """The recursive LU for fixed shapes on ``grid``: this rank's cyclic
+    piece of A in, its pieces of (L, U) out (at p = 1 the whole
+    matrices)."""
+    return on_grid(grid, functools.partial(
+        _lu_rec, n=n, n0=base_order(grid, n, n0), p1=grid.p1, p2=grid.p2))
 
 
 def lu_cyclic(A, grid: TrsmGrid, n0: int | None = None):
-    """LU-factor A (natural layout) on ``grid``'s device and return
-    (L_cyc, U_cyc) in CYCLIC storage: ``L_cyc`` feeds
-    ``FactorBank.admit_cyclic`` (lower solves) with no unpermute ->
-    re-permute round trip.  fp32 GEMMs run in IEEE fp32."""
+    """LU-factor A (natural layout, the same in every rank) on ``grid``
+    and return (L_cyc, U_cyc) in CYCLIC storage: at p = 1 the whole
+    matrices, at p > 1 this rank's pieces, with no gather.  ``L_cyc``
+    feeds ``FactorBank.admit_cyclic`` (lower solves) with no unpermute
+    -> re-permute round trip.  fp32 GEMMs run in IEEE fp32."""
     preclib.pin_matmul_numerics()
-    A = torch.as_tensor(A, device=grid.device)
-    n = A.shape[0]
-    p1, p2 = grid.p1, grid.p2
-    Ac = cyclic_matrix_device(A, p1, p1 * p2)
-    return lu_fn(grid, n, n0)(Ac)
+    n = torch.as_tensor(A).shape[0]
+    return lu_fn(grid, n, n0)(cyclic_input(A, grid))
 
 
 def lu(A, grid: TrsmGrid, n0: int | None = None):
     """Natural-layout LU without pivoting: (L, U) with A = L @ U, L unit
-    lower and U upper triangular.  For feeding a FactorBank keep the
-    cyclic output: :func:`lu_cyclic`."""
-    p1, p2 = grid.p1, grid.p2
-    Lc, Uc = lu_cyclic(A, grid, n0)
-    return (cyclic_matrix_device(Lc, p1, p1 * p2, inverse=True),
-            cyclic_matrix_device(Uc, p1, p1 * p2, inverse=True))
+    lower and U upper triangular, both whole on every rank.  For
+    feeding a FactorBank keep the cyclic output: :func:`lu_cyclic`."""
+    n = torch.as_tensor(A).shape[0]
+    return tuple(natural_output(F, grid, n)
+                 for F in lu_cyclic(A, grid, n0))

@@ -53,9 +53,22 @@ def _local_product(A, B, acc, fixed_order: bool) -> torch.Tensor:
     return out.reshape(lead + out.shape[-2:])
 
 
+def _masked_product(Lg, Xg, block_mask, bt: int) -> torch.Tensor:
+    """tril(Lg) @ Xg over the blocks ``block_mask`` keeps (kernel B4),
+    leading axes flattened into B4's batch; the result has Xg's dtype,
+    its partial sums fp32 (fp64 for fp64 operands)."""
+    from repro_torch.kernels import ops
+    lead = Lg.shape[:-2]
+    out = ops.trmm(Lg.reshape(-1, *Lg.shape[-2:]).contiguous(),
+                   Xg.to(Lg.dtype).reshape(-1, *Xg.shape[-2:]).contiguous(),
+                   block_mask=block_mask, bt=bt)
+    return out.reshape(lead + out.shape[-2:])
+
+
 def mm3d_shard(Lloc: torch.Tensor, Xloc: torch.Tensor, *, m: int, n: int,
                k: int, p1: int, p2: int, accum_dtype=None,
-               fixed_order: bool = False) -> torch.Tensor:
+               fixed_order: bool = False, block_mask=None,
+               bt: int | None = None) -> torch.Tensor:
     """The per-rank body: Lloc (..., m/p1, n/(p1 p2)) and Xloc
     (..., n/p1, k/(p1 p2)), this rank's cyclic pieces, -> its piece of
     L @ X, (..., m/p1, k/(p1 p2)).  Leading axes (a bank's factor axis
@@ -63,12 +76,25 @@ def mm3d_shard(Lloc: torch.Tensor, Xloc: torch.Tensor, *, m: int, n: int,
     ``comm.vmapped``) multiply alike.  ``accum_dtype`` is the precision
     of the partial sums and of the cross-y reduction; the result has X's
     dtype.  ``fixed_order`` forms the local GEMM with ``ops.gemm``
-    (:func:`_local_product`)."""
+    (:func:`_local_product`).
+
+    ``block_mask`` (an (m/bt', m/bt') int32 mask on the device, bt' =
+    bt p1, with m == n) forms the local product of a lower-triangular L
+    that a structure masks with the block-masked ``trmm`` (kernel B4)
+    at block size ``bt``, and takes precedence over ``fixed_order``.
+    It is exact there: after step 1, Lg = L[x::p1, y::p1] in natural
+    order, so its (bt x bt) block (I, J) is the (x, y) sub-lattice of
+    the global block (I, J) and the global mask is every rank's; and
+    each diagonal block of Lg is lower triangular (strictly so where
+    x < y), so B4's tril drops nothing."""
     acc = accum_dtype if accum_dtype is not None else Xloc.dtype
     if p1 * p1 * p2 == 1:
         if Lloc.shape[-2:] != (m, n) or Xloc.shape[-2:] != (n, k):
             raise ValueError(f"mm3d_shard shapes {tuple(Lloc.shape)} @ "
                              f"{tuple(Xloc.shape)} for m={m}, n={n}, k={k}")
+        if block_mask is not None:
+            return _masked_product(Lloc, Xloc, block_mask, bt).to(
+                Xloc.dtype)
         if fixed_order:
             return _local_product(Lloc, Xloc, acc, True).to(Xloc.dtype)
         return matmul_as(Lloc, Xloc, acc, Xloc.dtype)
@@ -96,7 +122,10 @@ def mm3d_shard(Lloc: torch.Tensor, Xloc: torch.Tensor, *, m: int, n: int,
     else:
         Xg = Xloc
     # 4. local GEMM over the y-residue class of the contraction
-    Pp = _local_product(Lg, Xg, acc, fixed_order)
+    if block_mask is not None:
+        Pp = _masked_product(Lg, Xg, block_mask, bt).to(acc)
+    else:
+        Pp = _local_product(Lg, Xg, acc, fixed_order)
     # 5. finish the contraction over y; keep column chunk x' == y, which
     #    is the input layout
     if p1 > 1:

@@ -21,7 +21,9 @@ piece of the resident factor, so the product is distributed: X's "L"
 piece is cut locally, one ``mm3d`` against the resident piece forms
 this rank's piece of op(A) X (its collectives recorded under the
 ``"residual"`` label of the cost trace), and one gather assembles the
-natural result on every rank.
+natural result on every rank.  A structured factor's local product
+there is the block-masked kernel too, on rank (x, y, z)'s L[x::p1,
+y::p1] at block size n0/p1.
 """
 
 from __future__ import annotations
@@ -70,7 +72,8 @@ def apply_cyclic_operator(L_cyc: torch.Tensor, X: torch.Tensor, *, p1: int,
 
 
 def distributed_operator(grid, n: int, k: int, *, reverse: bool,
-                         accum_dtype, fixed_order: bool = False):
+                         accum_dtype, fixed_order: bool = False,
+                         block_mask=None, bt: int | None = None):
     """``apply(L_hi, X) -> op(A) @ X`` on a p > 1 grid, natural layout
     in and out on every rank, X (..., n, k) the same on every rank and
     ``L_hi`` this rank's (..., n/p1, n/(p1 p2)) piece of the resident
@@ -83,7 +86,13 @@ def distributed_operator(grid, n: int, k: int, *, reverse: bool,
     label; ``grid.gather_natural`` undoes the cut.  ``mm3d`` needs
     p | k, so X gets zero columns up to the next multiple of p, whose
     product columns are zero and dropped: every k of the solve is
-    served.  ``fixed_order`` forms the local GEMM with ``ops.gemm``."""
+    served.  ``fixed_order`` forms the local GEMM with ``ops.gemm``.
+
+    A structured factor's ``block_mask`` (its (n/n0, n/n0) int32 mask
+    on the device, with ``bt`` = n0/p1) forms the local product with the
+    block-masked ``trmm`` (kernel B4), which reads only the kept
+    blocks; as at p = 1 it takes precedence over ``fixed_order``, and
+    the collectives, so the ``"residual"`` trace, are unchanged."""
     from repro_torch.core.mm3d import mm3d_shard
     p = grid.p
     kp = -(-k // p) * p
@@ -97,7 +106,8 @@ def distributed_operator(grid, n: int, k: int, *, reverse: bool,
                 comm.vmapped(Xp.ndim - 2, exact=True):
             Y = mm3d_shard(L_hi, Xp, m=n, n=n, k=kp, p1=grid.p1,
                            p2=grid.p2, accum_dtype=accum_dtype,
-                           fixed_order=fixed_order)
+                           fixed_order=fixed_order, block_mask=block_mask,
+                           bt=bt)
         Y = gridlib.gather_natural(Y, grid, "L", n, kp,
                                    reverse_rows=reverse)
         return Y[..., :k].to(accum_dtype)

@@ -46,6 +46,46 @@ def rhs(seed: int, n: int, k: int) -> np.ndarray:
     return np.random.default_rng(seed).standard_normal((n, k))
 
 
+def spd(seed: int, n: int) -> np.ndarray:
+    """M M^T + n I for a seeded randn M: the reference's check_cholesky
+    input."""
+    M = np.random.default_rng(seed).standard_normal((n, n))
+    return M @ M.T + n * np.eye(n)
+
+
+def lu_input(seed: int, n: int) -> np.ndarray:
+    """randn + n I: the reference's check_lu input."""
+    return np.random.default_rng(seed).standard_normal((n, n)) + n * np.eye(n)
+
+
+def factor_seed(case) -> int:
+    """The seed of a producer case's matrix, from its (p1, p2, n, n0)."""
+    p1, p2, n, n0 = case
+    return 1000 + 100 * p1 + 10 * p2 + n + n0
+
+
+def structure_of(kind: str, n: int = 64):
+    """The structured cases' structures at n0 = 16: "banded" a band of
+    16 (at n0 = 16 the diagonal and the first subdiagonal blocks),
+    "block_sparse" a 4 x 4 mask (n = 64) whose second column has no
+    block below the diagonal (its update and both of its collectives
+    are skipped), "full" every lower block (the dense program)."""
+    from repro_torch.core.structure import FactorStructure
+    if kind == "banded":
+        return FactorStructure.banded(16)
+    if kind == "full":
+        return FactorStructure.block_sparse(np.tril(np.ones((4, 4), bool)))
+    return FactorStructure.block_sparse(
+        [[1, 0, 0, 0], [0, 1, 0, 0], [1, 0, 1, 0], [0, 0, 1, 1]])
+
+
+def masked(L: np.ndarray, structure, n0: int) -> np.ndarray:
+    """L with every element outside the structure's block mask zeroed:
+    the operator a structured solve is held to."""
+    bm = structure.block_mask(L.shape[-1], n0)
+    return np.where(np.kron(bm, np.ones((n0, n0), bool)), L, 0.0)
+
+
 # The reference selfcheck's cases (each leads with its grid (p1, p2)),
 # then this package's: ``trsm`` (the one-shot core.trsm in its four
 # operator variants), ``overlap`` (the pipelined programs against the
@@ -75,11 +115,39 @@ CASES = {
              (2, 2, 64, 16, None, "auto")],
     "overlap": [(2, 2, "inv", 64, 8, 16), (2, 1, "inv", 64, 8, 16),
                 (1, 2, "inv", 64, 8, 16), (2, 2, "inv", 64, 8, 32),
-                (2, 2, "rec", 64, 8, 16), (1, 8, "rec", 64, 8, None)],
+                (2, 2, "rec", 64, 8, 16), (1, 8, "rec", 64, 8, None),
+                (2, 2, "inv", 64, 8, 16, "banded")],
     "face": [(2, 2, 64, 8, "alltoall"), (2, 2, 64, 16, "doubling"),
              (2, 2, 64, 16, "allgather"), (2, 1, 32, 8, "doubling"),
              (1, 2, 32, 8, "allgather")],
     "deferred": [(2, 1, 32, 8, 8)],
+    # the reference's check_cholesky (its transpose cases, then
+    # (p1, p2, n, n0)), check_lu, and check_bank's cyclic ingestion of
+    # a distributed Cholesky piece
+    "transpose": [(2, 2, 16, 32), (2, 1, 16, 8), (1, 2, 8, 16)],
+    "cholesky": [(2, 2, 32, 8), (2, 1, 32, 16), (1, 2, 16, 8),
+                 (2, 2, 64, 16)],
+    "lu": [(2, 2, 32, 8), (2, 1, 32, 16), (1, 2, 16, 8), (2, 2, 64, 16)],
+    "cyclic_ingest": [(2, 2)],
+    # structured solves at p > 1 (n = 64, k = 16, n0 = 16): (structure,
+    # method, precision); a structured capacity bank's lifecycle; a
+    # structure that leaves out nothing builds the dense program; a
+    # structured bank's bit contracts
+    "structured": [(2, 2, "banded", "inv", None),
+                   (2, 2, "banded", "inv", "bf16_refine"),
+                   (2, 2, "banded", "rec", None),
+                   (2, 2, "banded", "rec", "bf16_refine"),
+                   (2, 2, "block_sparse", "inv", None),
+                   (2, 2, "block_sparse", "inv", "bf16_refine"),
+                   (2, 2, "block_sparse", "rec", None),
+                   (2, 2, "block_sparse", "rec", "bf16_refine"),
+                   (2, 1, "banded", "inv", None),
+                   (2, 1, "block_sparse", "rec", "bf16_refine"),
+                   (1, 2, "block_sparse", "inv", "bf16_refine"),
+                   (1, 2, "banded", "rec", None)],
+    "struct_capacity": [(2, 2, "inv", "bf16_refine"), (2, 2, "rec", None)],
+    "struct_dense": [(2, 2)],
+    "struct_bits": [(2, 2, "inv"), (2, 2, "rec"), (1, 2, "inv")],
     # the front door at p > 1: the reference's check_session (n, k, n0,
     # method) and its refined sessions, check_bank (method, map_mode,
     # precision) and its cyclic ingestion, then this package's capacity
@@ -231,24 +299,41 @@ def check_trsm(grid, case):
 def check_overlap(grid, case):
     """The pipelined one-shot program against the sequential one: the
     same collectives on the same operands, so the same bits."""
+    from repro_torch import api
     from repro_torch.core import precision as preclib
     from repro_torch.core.solver import SolveSpec, solver_for
-    p1, p2, method, n, k, n0 = case
+    p1, p2, method, n, k, n0, *kind = case
     L, B = random_tril(n, n), rhs(k, n, k)
-    outs = {}
+    st = None
+    if kind:
+        # the reference's banded case: L banded as its structure says,
+        # one-shot and through Solver.from_factor (as the reference)
+        st = structure_of(kind[0], n)
+        ii = np.arange(n)
+        L = L * (np.abs(ii[:, None] - ii[None, :]) < st.bandwidth)
+    outs, banked = {}, {}
     for ov in ("on", "off"):
         spec = SolveSpec(n=n, k=k, grid=grid, policy=preclib.resolve(
             None, torch.float64), method=method,
-            n0=n0 or _rec_n0(n, k, grid), overlap=ov)
+            n0=n0 or _rec_n0(n, k, grid), overlap=ov, structure=st)
         prog = solver_for(spec)
         outs[ov] = prog.solve(prog.prep(torch.as_tensor(L)),
                               torch.as_tensor(B)).cpu().numpy()
+        if st is not None:
+            banked[ov] = api.Solver.from_factor(
+                torch.as_tensor(L), grid, method=method, n0=n0,
+                structure=st, overlap=ov).solve(
+                    torch.as_tensor(B)).cpu().numpy()
     bit = outs["on"].tobytes() == outs["off"].tobytes()
+    if banked:
+        bit = bit and banked["on"].tobytes() == banked["off"].tobytes()
     err = np.abs(L @ outs["on"] - B).max()
     ok = bit and err < 1e-7
-    return _result(f"overlap {method} p1={p1} p2={p2} n0={n0}: "
+    return _result(f"overlap {method} p1={p1} p2={p2} n0={n0}"
+                   f"{' ' + kind[0] if kind else ''}: "
                    f"bit-identical={bit} err={err:.2e} "
-                   f"{'OK' if ok else 'FAIL'}", ok, outs["on"])
+                   f"{'OK' if ok else 'FAIL'}", ok,
+                   banked["on"] if banked else outs["on"])
 
 
 def _rec_n0(n, k, grid):
@@ -277,21 +362,11 @@ def check_face(grid, case):
 
 def check_deferred(grid, case):
     """What the next slice brings raises NotImplementedError naming it
-    on a p > 1 grid: a structure (one-shot or banked), a fleet, a
-    SolveServer and an AsyncSolveServer, multi-rank cholesky and lu."""
+    on a p > 1 grid: a fleet, a SolveServer and an AsyncSolveServer."""
     from repro_torch import api
-    from repro_torch.core import cholesky, lu
-    from repro_torch.core import precision as preclib
-    from repro_torch.core.solver import SolveSpec, solver_for
     p1, p2, n, k, n0 = case
-    L, B = random_tril(n, n), rhs(7, n, k)
-    banded = api.FactorStructure.banded(n0)
+    L = random_tril(n, n)
     attempts = {
-        "structured solve": lambda: solver_for(SolveSpec(
-            n=n, k=k, grid=grid, policy=preclib.resolve(None, torch.float64),
-            n0=n0, structure=banded)),
-        "structured bank": lambda: api.FactorBank(grid, n, n0=n0,
-                                                  structure=banded),
         "fleet": lambda: api.SolverFleet(grid, api.plan_fleet({n: 1}, grid,
                                                               k=k)),
         "SolveServer": lambda: api.SolveServer(api.Solver.from_factor(
@@ -299,9 +374,6 @@ def check_deferred(grid, case):
         "AsyncSolveServer": lambda: api.AsyncSolveServer(
             api.Solver.from_factor(torch.as_tensor(L), grid, n0=n0),
             panel_k=k),
-        "cholesky": lambda: cholesky.cholesky(torch.as_tensor(L @ L.T),
-                                              grid),
-        "lu": lambda: lu.lu(torch.as_tensor(L @ L.T), grid),
     }
     raised = {}
     for what, fn in attempts.items():
@@ -313,6 +385,267 @@ def check_deferred(grid, case):
     ok = all(raised.values())
     return _result(f"deferred p1={p1} p2={p2}: {raised} "
                    f"{'OK' if ok else 'FAIL'}", ok)
+
+
+def check_transpose(grid, case):
+    """The cyclic-storage transpose (``cholesky.transpose_fn``): each
+    rank's piece of A^T from its piece of A, A^T exactly."""
+    from repro_torch.core import cholesky
+    from repro_torch.core import grid as gridlib
+    p1, p2, mr, nc = case
+    A = np.random.default_rng(mr * nc + p1).standard_normal((mr, nc))
+    piece = gridlib.local_piece(torch.as_tensor(A), grid, "L")
+    T, cost = _traced(lambda: gridlib.gather_natural(
+        cholesky.transpose_fn(grid, mr, nc)(piece), grid, "L", nc, mr))
+    ok = np.array_equal(T, A.T)
+    return _result(f"transpose p1={p1} p2={p2} {mr}x{nc}: "
+                   f"{'OK' if ok else 'FAIL'}", ok, T, cost)
+
+
+def _p1_grid(grid):
+    from repro_torch.core import grid as gridlib
+    return gridlib.make_trsm_mesh(1, 1, device=grid.device)
+
+
+def check_cholesky(grid, case):
+    """The reference's check_cholesky: ``cholesky.cholesky`` on the
+    grid, max |L L^T - A| < 1e-8, L lower triangular, and within 1e-10
+    of the p = 1 factorization; the cyclic output is this rank's piece
+    of it."""
+    from repro_torch.core import cholesky
+    p1, p2, n, n0 = case
+    A = spd(factor_seed(case), n)
+    L, cost = _traced(lambda: cholesky.cholesky(torch.as_tensor(A), grid,
+                                                n0))
+    err = np.abs(L @ L.T - A).max()
+    L1 = cholesky.cholesky(torch.as_tensor(A), _p1_grid(grid), n0)
+    gap = _rel_gap(L, L1.cpu().numpy())
+    from repro_torch.core import grid as gridlib
+    piece = cholesky.cholesky_cyclic(torch.as_tensor(A), grid, n0)
+    same = torch.equal(piece.cpu(), gridlib.local_piece(
+        torch.as_tensor(L), grid, "L").cpu())
+    ok = err < 1e-8 and not np.triu(L, 1).any() and gap <= 1e-10 and same
+    return _result(f"cholesky p1={p1} p2={p2} n={n} n0={n0}: err={err:.2e} "
+                   f"vs-p=1={gap:.1e} piece={same} "
+                   f"{'OK' if ok else 'FAIL'}", ok, L, cost)
+
+
+def check_lu(grid, case):
+    """The reference's check_lu: ``lu.lu`` on the grid, max |L U - A| <
+    1e-8, L unit lower and U upper triangular, within 1e-10 of the p = 1
+    factorization.  ``out`` stacks L and U."""
+    from repro_torch.core import lu
+    p1, p2, n, n0 = case
+    A = lu_input(factor_seed(case), n)
+    LU, cost = _traced(lambda: torch.stack(lu.lu(torch.as_tensor(A), grid,
+                                                 n0)))
+    L, U = LU
+    err = np.abs(L @ U - A).max()
+    LU1 = torch.stack(lu.lu(torch.as_tensor(A), _p1_grid(grid), n0))
+    gap = _rel_gap(LU, LU1.cpu().numpy())
+    shape = (not np.triu(L, 1).any() and not np.tril(U, -1).any()
+             and np.array_equal(np.diag(L), np.ones(n)))
+    ok = err < 1e-8 and shape and gap <= 1e-10
+    return _result(f"lu p1={p1} p2={p2} n={n} n0={n0}: err={err:.2e} "
+                   f"vs-p=1={gap:.1e} {'OK' if ok else 'FAIL'}", ok, LU, cost)
+
+
+def check_cyclic_ingest(grid, case):
+    """The reference's check_bank cyclic ingestion: each rank's piece of
+    ``cholesky_cyclic(A)`` admitted (``admit_cyclic``; also by
+    ``replace_cyclic`` into a capacity bank), relres < 1e-10 against
+    the natural ``cholesky(A)``."""
+    from repro_torch import api
+    from repro_torch.core import cholesky
+    p1, p2 = case
+    n, k = BANK_N, BANK_K
+    L0 = random_tril(20, n)
+    A = torch.as_tensor(L0 @ L0.T)
+    piece = cholesky.cholesky_cyclic(A, grid)
+    bank = api.FactorBank(grid, n, n0=BANK_N0, dtype=torch.float64)
+    bank.admit_cyclic(piece)
+    cap = api.FactorBank(grid, n, n0=BANK_N0, dtype=torch.float64,
+                         capacity=2)
+    cap.admit(torch.as_tensor(L0))
+    cap.replace_cyclic(0, piece)
+    B = rhs(22, n, k)
+    X = api.Solver.from_bank(bank).solve(torch.as_tensor(B)[None])[0]
+    X = X.cpu().numpy()
+    Bc = np.zeros((2, n, k))
+    Bc[0] = B
+    Xc = api.Solver.from_bank(cap).solve(torch.as_tensor(Bc))[0].cpu()
+    L = cholesky.cholesky(A, grid).cpu().numpy()
+    rel = _relres(L, X, B)
+    ok = rel < 1e-10 and _rel_gap(Xc.numpy(), X) <= 1e-12
+    return _result(f"cyclic_ingest p1={p1} p2={p2}: relres={rel:.2e} "
+                   f"{'OK' if ok else 'FAIL'}", ok, X)
+
+
+STRUCT_N, STRUCT_K, STRUCT_N0 = 64, 16, 16
+
+
+def _struct_inputs(precision, seed: int = 31):
+    dt = np.float32 if precision else np.float64
+    L = random_tril(seed, STRUCT_N, dt)
+    B = rhs(seed + 1, STRUCT_N, STRUCT_K).astype(dt)
+    return L, B
+
+
+def check_structured(grid, case):
+    """A structured ``Solver.from_factor`` at p > 1 (n = 64, k = 16, n0
+    = 16; L unmasked, so admission's mask is what makes it structured):
+    relres against the MASKED operator within 1e-10 (fp64) or 1e-5
+    (bf16_refine), the gap to the p = 1 structured solve of the same
+    inputs (1e-10 in fp64), the steady state; "inv" stages fewer words
+    than the dense solve of the same factor (its narrowed panels).
+    ``cost`` is the solve part of the trace (every pass's sweep or
+    recursion); a refining preset's ``"residual"`` part is its passes'
+    mm3d products (``cost_model.mm_cost``)."""
+    from repro_torch import api
+    from repro_torch.core import cost_model
+    from repro_torch.core import precision as preclib
+    p1, p2, kind, method, precision = case
+    n, k, n0 = STRUCT_N, STRUCT_K, STRUCT_N0
+    st = structure_of(kind, n)
+    L, B = _struct_inputs(precision)
+    Lm = masked(L.astype(np.float64), st, n0)
+    kw = dict(method=method, n0=n0, precision=precision)
+    solver = api.Solver.from_factor(torch.as_tensor(L), grid, structure=st,
+                                    **kw)
+    X, cost, res = _traced_parts(lambda: solver.solve(torch.as_tensor(B)))
+    rel = _relres(Lm, X, B.astype(np.float64))
+    (x2,), steady = _steady(solver, [torch.as_tensor(B)])
+    X1 = api.Solver.from_factor(torch.as_tensor(L), _p1_grid(grid),
+                                structure=st, **kw).solve(
+        torch.as_tensor(B)).cpu().double().numpy()
+    gap = _rel_gap(X, X1)
+    ok = (rel < (1e-5 if precision else 1e-10) and steady
+          and np.array_equal(X, x2)
+          and (precision is not None or gap <= 1e-10))
+    pol = preclib.resolve(precision, None if precision else torch.float64)
+    if pol.refines:
+        mm = cost_model.mm_cost(n, -(-k // grid.p) * grid.p, grid.p, p1, p2)
+        ok = ok and (res["s"], res["w"]) == (pol.refine_steps * mm.s,
+                                             pol.refine_steps * mm.w)
+    fewer = ""
+    if method == "inv":
+        dense = api.Solver.from_factor(torch.as_tensor(L), grid, **kw)
+        _, dcost, _ = _traced_parts(lambda: dense.solve(torch.as_tensor(B)))
+        ok = ok and cost["w"] < dcost["w"]
+        fewer = f" W={cost['w']:.0f}<dense {dcost['w']:.0f}"
+    return _result(f"structured {kind} {method} p1={p1} p2={p2} "
+                   f"{precision or 'fp64'}: relres={rel:.2e} "
+                   f"vs-p=1={gap:.1e}{fewer} "
+                   f"{'OK' if ok else 'FAIL'}", ok, X, cost)
+
+
+def check_struct_capacity(grid, case):
+    """A structured (banded) C = 4 capacity bank's lifecycle at p > 1
+    (``capacity_script``: admits, a padded admission, replace, a
+    replace_run, evict, re-admit): every live slot's relres against the
+    MASKED factor it held within the bound, dead lanes and padded
+    tails exactly zero, the solve program built once.  ``out`` is the
+    last wave's X (``live`` flags the slots compared with the
+    reference)."""
+    from repro_torch import api
+    from repro_torch.core import session
+    p1, p2, method, precision = case
+    n, d = BANK_N, BANK_N // 2
+    st = structure_of("banded", n)
+    dt = np.float32 if precision else np.float64
+    bank = api.FactorBank(grid, n, method=method, n0=BANK_N0,
+                          dtype=None if precision else torch.float64,
+                          precision=precision, capacity=4, structure=st)
+    waves = capacity_script(
+        bank, n, d, 50, dt, lambda bank, B: api.Solver.from_bank(bank).solve(
+            torch.as_tensor(B)).cpu().double().numpy())
+    key = api.Solver.from_bank(bank).spec_for(BANK_K)
+    bound = 1e-5 if precision else 1e-10
+    worst, zeros = 0.0, True
+    for B, X, live, held in waves:
+        for s in range(bank.capacity):
+            if s not in live:
+                zeros = zeros and not np.any(X[s])
+                continue
+            L, pad = held[s]
+            Lm = masked(L.astype(np.float64), st, BANK_N0)
+            worst = max(worst, _relres(Lm, X[s], B[s]))
+            if pad:
+                zeros = zeros and not np.any(X[s, d:])
+    ok = worst < bound and zeros and session.BUILD_COUNTS[key] == 1
+    res = _result(f"struct_capacity {method} p1={p1} p2={p2} "
+                  f"{precision or 'fp64'}: relres={worst:.2e} "
+                  f"dead-and-tails-zero={zeros} {'OK' if ok else 'FAIL'}",
+                  ok, waves[-1][1])
+    res["live"] = list(waves[-1][2])
+    return res
+
+
+def check_struct_dense(grid, case):
+    """``structure=dense`` is the unstructured spec, and a block-sparse
+    mask that keeps every lower block builds the unstructured program:
+    the same X, bit for bit ("inv" and "rec", fp64 and bf16_refine)."""
+    from repro_torch import api
+    p1, p2 = case
+    lines, ok = [], True
+    for method in ("inv", "rec"):
+        for precision in (None, "bf16_refine"):
+            L, B = _struct_inputs(precision, seed=41)
+            kw = dict(method=method, n0=STRUCT_N0, precision=precision)
+            outs = [api.Solver.from_factor(torch.as_tensor(L), grid,
+                                           structure=st, **kw).solve(
+                torch.as_tensor(B)) for st in
+                (None, api.FactorStructure.dense(),
+                 structure_of("full", STRUCT_N))]
+            bit = all(torch.equal(o, outs[0]) for o in outs[1:])
+            ok = ok and bit
+            lines.append(f"{method} {precision or 'fp64'} bit-equal={bit}")
+    return _result(f"struct_dense p1={p1} p2={p2}: {'; '.join(lines)} "
+                   f"{'OK' if ok else 'FAIL'}", ok)
+
+
+def check_struct_bits(grid, case):
+    """A structured (banded) bf16_refine capacity bank of 3 factors at
+    p > 1, its residuals on B4: "scan" gives "vmap"'s bits and overlap
+    on gives off's; and the padded identity: an order-64 factor padded
+    into a structured order-128 bank solves its leading rows bit for
+    bit as an unpadded order-64 structured bank (its phase 1 on the
+    all-gather), the tail exactly zero."""
+    from repro_torch import api
+    p1, p2, method = case
+    st = structure_of("banded", BANK_N)
+    n, d = 2 * BANK_N, BANK_N
+    L = random_tril(d + 3, d, np.float32)
+    b = rhs(d + 4, d, BANK_K).astype(np.float32)
+    Xs = {}
+    for order in (n, d):
+        # the unpadded bank's phase 1 on the all-gather: B1 on the same
+        # blocks (check_padded)
+        mode = "allgather" if method == "inv" and order == d else None
+        bank = api.FactorBank(grid, order, method=method, n0=BANK_N0,
+                              precision="bf16_refine", capacity=2,
+                              structure=st, mode=mode)
+        bank.admit(torch.as_tensor(L), pad_to=order if order > d else None)
+        Bp = np.zeros((2, order, BANK_K), np.float32)
+        Bp[0, :d] = b
+        Xs[order] = api.Solver.from_bank(bank).solve(torch.as_tensor(Bp))[0]
+    padded = torch.equal(Xs[n][:d], Xs[d]) and not torch.any(Xs[n][d:])
+    Ls, B = _bank_inputs("bf16_refine")
+    outs = {}
+    for map_mode, overlap in (("vmap", "on"), ("scan", "on"),
+                              ("vmap", "off")):
+        solver = api.Solver.from_factors(
+            torch.as_tensor(Ls), grid, method=method, n0=BANK_N0,
+            precision="bf16_refine", map_mode=map_mode, overlap=overlap,
+            capacity=BANK_M, structure=st)
+        outs[(map_mode, overlap)] = solver.solve(torch.as_tensor(B))
+    ref = outs[("vmap", "on")]
+    scan = torch.equal(outs[("scan", "on")], ref)
+    off = torch.equal(outs[("vmap", "off")], ref)
+    ok = scan and off and padded
+    return _result(f"struct_bits {method} p1={p1} p2={p2}: "
+                   f"scan==vmap={scan} overlap-off==on={off} "
+                   f"padded-bit-equal={padded} {'OK' if ok else 'FAIL'}", ok)
 
 
 def _traced_parts(fn):
@@ -696,7 +1029,12 @@ RUN = {"order": check_order, "mm3d": check_mm3d, "tri_inv": check_tri_inv,
        "deferred": check_deferred, "session": check_session,
        "session_refine": check_session_refine, "bank": check_bank,
        "cyclic": check_cyclic, "capacity": check_capacity,
-       "padded": check_padded, "bank_bits": check_bank_bits}
+       "padded": check_padded, "bank_bits": check_bank_bits,
+       "transpose": check_transpose, "cholesky": check_cholesky,
+       "lu": check_lu, "cyclic_ingest": check_cyclic_ingest,
+       "structured": check_structured,
+       "struct_capacity": check_struct_capacity,
+       "struct_dense": check_struct_dense, "struct_bits": check_struct_bits}
 
 
 def _run_items(grid, items):

@@ -54,9 +54,10 @@
   or ``rec_trsm.rec_trsm_sharded``), returns the natural X on every
   rank and refines with the distributed residual
   (``refine.distributed_operator``).  A padded updater routes the
-  block flags with the blocks (B5).  Structures at p > 1 come with the
-  next slice of the distributed port and raise
-  ``NotImplementedError``.
+  block flags with the blocks (B5).  A structured spec masks the
+  natural factor before the pieces are cut, sweeps the level schedule
+  on local row ranges ("inv"), and forms each refinement residual's
+  local product with B4 at block size n0/p1.
 
 PyTorch runs eagerly, so a "program" is a Python function over device
 tensors; building it resolves every plan decision once, and its gather
@@ -242,15 +243,16 @@ def _build_prep(grid: TrsmGrid, lower: bool, transpose: bool,
     outside its block mask is zeroed, in natural layout, before the
     gather.  At p > 1 the copy is this rank's (M, n/p1, n/(p1 p2))
     piece (``grid.local_piece``, the reduction folded into its two
-    gathers, cut where the factor lives)."""
+    gathers, cut where the factor lives, after the structure's mask)."""
     p1, p2 = grid.p1, grid.p2
     rev = _needs_reversal(lower, transpose)
     if grid.p > 1:
-        if structure is not None:
-            raise NotImplementedError(f"structured admission over p > 1 "
-                                      f"ranks {gridlib.NEXT_SLICE}")
-
         def prep_piece(L):
+            if structure is not None:
+                # the mask is the structure's in natural layout, where
+                # the factor lives; only then is the piece cut (a
+                # structure admits no reversal or transpose)
+                L = apply_block_mask(torch.as_tensor(L), structure, n0)
             return gridlib.local_piece(L, grid, "L", dtype=dtype,
                                        reverse_rows=rev, reverse_cols=rev,
                                        transpose=transpose)
@@ -480,14 +482,25 @@ def _build_distributed_solver(spec) -> SolverProgram:
     against the resident L_hi piece).  ``fixed_order`` (every banked
     spec at p > 1, ``Solver.spec_for``) forms every local GEMM, the
     sweep's trailing updates, rec's and the residual's mm3d, with
-    ``ops.gemm``.  Structures raise ``NotImplementedError``."""
+    ``ops.gemm``.
+
+    A structure that leaves out blocks at n0 (:func:`structured_info`)
+    masks the natural factor before its pieces are cut, gives "inv" the
+    level-scheduled sweep (each live column's panel cut to its span's
+    local rows before the z-gather; a column without a span skips its
+    update and both collectives), and both methods the residual's local
+    product on B4 at block size n0/p1 (``mm3d_shard(block_mask=)``); the
+    recursion of "rec" is structure-blind, as in the reference."""
     from repro_torch.kernels import ops
     grid = spec.grid
     n, k, n0, policy = spec.n, spec.k, spec.n0, spec.policy
-    if spec.structure is not None:
-        raise NotImplementedError(f"structured solves over p > 1 ranks "
-                                  f"{gridlib.NEXT_SLICE}")
     p1, p2 = grid.p1, grid.p2
+    info = structured_info(spec.structure, n, n0)
+    spans = info.spans if info is not None else None
+    if info is not None and n0 % p1:
+        raise ValueError(f"a structured solve over p > 1 ranks needs "
+                         f"p1 | n0 (n0={n0}, p1={p1}): the residual's "
+                         f"blocks are n0/p1 wide on every rank")
     rev = _needs_reversal(spec.lower, spec.transpose)
     overlap = spec.overlap == "on"
     banked = spec.bank_width is not None
@@ -507,7 +520,8 @@ def _build_distributed_solver(spec) -> SolverProgram:
                 return inv_trsm.sweep_shard(
                     L_lo, Dt, Bp, n=n, k=k, n0=n0, p1=p1, p2=p2,
                     accum_dtype=accum, overlap=overlap,
-                    prefetched0=prefetched0, fixed_order=spec.fixed_order)
+                    prefetched0=prefetched0, fixed_order=spec.fixed_order,
+                    spans=spans)
         core = _map_factors(sweep, spec.map_mode) if banked else sweep
     elif spec.method == "rec":
         from repro_torch.core import rec_trsm
@@ -529,9 +543,15 @@ def _build_distributed_solver(spec) -> SolverProgram:
 
     operator = None
     if policy.refines:
+        mask = {}
+        if info is not None:
+            # the residual's block mask, on the device once at build time
+            mask = dict(block_mask=torch.as_tensor(
+                info.mask_array(), dtype=torch.int32, device=grid.device),
+                bt=n0 // p1)
         operator = refinelib.distributed_operator(
             grid, n, k, reverse=rev, accum_dtype=policy.residual,
-            fixed_order=spec.fixed_order)
+            fixed_order=spec.fixed_order, **mask)
 
     def run(sweep_factor, L_hi, B, **kw):
         solve = functools.partial(base_solve, **kw) if kw else base_solve
@@ -550,7 +570,8 @@ def _build_distributed_solver(spec) -> SolverProgram:
             return run(factor[0], L_hi, B, **kw)
         return SolverProgram(key=spec, solve=program)
 
-    preps = _factor_preps(grid, spec.lower, spec.transpose, policy)
+    preps = _factor_preps(grid, spec.lower, spec.transpose, policy,
+                          *((spec.structure, n0) if info else ()))
 
     def prep(L):
         return tuple(pr(torch.as_tensor(L)[None]) for pr in preps)
@@ -564,7 +585,7 @@ def _build_distributed_solver(spec) -> SolverProgram:
         with comm.on_mesh(grid.mesh):
             Dt, pre0 = inv_trsm.phase1_prefetched(
                 L_lo, n=n, n0=n0, p1=p1, p2=p2, block_inv=binv, mode=mode,
-                accum_dtype=accum, overlap=overlap)
+                accum_dtype=accum, overlap=overlap, spans=spans)
         first = [pre0]                   # the first sweep finishes it
 
         def once(pair, Bn):
@@ -629,7 +650,7 @@ def _build_updater(uspec) -> UpdaterProgram:
                                    if policy.refines else ())
         if distributed:
             preps = tuple(functools.partial(gridlib.cyclic_piece, grid=grid,
-                                            dtype=dt) for dt in dts)
+                                            dtype=dt, n=n) for dt in dts)
         else:
             preps = tuple(functools.partial(torch.Tensor.to, dtype=dt)
                           for dt in dts)

@@ -30,10 +30,10 @@ program (``core.trsm``) and a :class:`Solver` serves its bank
 append-only or capacity, every precision preset), every rank calling
 each constructor, admission, update and ``solve`` in the same order
 with the same arguments: the caller passes the natural B, the same on
-every rank, and gets the natural X back on every rank.  A structure,
-a fleet, a :class:`SolveServer` or an ``AsyncSolveServer`` there raises
-``NotImplementedError``: they come with the next slice of the
-distributed port (ROADMAP A12).
+every rank, and gets the natural X back on every rank, a structured
+factor's too.  A fleet, a :class:`SolveServer` or an
+``AsyncSolveServer`` there raises ``NotImplementedError``: they come
+with the next slice of the distributed port (ROADMAP A12 item 4).
 """
 
 from __future__ import annotations

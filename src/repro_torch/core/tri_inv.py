@@ -20,7 +20,7 @@ B two batched GEMMs a level.
 
 Storage: cyclic, L's layout (``repro_torch.core.grid``): each rank holds
 its (n/p1, n/(p1 p2)) piece; at p = 1 that is the natural layout.
-Cholesky and LU call the per-rank bodies at p = 1 only.
+Cholesky and LU call the per-rank bodies on their panels.
 """
 
 from __future__ import annotations
@@ -36,12 +36,6 @@ from repro_torch.core.blocked import diag_blocks
 from repro_torch.core.comm import MESH_AXES
 from repro_torch.core.grid import TrsmGrid
 from repro_torch.core.mm3d import mm3d_shard, mm3d_shard_batched
-
-
-def _check_p1(p1: int, p2: int, what: str) -> None:
-    if p1 * p1 * p2 != 1:
-        raise NotImplementedError(f"{what} over p > 1 ranks "
-                                  f"{gridlib.NEXT_SLICE}")
 
 
 def invert_blocks(blocks: torch.Tensor, block_inv=None,

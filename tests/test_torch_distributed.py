@@ -17,11 +17,24 @@ all on the same seeded inputs: the selfchecks' cases
   hook) plus the unrolled sweep (``it_inv_sweep_sharded(unroll=True)``)
   in the reference, the one-shot program in the port;
 * the port's own checks pass on every grid and rank: the pipelined
-  programs give the sequential ones' bits (``overlap``), phase 1's
-  transposed faces are lower triangular (``face``), the tuple-axis
-  collectives keep the reference's rank order (``order``), what the
-  next slice brings raises (``deferred``), and every rank records the
-  same cost trace.
+  programs give the sequential ones' bits (``overlap``, the banded
+  structure's level schedule included), phase 1's transposed faces are
+  lower triangular (``face``), the tuple-axis collectives keep the
+  reference's rank order (``order``), what the next slice brings
+  raises (``deferred``), a structure that leaves out nothing is the
+  dense program bit for bit (``struct_dense``), a structured bank's
+  "scan" is its "vmap", overlap on its off and a padded slot its
+  unpadded bank (``struct_bits``), and every rank records the same
+  cost trace;
+* the cyclic transpose, Cholesky and LU (``transpose``, ``cholesky``,
+  ``lu``) within 1e-10 of the reference's, the factorizations' cost
+  traces equal to its ``traced_cost`` of the unjitted recursion; a
+  structured ``Solver.from_factor`` (banded and block-sparse, "inv"
+  and "rec", fp64 and bf16_refine), a structured capacity bank and a
+  Cholesky piece admitted through ``admit_cyclic`` against the
+  reference's (``structured``, ``struct_capacity``, ``cyclic_ingest``),
+  the structured sweep's trace equal to the reference's
+  ``traced_cost`` of its level-scheduled sweep.
 
 The subprocesses share one deadline (``DEADLINE_S`` from the fixture's
 start), each gets what is left of it as its timeout, and the port's
@@ -47,28 +60,38 @@ from torch_parity import assert_close, assert_inverse_close
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 GRIDS = [(2, 2), (2, 1), (1, 2), (1, 8)]
 DEADLINE_S = 420
-COMPARED = ("mm3d", "tri_inv", "doubling", "it_inv_trsm", "rec_trsm", "trsm")
-COSTED = ("mm3d", "tri_inv", "doubling", "it_inv_trsm", "rec_trsm")
-PORT_ONLY = ("order", "overlap", "face", "deferred", "padded", "bank_bits")
+COMPARED = ("mm3d", "tri_inv", "doubling", "it_inv_trsm", "rec_trsm", "trsm",
+            "cholesky", "lu")
+COSTED = ("mm3d", "tri_inv", "doubling", "it_inv_trsm", "rec_trsm",
+          "cholesky", "lu")
+PORT_ONLY = ("order", "overlap", "face", "deferred", "padded", "bank_bits",
+             "struct_dense", "struct_bits")
 # the front door: Solver and FactorBank at p > 1 against the reference's
 # Solver and FactorBank; the banked programs' costs against the
-# reference's traced vmapped sweep and recursion
-FRONT = ("session", "session_refine", "bank", "cyclic", "capacity")
-FRONT_COSTED = ("session", "session_refine", "bank")
+# reference's traced vmapped sweep (the level-scheduled one for a
+# structure) and recursion
+FRONT = ("session", "session_refine", "bank", "cyclic", "capacity",
+         "cyclic_ingest", "structured", "struct_capacity")
+FRONT_COSTED = ("session", "session_refine", "bank", "structured")
 
 # The reference side: each compared case's output and traced cost.
 REFERENCE = r'''
-import json, os, sys
+import functools, json, os, sys
 import numpy as np
 import jax, jax.numpy as jnp
 jax.config.update("jax_enable_x64", True)
 from repro import core
-from repro.core import comm, grid as gridlib, inv_trsm, mm3d, rec_trsm, tri_inv
+from repro.core import (cholesky, comm, grid as gridlib, inv_trsm, lu, mm3d,
+                        rec_trsm, tri_inv)
 from repro.kernels import ops
 from repro.core.bank import FactorBank
+from repro.core.structure import FactorStructure
 from repro_torch.core.selfcheck import (BANK_K, BANK_M, BANK_N, BANK_N0,
-                                        CASES, VARIANTS, _bank_inputs,
-                                        capacity_script, random_tril, rhs)
+                                        CASES, STRUCT_N0, VARIANTS,
+                                        _bank_inputs, _struct_inputs,
+                                        capacity_script, factor_seed,
+                                        lu_input, random_tril, rhs, spd,
+                                        structure_of)
 
 out_dir = sys.argv[1]
 f64 = jnp.float64
@@ -210,6 +233,86 @@ for i, (p1, p2, method, precision) in enumerate(CASES["capacity"]):
                             np.float32 if precision else np.float64,
                             solve_bank)
     save("capacity", i, waves[-1][1])
+
+for i, (p1, p2, mr, nc) in enumerate(CASES["transpose"]):
+    grid = gridlib.make_trsm_mesh(p1, p2)
+    A = np.random.default_rng(mr * nc + p1).standard_normal((mr, nc))
+    fn = cholesky.transpose_fn(grid, mr, nc)
+    T = fn(gridlib.to_cyclic_matrix(A, p1, p1 * p2))
+    save("transpose", i, gridlib.from_cyclic_matrix(np.asarray(T), p1,
+                                                     p1 * p2),
+         cost_of(comm.traced_cost(fn, sds(mr, nc))))
+
+def unjitted(grid, rec, n, n0, outs):
+    """The shard_map of a factorization's recursion without its jit
+    (``traced_cost`` does not look into a jitted program), with
+    ``cholesky_fn``'s base order."""
+    from jax.sharding import PartitionSpec as P
+    from repro import compat
+    n0 = n0 or max(grid.p1 * grid.p1 * grid.p2, n // 8)
+    while n % n0:
+        n0 *= 2
+    spec = P("x", ("z", "y"))
+    body = functools.partial(rec, n=n, n0=min(n0, n), p1=grid.p1, p2=grid.p2)
+    return compat.shard_map(body, mesh=grid.mesh, in_specs=(spec,),
+                            out_specs=spec if outs == 1 else (spec,) * outs)
+
+
+for i, case in enumerate(CASES["cholesky"]):
+    p1, p2, n, n0 = case
+    grid = gridlib.make_trsm_mesh(p1, p2)
+    save("cholesky", i, cholesky.cholesky(spd(factor_seed(case), n), grid, n0),
+         cost_of(comm.traced_cost(unjitted(grid, cholesky._chol_rec, n, n0, 1),
+                                  sds(n, n))))
+
+for i, case in enumerate(CASES["lu"]):
+    p1, p2, n, n0 = case
+    grid = gridlib.make_trsm_mesh(p1, p2)
+    save("lu", i, np.stack(lu.lu(lu_input(factor_seed(case), n), grid, n0)),
+         cost_of(comm.traced_cost(unjitted(grid, lu._lu_rec, n, n0, 2),
+                                  sds(n, n))))
+
+for i, (p1, p2) in enumerate(CASES["cyclic_ingest"]):
+    grid = gridlib.make_trsm_mesh(p1, p2)
+    L0 = random_tril(20, N)
+    bank = FactorBank(grid, N, n0=N0, dtype=np.float64, **HOOK)
+    bank.admit_cyclic(cholesky.cholesky_cyclic(L0 @ L0.T, grid))
+    save("cyclic_ingest", i, np.asarray(core.Solver.from_bank(bank).solve(
+        rhs(22, N, K)[None], donate=False))[0])
+
+
+def reference_structure(kind):
+    st = structure_of(kind)
+    return FactorStructure(st.kind, bandwidth=st.bandwidth, mask=st.mask)
+
+
+for i, (p1, p2, kind, method, precision) in enumerate(CASES["structured"]):
+    grid = gridlib.make_trsm_mesh(p1, p2)
+    st = reference_structure(kind)
+    L, B = _struct_inputs(precision)
+    n, k = B.shape
+    solver = core.Solver.from_factor(L, grid, method=method, n0=STRUCT_N0,
+                                     precision=precision, structure=st,
+                                     **hook(method))
+    if method == "inv":
+        cost = cost_of(comm.traced_cost(jax.vmap(
+            inv_trsm.it_inv_sweep_sharded(grid, n, k, STRUCT_N0, unroll=True,
+                                          structure=st)), sds(1, n, n),
+            sds(1, n // STRUCT_N0, STRUCT_N0, STRUCT_N0), sds(1, n, k)))
+    else:
+        cost = banked_cost(grid, "rec", 1, n, k, STRUCT_N0)
+    save("structured", i, np.asarray(solver.solve(B, donate=False)), cost)
+
+for i, (p1, p2, method, precision) in enumerate(CASES["struct_capacity"]):
+    grid = gridlib.make_trsm_mesh(p1, p2)
+    bank = FactorBank(grid, N, method=method, n0=N0,
+                      dtype=None if precision else np.float64,
+                      precision=precision, capacity=4,
+                      structure=reference_structure("banded"), **hook(method))
+    waves = capacity_script(bank, N, N // 2, 50,
+                            np.float32 if precision else np.float64,
+                            solve_bank)
+    save("struct_capacity", i, waves[-1][1])
 
 for i, (p1, p2, n, k, n0, method) in enumerate(CASES["trsm"]):
     grid = gridlib.make_trsm_mesh(p1, p2)
@@ -356,12 +459,14 @@ def test_cost_trace_matches_reference(runs, name, i):
 def test_port_check(runs, name, i):
     """``overlap``: the same bits as the sequential program; ``face``: the
     faces are lower triangular on every rank; ``order``: x-major rank
-    order of the tuple-axis collectives; ``deferred``: structures,
-    fleets, the serving tiers and multi-rank cholesky and lu raise,
-    naming the next slice; ``padded``: a padded slot's leading block is
-    the unpadded bank's, bit for bit, lower, upper and transposed;
-    ``bank_bits``: a bank's "scan" gives "vmap"'s bits, overlap on gives
-    off's."""
+    order of the tuple-axis collectives; ``deferred``: fleets and the
+    serving tiers raise, naming the next slice; ``padded``: a padded
+    slot's leading block is the unpadded bank's, bit for bit, lower,
+    upper and transposed; ``bank_bits``: a bank's "scan" gives "vmap"'s
+    bits, overlap on gives off's; ``struct_dense``: ``structure=dense``
+    and a mask keeping every block give the unstructured X bit for bit;
+    ``struct_bits``: ``bank_bits`` and ``padded`` for a structured
+    bf16_refine bank, its residuals on B4."""
     assert bool(_port(runs, name, i)["ok"])
 
 
@@ -372,9 +477,11 @@ def _front_case(name, i) -> tuple:
         return case[-1], None
     if name == "session_refine":
         return case[2], "bf16_refine"
-    if name == "cyclic":
+    if name in ("cyclic", "cyclic_ingest"):
         return "inv", None
-    return case[2], case[-1]                       # bank, capacity
+    if name == "structured":
+        return case[3], case[4]
+    return case[2], case[-1]          # bank, capacity, struct_capacity
 
 
 def _front_tol(name, i) -> float:
@@ -390,13 +497,15 @@ def _front_tol(name, i) -> float:
 def test_front_door_matches_reference(runs, name, i):
     """``Solver.from_factor`` in four variants, every preset's refined
     session, append-only banks in "vmap" and "scan", ``admit_cyclic``
-    and a capacity bank's lifecycle (compared on its live slots: the
-    reference's "rec" capacity bank solves dead lanes to NaN), each
-    against the reference's run of the same inputs."""
+    (of the whole cyclic factor, and of a ``cholesky_cyclic`` piece),
+    a capacity bank's lifecycle, plain and structured (compared on its
+    live slots: the reference's "rec" capacity bank solves dead lanes
+    to NaN), and structured solves, each against the reference's run of
+    the same inputs."""
     port = _port(runs, name, i)
     got, want = port["out"], _reference(runs, name, i)["out"]
     assert got.shape == want.shape
-    if name == "capacity":
+    if name in ("capacity", "struct_capacity"):
         live = list(json.loads(str(port["live"])))
         got, want = got[live], want[live]
     tol = _front_tol(name, i)
@@ -415,7 +524,8 @@ def test_banked_cost_trace_matches_reference(runs, name, i):
     from repro_torch.core import precision as preclib
     got = json.loads(str(_port(runs, name, i)["cost"]))
     want = json.loads(str(_reference(runs, name, i)["cost"]))
-    precision = _front_case(name, i)[1] if name == "bank" else None
+    precision = _front_case(name, i)[1] \
+        if name in ("bank", "structured") else None
     passes = 1 + (preclib.resolve(precision).refine_steps
                   if precision else 0)
     assert (got["s"], got["w"], got["f"]) == (passes * want["s"],

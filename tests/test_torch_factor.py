@@ -136,14 +136,17 @@ def test_invert_fp64_within_selfcheck_bound(n, s0):
 
 def test_p_greater_than_one_is_roadmap_a12():
     plan = api.plan_grid(2, 1)
-    # the inversion runs at p > 1 (tests/test_torch_distributed.py), on
-    # a grid with a mesh, never on a plan-only one
+    # the inversion, the factorizations and the transpose run at p > 1
+    # (tests/test_torch_distributed.py), on a grid with a mesh, never on
+    # a plan-only one
     with pytest.raises(ValueError, match="plan-only"):
         tri_inv.tri_inv_fn(plan, 64)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="plan-only"):
         cholesky.cholesky_fn(plan, 64)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="plan-only"):
         lu.lu_fn(plan, 64)
+    with pytest.raises(ValueError, match="plan-only"):
+        cholesky.transpose_fn(plan, 64, 64)
 
 
 # ------------------------------ cholesky ------------------------------

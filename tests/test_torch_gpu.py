@@ -1358,13 +1358,11 @@ def _dist_solve(grid, method):
     """One rank's part: the one-shot solve at n = 512 ("inv" at n0 = 64,
     m = p, all-to-all phase 1; "rec" at its default n0), X on every rank,
     and the launches of B1, B2 and B3 it made; for "refine", the relres
-    of a bf16_refine solve and the message of the NotImplementedError a
-    structured solve raises."""
-    from repro_torch import core
-    from repro_torch.core import precision as preclib
+    of a bf16_refine solve, that of a structured (banded:64) bf16_refine
+    solve against the masked operator, and the B4 launches the
+    structured solve made."""
+    from repro_torch import api, core
     from repro_torch.core import selfcheck
-    from repro_torch.core.solver import SolveSpec, solver_for
-    from repro_torch.core.structure import FactorStructure
     counters = (tri_inv_block.tri_inv_blocks, trmm.trmm,
                 trsm_block.trsm_substitution)
     L = torch.as_tensor(selfcheck.random_tril(DIST_N, DIST_N))
@@ -1373,13 +1371,15 @@ def _dist_solve(grid, method):
         X = core.trsm(L.float(), B.float(), grid, n0=64,
                       precision="bf16_refine").cpu().double()
         relres = (torch.linalg.norm(L @ X - B) / torch.linalg.norm(B)).item()
-        try:
-            solver_for(SolveSpec(n=DIST_N, k=DIST_K, grid=grid,
-                                 policy=preclib.resolve(None, L.dtype),
-                                 n0=64, structure=FactorStructure.banded(64)))
-        except NotImplementedError as e:
-            return relres, str(e)
-        return relres, "no error"
+        st = api.FactorStructure.banded(64)
+        Lm = torch.as_tensor(selfcheck.masked(L.numpy(), st, 64))
+        trmm.trmm_masked.launches = 0
+        solver = api.Solver.from_factor(L.float(), grid, n0=64, structure=st,
+                                        precision="bf16_refine")
+        Xs = solver.solve(B.float()).cpu().double()
+        rel_st = (torch.linalg.norm(Lm @ Xs - B)
+                  / torch.linalg.norm(B)).item()
+        return relres, rel_st, trmm.trmm_masked.launches
     for c in counters:
         c.launches = 0
     X = core.trsm(L, B, grid, method=method,
@@ -1406,15 +1406,84 @@ def test_distributed_solve_on_the_card(cuda, method, kernels):
 
 @pytest.mark.gpu
 def test_distributed_refinement_preset_raises(cuda):
-    """A refinement preset on a p > 1 grid now answers in every rank
-    within its bound (the distributed residual), and what the next slice
-    brings (a structured solve) raises there, naming it, instead of
-    answering."""
+    """A refinement preset on a p > 1 grid answers in every rank within
+    its bound (the distributed residual), and so does a structured
+    solve (once it raised, naming the next slice): relres against the
+    masked operator within 1e-5, its residuals' local products on B4 in
+    every rank."""
     from repro_torch.core import selfcheck
-    for relres, msg in selfcheck.spawn(2, 2, "cuda:0", _dist_solve,
-                                       "refine"):
+    for relres, rel_st, b4 in selfcheck.spawn(2, 2, "cuda:0", _dist_solve,
+                                              "refine"):
         assert relres < 1e-5, relres
-        assert "next slice" in msg, msg
+        assert rel_st < 1e-5, rel_st
+        assert b4 > 0, b4
+
+
+def _dist_structured(grid, method):
+    """One rank's part: a structured (banded:64) fp64_refine solve at
+    n = 512, n0 = 64 through ``Solver.from_factor``, X on every rank,
+    and the launches of B4 (each residual's local product), B2 and B3
+    it made."""
+    from repro_torch import api
+    from repro_torch.core import selfcheck
+    counters = (trmm.trmm_masked, trmm.trmm, trsm_block.trsm_substitution)
+    L = torch.as_tensor(selfcheck.random_tril(DIST_N, DIST_N))
+    B = torch.as_tensor(selfcheck.rhs(6, DIST_N, DIST_K))
+    for c in counters:
+        c.launches = 0
+    solver = api.Solver.from_factor(L, grid, method=method, n0=64,
+                                    structure=api.FactorStructure.banded(64),
+                                    precision="fp64_refine")
+    X = solver.solve(B)
+    return X.cpu().numpy(), [c.launches for c in counters]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method,kernels", [("inv", (0, 1)), ("rec", (0, 2))])
+def test_distributed_structured_solve_on_the_card(cuda, method, kernels):
+    """A structured solve at p > 1 on the card (8 gloo ranks on cuda:0):
+    X within 1e-10 (fp64_refine, relative to max|X|) of the same ranks'
+    plain CPU run, on every rank; B4 (the residual) and B2 ("inv") or B3
+    ("rec") launched in every rank on the card and in none on the
+    CPU."""
+    import numpy as np
+    from repro_torch.core import selfcheck
+    on_card = selfcheck.spawn(2, 2, "cuda:0", _dist_structured, method)
+    plain = selfcheck.spawn(2, 2, "cpu", _dist_structured, method)
+    want = plain[0][0]
+    for (X, launches), (_, cpu_launches) in zip(on_card, plain):
+        assert np.abs(X - want).max() <= 1e-10 * np.abs(want).max()
+        assert all(launches[i] > 0 for i in kernels), launches
+        assert cpu_launches == [0, 0, 0]
+
+
+def _dist_factor(grid):
+    """One rank's part: ``cholesky`` and ``lu`` of order 512 in fp64,
+    the whole factors on every rank, and the B1 launches they made."""
+    from repro_torch.core import cholesky, lu, selfcheck
+    tri_inv_block.tri_inv_blocks.launches = 0
+    A = torch.as_tensor(selfcheck.spd(7, DIST_N))
+    L = cholesky.cholesky(A, grid)
+    Lu, U = lu.lu(torch.as_tensor(selfcheck.lu_input(8, DIST_N)), grid)
+    return ([F.cpu().numpy() for F in (L, Lu, U)],
+            tri_inv_block.tri_inv_blocks.launches)
+
+
+@pytest.mark.gpu
+def test_distributed_factorizations_on_the_card(cuda):
+    """Multi-rank Cholesky and LU on the card (8 gloo ranks on cuda:0):
+    L, and L and U, within 1e-10 (relative to their largest entry) of
+    the same ranks' plain CPU run, on every rank; B1 launched in every
+    rank's panel inversions on the card and in none on the CPU."""
+    import numpy as np
+    from repro_torch.core import selfcheck
+    on_card = selfcheck.spawn(2, 2, "cuda:0", _dist_factor)
+    plain = selfcheck.spawn(2, 2, "cpu", _dist_factor)
+    wants = plain[0][0]
+    for (got, launches), (_, cpu_launches) in zip(on_card, plain):
+        for F, W in zip(got, wants):
+            assert np.abs(F - W).max() <= 1e-10 * np.abs(W).max()
+        assert launches > 0 and cpu_launches == 0
 
 
 def _dist_bank(grid):
