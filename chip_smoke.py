@@ -237,13 +237,39 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    plain version there), host-staged seconds; on (2, 2) the Cholesky
    piece admitted into a bf16_refine bank (``admit_cyclic``) and
    served, relres <= 1e-5 against the factor the bank holds.
-15. The card line, the kernels' JSON summary, then the last line
+15. The serving tier over p > 1 ranks (``serve_rank``), in phase 14's
+   (2, 1) ranks after its cases.  Synchronous (SPMD, every rank making
+   the same calls): the trsm-fleet spectrum (orders 8192, 4096, 2048,
+   4 factors each: two tenants, two per order) planned by the H100
+   planner at bf16_refine, k = 16 (one "inv" bucket of 12 slots,
+   n0 = 4096), admitted (the smaller orders padded), served through
+   ``SolveServer(fleet)``: 32 requests of widths 1..16, a drain every 8,
+   a replace after the first drain, a third tenant's admission after
+   the second (a cross-tenant reclaim).  Async: ``AsyncSolveServer``
+   over the autoscaled fleet of phase 10 ({8192: 2, 4096: 2}), made and
+   warmed up in every rank; rank 0 leads with an
+   ``AdmissionController`` (SLO 4x the median sync wave's ms) and an
+   ``Autoscaler`` and offers Poisson arrivals of 4-column requests at
+   0.8x the capacity the sync waves measured for 5 s, then 2.5x for
+   2 s (the load shift: at least one replan); the other ranks follow
+   its descriptor stream.  Checks in every rank: each request's relres
+   in fp64 against its slot's factor (1e-5), X the same in every rank,
+   the padded slot bit-equal to an unpadded bank of blockdiag(L, I),
+   every rank's fleet state equal at the end of each part, every kernel
+   the sync part launched (B1, B2 and the ordered ``ops.gemm``) held
+   against its plain version on the inputs it was handed.  Printed: ms
+   and MB staged per fleet wave and rank, admissions, relres, launches
+   per rank, the async run's goodput, p50/p99, sheds, replans (kind,
+   moved, opened, closed), the stream's ms and bytes per wave and its
+   share of a sync wave.
+16. The card line, the kernels' JSON summary, then the last line
    ``{"ok": true, "device": {...}}``.  Each kernel's launches are those
    of its main path's run: B1 and B2 the inv configuration at the
    default n0, B3 the rec one, B4 the first structured one, B6 the rec
    churn phase, B5 the fleet phase; ``launches_distributed`` adds its
-   launches in phases 12-14, summed over ranks, grids and cases, and
-   is above 0 for every kernel.
+   launches in phases 12-15, summed over ranks, grids and cases, and
+   is above 0 for every kernel.  The kernel lines of phases 12-15 also
+   carry the ordered ``ops.gemm``'s launches per rank.
 """
 
 import collections
@@ -361,6 +387,41 @@ FRONT_AGREE = {"fp32": 1e-4, "bf16_refine": 1e-4, "fp64_refine": 1e-10}
 PRODUCER_SEED = 190
 PRODUCER_SMALL = N // 2         # the producers' order on (2, 1) and (1, 4)
 PRODUCER_AGREE = 1e-4           # fp32 factor against the p = 1 one
+# phase 15: the serving tier over the (2, 1) ranks: the trsm-fleet
+# spectrum through SolverFleet + SolveServer (SPMD), then the async tier
+# led by rank 0 over the traffic phase's autoscaled fleet
+SERVE_GRID = (2, 1)
+SERVE_SEED = 200
+SERVE_ORDERS = (N, N // 2, N // 4)
+SERVE_REQUESTS = 32             # widths 1..16, a drain every 8
+SERVE_DRAIN = 8
+SERVE_ASYNC = {N: 2, N // 2: 2}
+SERVE_WIDTH = PANEL_K // 4      # the traffic phase's request width
+SERVE_LOAD = 0.8                # x the capacity the sync waves measured
+SERVE_LOAD_S = 5.0
+SERVE_SHIFT = 2.5               # the load shift, x the same capacity
+SERVE_SHIFT_S = 2.0
+SERVE_SLO_X = 4                 # SLO: 4x the sync wave's measured ms
+SERVE_RELRES = 1e-5             # bf16_refine's bound
+# what the sync part launches: the planner's one "inv" bucket (n0 = n/2,
+# m = 2 < p: phase 1 by the cooperative doubling, its leaves on B1, the
+# padded admissions too), B2 per face, ordered products
+SERVE_SYNC_KERNELS = ("tri_inv_blocks", "trmm", "gemm")
+# the structured and "rec" buckets: a block-diagonal fleet (the planner
+# puts it at n0 = n/2, where a band of 1024 fills the 2 x 2 block mask,
+# so the mask drops the off-diagonal block) whose bf16_refine residual
+# runs B4; the planner's "rec" bucket of the spectrum's smallest order,
+# a capacity bank, whose base case always runs gated (B6); and a plain
+# SolveServer over a "rec" Solver of that order, ungated (B3)
+SERVE_STRUCT = {N: 2}
+SERVE_STRUCT_MASK = ((True, False), (False, True))
+SERVE_REC = {N // 4: 2}
+SERVE_MORE_KERNELS = ("trmm_masked", "trsm_substitution",
+                      "trsm_substitution_valid")
+# every kernel phase 15 holds against its plain version; B5 is not
+# among them: every bucket the H100 planner makes here has m = 2 < p,
+# whose phase 1 (the doubling) runs a padded admission on B1
+SERVE_KERNELS = SERVE_SYNC_KERNELS + SERVE_MORE_KERNELS
 
 
 class SmokeFailure(RuntimeError):
@@ -994,9 +1055,18 @@ def read_counts() -> dict:
             for name, (fn, attr) in counters().items()}
 
 
+def read_dist_counts() -> dict:
+    """:func:`read_counts` and the ordered ``ops.gemm``'s launches (no
+    TPU kernel's port: every p > 1 bank's local products)."""
+    from repro_torch.kernels import trmm
+    return dict(read_counts(), gemm=trmm.gemm.launches)
+
+
 def reset_counts() -> None:
+    from repro_torch.kernels import trmm
     for fn, attr in counters().values():
         setattr(fn, attr, 0)
+    trmm.gemm.launches = 0
 
 
 def serve(api, L, L64, method, precision, n0, seed, structure=None):
@@ -3006,7 +3076,8 @@ def dist_rank(grid, n: int, k: int, seed: int) -> dict:
         with kept, comm.trace() as t:
             res = run()
         torch.cuda.synchronize()
-        rec = dict(seconds=time.perf_counter() - t0, launches=read_counts(),
+        rec = dict(seconds=time.perf_counter() - t0,
+                   launches=read_dist_counts(),
                    staged_bytes=grid.mesh.staged_bytes - staged0,
                    cost=dict(t.summary(), by_op=t.by_op()))
         what = f"phase 12 {p1}x{p1}x{p2} rank {rank} {label}"
@@ -3048,6 +3119,8 @@ def dist_rank(grid, n: int, k: int, seed: int) -> dict:
     torch.cuda.empty_cache()
     out["producer"] = producer_rank(grid, one)
     out["setup"]["phase14_s"] = time.perf_counter() - t14
+    if (p1, p2) == SERVE_GRID:
+        out["serving"] = serve_rank(grid)                    # phase 15
     out["setup"]["exit"] = time.time()
     return out
 
@@ -3102,7 +3175,10 @@ def dist_check(one, kind, dtype, opt, res, L, B, A, label, gname) -> dict:
 DIST_VS_PLAIN = {"tri_inv_blocks": {"float64": 1e-10, "float32": 1e-4},
                  "trmm": {"float64": 1e-10, "float32": 2e-5},
                  "trsm_substitution": {"float64": 1e-10, "float32": 1e-4,
-                                       "bfloat16": 1e-4}}
+                                       "bfloat16": 1e-4},
+                 # the ordered product: a bf16 result rounds once (2^-8)
+                 "gemm": {"float64": 1e-10, "float32": 1e-4,
+                          "bfloat16": 1e-2}}
 
 
 class DistKernelInputs:
@@ -3112,15 +3188,18 @@ class DistKernelInputs:
     their gated calls, B4 ``trmm``'s with a block mask), and passes
     every call through unchanged (the counts stay the wrappers').  ``check`` then holds each kernel
     against its plain version on each kept input, after the case's
-    counts were read, and ``times`` times it there."""
+    counts were read, and ``times`` times it there.  With ``gemm`` the
+    ordered ``ops.gemm`` is kept and held too (phase 15)."""
 
-    def __init__(self):
+    def __init__(self, gemm: bool = False):
         self.kept = {}
+        self.gemm = gemm
 
     def __enter__(self):
         from repro_torch.kernels import ops
         self.ops = ops
-        self.saved = {name: getattr(ops, name) for name in DIST_VS_PLAIN}
+        self.saved = {name: getattr(ops, name) for name in DIST_VS_PLAIN
+                      if name != "gemm" or self.gemm}
 
         def keeper(name, fn):
             def keep(*args, **kw):
@@ -3167,10 +3246,11 @@ class DistKernelInputs:
                             tri_inv_block.tri_inv_blocks_plain),
             trmm=(trmm.trmm, trmm.trmm_plain),
             trsm_substitution=(trsm_block.trsm_substitution,
-                               trsm_block.trsm_substitution_plain))
+                               trsm_block.trsm_substitution_plain),
+            gemm=(trmm.gemm, trmm.gemm_plain))
         seen = {self.gated_name(key[0], *val)
                 for key, val in self.kept.items()}
-        for counted in counters():
+        for counted in list(counters()) + ["gemm"] * self.gemm:
             check(launches.get(counted, 0) == 0 or counted in seen,
                   f"{what}: {counted} launched but no input was kept")
         out = []
@@ -3330,9 +3410,10 @@ def front_solver_case(api, case, L64, rng):
 
 def front_lifecycle_case(api, case, L64, rng):
     """A C = 4 capacity bank: two admits, a padded admission of an order
-    n/2 factor (B5), a wave and ``FRONT_STEADY`` steady ones; replace,
-    a replace_run of 2, evict, a wave; re-admit, a wave.  The solve
-    program is built once over all of it."""
+    n/2 factor (B5), a wave; replace, a replace_run of 2, evict, a wave;
+    re-admit, a wave.  The solve program is built once over all of it
+    (the two later waves are its steady solves: no ``FRONT_STEADY``
+    waves before the turnover)."""
     o, n = case.opt, L64.shape[0]
     d = n // 2
     bank = api.FactorBank(case.grid, n, method=o["method"], n0=FRONT_N0,
@@ -3363,12 +3444,9 @@ def front_lifecycle_case(api, case, L64, rng):
     admit()
     admit()
     pad_slot = admit(order=d)
-    for i in range(1 + FRONT_STEADY):
-        B, X = wave(f"wave {i}")
-        if i == 0:
-            case.key = case.built(solver)
-            first = (pad_slot, held[pad_slot][0], X[pad_slot].cpu(),
-                     B[pad_slot])
+    B, X = wave("wave 0")
+    case.key = case.built(solver)
+    first = (pad_slot, held[pad_slot][0], X[pad_slot].cpu(), B[pad_slot])
     admit(slot=1)
     run = torch.stack([front_factor(L64, next(j)) for _ in range(2)])
     bank.replace_run(0, run)
@@ -3573,7 +3651,7 @@ def front_rank(grid, L64, one, cases, phase: int, front=None) -> dict:
         with kept, comm.trace() as t:
             FRONT_RUNNERS[kind](api, case, L64, rng)
         torch.cuda.synchronize()
-        launches = read_counts()
+        launches = read_dist_counts()
         rec = dict(seconds=time.perf_counter() - t0, launches=launches,
                    solve_s=[sv[0] for sv in case.solves],
                    staged_bytes=[sv[1] for sv in case.solves],
@@ -3684,16 +3762,32 @@ def front_report(ranks, gname: str, totals, part: str = "front",
 
 
 def kernels_line(key: str, phase: int, gname: str, held: dict,
-                 want) -> None:
+                 want, gemm=None) -> None:
     """Fail unless each kernel of ``want`` was held against its plain
-    version on some input of the phase's cases, then print ``held``."""
+    version on some input of the phase's cases, then print ``held`` and
+    the ordered ``ops.gemm``'s launches per rank (``gemm``)."""
     for name in want:
         check(name in held, f"phase {phase} {gname}: {name} was held "
                             f"against its plain version on no input")
     print(json.dumps({key: dict(
         grid=gname, note=f"each kernel against its plain version on the "
                          f"inputs phase {phase}'s cases handed it, every "
-                         f"rank", **held)}), flush=True)
+                         f"rank", gemm_launches_per_rank=gemm, **held)}),
+          flush=True)
+
+
+def gemm_per_rank(ranks, part: str, labels=None) -> list:
+    """The ordered ``ops.gemm``'s launches per rank over one phase's
+    records (``part``: "front", "struct", "producer", or None for phase
+    12's cases ``labels``), a producer's bank included."""
+    out = []
+    for r in ranks:
+        recs = [r[label] for label in labels] if part is None \
+            else list(r[part].values())
+        out.append(sum(rec["launches"].get("gemm", 0)
+                       + rec.get("bank", {}).get("launches", {}).get("gemm", 0)
+                       for rec in recs))
+    return out
 
 
 def struct_cases(p1: int, p2: int) -> list:
@@ -3776,7 +3870,8 @@ def producer_rank(grid, one) -> dict:
         with kept, comm.trace() as t:
             res = run()
         torch.cuda.synchronize()
-        rec = dict(seconds=time.perf_counter() - t0, launches=read_counts(),
+        rec = dict(seconds=time.perf_counter() - t0,
+                   launches=read_dist_counts(),
                    staged_bytes=grid.mesh.staged_bytes - staged0,
                    cost=dict(t.summary()))
         check(rec["launches"]["tri_inv_blocks"] > 0,
@@ -3846,7 +3941,8 @@ def producer_bank(api, grid, piece, L, what) -> dict:
         bank.admit_cyclic(piece)
         X = api.Solver.from_bank(bank).solve(B)
     torch.cuda.synchronize()
-    rec = dict(seconds=time.perf_counter() - t0, launches=read_counts(),
+    rec = dict(seconds=time.perf_counter() - t0,
+               launches=read_dist_counts(),
                staged_bytes=grid.mesh.staged_bytes - staged0)
     for name in ("tri_inv_blocks", "trmm"):
         check(rec["launches"][name] > 0, f"{what} bank: {name} launched 0 "
@@ -3918,18 +4014,496 @@ def producer_report(ranks, gname: str, totals, held: dict) -> None:
         print(json.dumps({"producer_case": row}), flush=True)
 
 
+def _sync_all(grid) -> None:
+    """Every rank's queued work done, then every rank at this point."""
+    import torch.distributed as dist
+    torch.cuda.synchronize()
+    dist.barrier()
+
+
+def _states_equal(grid, state) -> bool:
+    """Whether every rank's fleet state equals this one's."""
+    import torch.distributed as dist
+    states = [None] * grid.p
+    dist.all_gather_object(states, state)
+    return all(st == states[0] for st in states)
+
+
+def serve_sync_rank(api, grid) -> dict:
+    """Phase 15's synchronous part in one rank (every rank makes the same
+    calls): the trsm-fleet spectrum, 4 factors of each order (two
+    tenants, two each; L = tril(randn) + d I from one seeded generator,
+    the same in every rank) planned into the H100 planner's buckets at
+    bf16_refine, k = 16, admitted (the smaller orders padded: B5),
+    served through ``SolveServer(fleet)``: 32 requests of widths 1..16,
+    a drain every 8, a replace after the first drain and a third
+    tenant's admission after the second (the bucket is full: it
+    reclaims the coldest slot across tenants).  The kernel counts are
+    set to 0 just before and read just after; every kernel's inputs are
+    kept (``DistKernelInputs``, ``ops.gemm`` too) and held against the
+    plain versions afterwards.  Then every request's relres in fp64
+    against the factor its slot held, a padded slot's X against an
+    unpadded p > 1 bank of the bucket's order holding blockdiag(L, I),
+    and every rank's fleet state."""
+    from repro_torch.core import comm
+    mesh, rank = grid.mesh, grid.mesh.rank
+    what = f"phase 15 {grid.p1}x{grid.p1}x{grid.p2} rank {rank} sync"
+    fresh, gen = factor_maker(grid.device, SERVE_SEED)
+    rng = np.random.default_rng(SERVE_SEED)
+    plan = api.plan_fleet({d: 4 for d in SERVE_ORDERS}, grid, k=PANEL_K,
+                          precision="bf16_refine")
+    fleet = api.SolverFleet(grid, plan)
+    held, handles, admit_ms, waves, requests = {}, {}, [], [], []
+    kept = DistKernelInputs(gemm=True)
+    _sync_all(grid)
+    staged0 = mesh.staged_bytes
+    reset_counts()
+    t0 = time.perf_counter()
+    with kept, comm.trace():
+        for tenant in ("tenant-a", "tenant-b"):
+            for d in SERVE_ORDERS:
+                for j in range(2):
+                    key = (tenant, f"layer{SERVE_ORDERS.index(d)}-{j}")
+                    held[key] = fresh(d)
+                    torch.cuda.synchronize()
+                    ta = time.perf_counter()
+                    handles[key] = fleet.admit(held[key], tenant=tenant,
+                                               tag=key[1])
+                    torch.cuda.synchronize()
+                    admit_ms.append((d, (time.perf_counter() - ta) * 1e3))
+        server = api.SolveServer(fleet, PANEL_K).warmup()
+        keys, pending = list(held), []
+        widths = rng.integers(1, PANEL_K + 1, SERVE_REQUESTS)
+        for i, w in enumerate(widths):
+            key = keys[i % len(keys)]
+            b = torch.randn((held[key].shape[0], int(w)), generator=gen,
+                            device=grid.device)
+            server.submit(b, tenant=key[0], tag=key[1])
+            pending.append((key, held[key], b))
+            if (i + 1) % SERVE_DRAIN and i + 1 < len(widths):
+                continue
+            torch.cuda.synchronize()
+            st0, w0, tw = mesh.staged_bytes, server.waves_solved, \
+                time.perf_counter()
+            outs = server.drain()
+            torch.cuda.synchronize()
+            waves.append(dict(ms=(time.perf_counter() - tw) * 1e3,
+                              staged_bytes=mesh.staged_bytes - st0,
+                              bucket_waves=server.waves_solved - w0,
+                              requests=len(pending)))
+            for key, L, b in pending:
+                requests.append((key, L, b, outs[key].pop(0)))
+            pending = []
+            if len(waves) == 1:            # refresh one factor in place
+                key = keys[0]
+                held[key] = fresh(held[key].shape[0])
+                fleet.replace(handles[key], held[key])
+            elif len(waves) == 2:          # a third tenant: a reclaim
+                key = ("tenant-c", "burst")
+                held[key] = fresh(SERVE_ORDERS[-1])
+                handles[key] = fleet.admit(held[key], tenant=key[0],
+                                           tag=key[1])
+                live = {(h.tenant, h.tag) for h in fleet.handles()}
+                keys = [k for k in keys if k in live] + [key]
+    torch.cuda.synchronize()
+    launches = read_dist_counts()
+    rec = dict(seconds=time.perf_counter() - t0, launches=launches,
+               staged_bytes=mesh.staged_bytes - staged0, admit_ms=admit_ms,
+               waves=waves, plan=[[b.n, list(b.orders), b.capacity, b.method,
+                                   b.n0] for b in plan.buckets],
+               served=server.requests_served,
+               bucket_waves=server.waves_solved,
+               reclaims=fleet.stats()["reclaims"])
+    check(rec["reclaims"] == 1, f"{what}: {rec['reclaims']} reclaims, not "
+                                f"the burst's one")
+    check(server.requests_served == SERVE_REQUESTS,
+          f"{what}: served {server.requests_served} of {SERVE_REQUESTS}")
+    for name in SERVE_SYNC_KERNELS:
+        check(launches[name] > 0, f"{what}: {name} launched 0 times")
+    tc = time.perf_counter()
+    rec["vs_plain"] = kept.check(what, launches)
+    kept.kept.clear()
+    worst, sums = 0.0, []
+    for key, L, b, X in requests:
+        d = L.shape[0]
+        check(tuple(X.shape) == (d, b.shape[1]), f"{what}: X of {key} is "
+                                                  f"{tuple(X.shape)}")
+        rel = (torch.linalg.norm(L.double() @ X.double() - b.double())
+               / torch.linalg.norm(b.double())).item()
+        check(rel <= SERVE_RELRES, f"{what}: {key} relres {rel} > "
+                                   f"{SERVE_RELRES}")
+        worst = max(worst, rel)
+        sums.append(float(X.double().sum()))
+    rec.update(relres=worst, x_sums=sums)
+    # a padded slot (an order-n/2 factor in the order-n bucket) against
+    # an unpadded p > 1 bank of the bucket's order, n0, width and preset
+    # holding blockdiag(L, I): the bucket's phase 1 is the cooperative
+    # doubling (m = 2 < p), whose leaves follow n, so an order-n/2 bank
+    # inverts other leaves (ROADMAP C, in the reference too)
+    key, L, b, X = next(r for r in requests if r[1].shape[0] == N // 2
+                        and r[0] in held and held[r[0]] is r[1])
+    bucket = fleet.bucket(handles[key].bucket).bank
+    d = L.shape[0]
+    Lp = torch.eye(bucket.n, device=grid.device)
+    Lp[:d, :d] = L
+    explicit = api.FactorBank(grid, bucket.n, method=bucket.method,
+                              n0=bucket.n0, precision="bf16_refine",
+                              capacity=bucket.capacity)
+    explicit.admit(Lp)
+    B = torch.zeros((bucket.capacity, bucket.n, PANEL_K), device=grid.device)
+    B[0, :d, :b.shape[1]] = b
+    Xe = api.Solver.from_bank(explicit).solve(B)[0, :, :b.shape[1]]
+    rec["padded_bit_equal"] = bool(torch.equal(Xe[:d], X)
+                                   and not torch.any(Xe[d:]))
+    check(rec["padded_bit_equal"], f"{what}: the padded slot of {key} "
+                                   f"differs from blockdiag(L, I) unpadded")
+    del explicit, B, Xe, Lp
+    rec["states_equal"] = _states_equal(grid, fleet.state())
+    check(rec["states_equal"], f"{what}: the ranks' fleet states differ")
+    rec["checks_s"] = time.perf_counter() - tc
+    return rec
+
+
+def serve_more_rank(api, grid) -> dict:
+    """Phase 15's structured and "rec" buckets (every rank makes the same
+    calls): a fleet planned with a block-diagonal structure stamped on
+    it (SERVE_STRUCT, bf16_refine, k = 16: the residual's local product
+    on B4) and the planner's "rec" bucket (SERVE_REC, a capacity bank:
+    its base case on B6), each behind a ``SolveServer``: two requests
+    of widths 1..16 a slot, a drain; then in the "rec" fleet an evict
+    (a dead lane) and another drain.  Then a plain ``SolveServer`` over
+    ``Solver.from_factor`` "rec" of that order (its base case on B3):
+    two requests, a drain.  The counts are set
+    to 0 around the calls, every kernel's inputs kept and held against
+    the plain versions afterwards; every request's relres in fp64
+    against its slot's factor (masked by the structure, as admission
+    masks it), X's sums for the comparison across ranks."""
+    from repro_torch.core.structure import FactorStructure, apply_block_mask
+    rank = grid.mesh.rank
+    what = f"phase 15 {grid.p1}x{grid.p1}x{grid.p2} rank {rank} more"
+    fresh, gen = factor_maker(grid.device, SERVE_SEED + 2)
+    rng = np.random.default_rng(SERVE_SEED + 2)
+    mask = FactorStructure.block_sparse(SERVE_STRUCT_MASK)
+    fleets = []
+    for name, manifest, structure in (("structured", SERVE_STRUCT, mask),
+                                      ("rec", SERVE_REC, None)):
+        plan = api.plan_fleet(manifest, grid, k=PANEL_K,
+                              precision="bf16_refine", structure=structure)
+        fleets.append((name, manifest, structure, plan,
+                       api.SolverFleet(grid, plan)))
+    kept = DistKernelInputs(gemm=True)
+    requests, waves, plans = [], [], {}
+    _sync_all(grid)
+    reset_counts()
+    t0 = time.perf_counter()
+    with kept:
+        for name, manifest, structure, plan, fleet in fleets:
+            plans[name] = [[b.n, list(b.orders), b.capacity, b.method,
+                            b.n0] for b in plan.buckets]
+            held = {}
+            for d, count in manifest.items():
+                for j in range(count):
+                    tag = f"{d}-{j}"
+                    held[tag] = fresh(d)
+                    fleet.admit(held[tag], tenant=name, tag=tag)
+            server = api.SolveServer(fleet, PANEL_K).warmup()
+            for drain in range(2 if name == "rec" else 1):
+                pending = []
+                for tag in sorted(held):
+                    for _ in range(2):
+                        b = torch.randn((held[tag].shape[0],
+                                         int(rng.integers(1, PANEL_K + 1))),
+                                        generator=gen, device=grid.device)
+                        server.submit(b, tenant=name, tag=tag)
+                        pending.append((tag, b))
+                torch.cuda.synchronize()
+                tw = time.perf_counter()
+                outs = server.drain()
+                torch.cuda.synchronize()
+                waves.append(dict(fleet=name, live=len(held),
+                                  ms=(time.perf_counter() - tw) * 1e3))
+                for tag, b in pending:
+                    L = held[tag]
+                    if structure is not None:
+                        L = apply_block_mask(
+                            L, structure, plan.bucket_for(L.shape[0]).n0)
+                    requests.append((f"{name} {tag}", L, b,
+                                     outs[(name, tag)].pop(0)))
+                if name == "rec" and drain == 0:      # a dead lane
+                    tag = sorted(held)[-1]
+                    fleet.evict(fleet.lookup(name, tag=tag))
+                    del held[tag]
+        (d, _), = SERVE_REC.items()
+        L = fresh(d)
+        server = api.SolveServer(api.Solver.from_factor(
+            L, grid, method="rec", precision="bf16_refine"), PANEL_K)
+        bs = [torch.randn((d, int(rng.integers(1, PANEL_K + 1))),
+                          generator=gen, device=grid.device)
+              for _ in range(2)]
+        for b in bs:
+            server.submit(b)
+        torch.cuda.synchronize()
+        tw = time.perf_counter()
+        xs = server.drain()[0]
+        torch.cuda.synchronize()
+        waves.append(dict(fleet="plain rec", live=1,
+                          ms=(time.perf_counter() - tw) * 1e3))
+        requests += [(f"plain rec {j}", L, b, X)
+                     for j, (b, X) in enumerate(zip(bs, xs))]
+    torch.cuda.synchronize()
+    launches = read_dist_counts()
+    rec = dict(seconds=time.perf_counter() - t0, launches=launches,
+               plans=plans, waves=waves)
+    check(plans["rec"][0][3] == "rec", f"{what}: the planner made "
+                                       f"{plans['rec']} of {SERVE_REC}")
+    for name in SERVE_MORE_KERNELS:
+        check(launches[name] > 0, f"{what}: {name} launched 0 times")
+    tc = time.perf_counter()
+    rec["vs_plain"] = kept.check(what, launches)
+    kept.kept.clear()
+    worst, sums = 0.0, []
+    for key, L, b, X in requests:
+        check(tuple(X.shape) == tuple(b.shape), f"{what}: X of {key} is "
+                                                 f"{tuple(X.shape)}")
+        rel = (torch.linalg.norm(L.double() @ X.double() - b.double())
+               / torch.linalg.norm(b.double())).item()
+        check(rel <= SERVE_RELRES, f"{what}: {key} relres {rel} > "
+                                   f"{SERVE_RELRES}")
+        worst = max(worst, rel)
+        sums.append(float(X.double().sum()))
+    rec.update(relres=worst, x_sums=sums,
+               checks_s=time.perf_counter() - tc)
+    return rec
+
+
+def serve_async_rank(api, grid, sync_rec) -> dict:
+    """Phase 15's async part: the traffic phase's autoscaled fleet
+    (SERVE_ASYNC, bf16_refine, k = 16; factors from one seed in every
+    rank), an ``AsyncSolveServer`` made and warmed up in every rank; rank
+    0 leads with an ``AdmissionController`` (SLO = SERVE_SLO_X times the
+    median sync wave's host-staged ms) and an ``Autoscaler`` and offers
+    Poisson arrivals of 4-column requests at SERVE_LOAD times the
+    capacity the sync waves measured (C slots x 4 requests per wave) for
+    SERVE_LOAD_S, then SERVE_SHIFT times it for SERVE_SHIFT_S (the load
+    shift), under its background drain loop; the other ranks follow.
+    The counts are set to 0 around the run, and every kernel's inputs
+    are kept in every rank (``DistKernelInputs``, ``ops.gemm`` too: a
+    copy of each on the card, inside the timed run) and held against
+    the plain versions after it.  Rank 0 then holds every served
+    request's relres in fp64 against its factor and counts the futures;
+    every rank's fleet state must be equal at stop."""
+    rank = grid.mesh.rank
+    what = f"phase 15 {grid.p1}x{grid.p1}x{grid.p2} rank {rank} async"
+    fresh, gen = factor_maker(grid.device, SERVE_SEED + 1)
+    plan = api.plan_fleet(SERVE_ASYNC, grid, k=PANEL_K,
+                          precision="bf16_refine")
+    fleet = api.SolverFleet(grid, plan)
+    factors = {}
+    for d, count in SERVE_ASYNC.items():
+        for j in range(count):
+            factors[f"f{d}-{j}"] = fresh(d)
+            fleet.admit(factors[f"f{d}-{j}"], tenant="traffic",
+                        tag=f"f{d}-{j}")
+    wave_ms = float(np.median([w["ms"] for w in sync_rec["waves"]]))
+    slo_ms = SERVE_SLO_X * wave_ms
+    server = api.AsyncSolveServer(fleet, PANEL_K, queue_depth=TRAFFIC_DEPTH,
+                                  slo_ms=slo_ms).warmup()
+    capacity = sum(b.capacity for b in plan.buckets) \
+        * (PANEL_K // SERVE_WIDTH) / (wave_ms / 1e3)
+    rec = dict(slo_ms=slo_ms, slo_note=f"{SERVE_SLO_X}x the median sync "
+                                       f"wave's host-staged ms",
+               capacity_rps=capacity, plan=[[b.n, list(b.orders),
+                                             b.capacity] for b in
+                                            plan.buckets])
+    stream = server.stream
+    kept = DistKernelInputs(gemm=True)
+    _sync_all(grid)
+    reset_counts()
+    t0 = time.perf_counter()
+    if rank != 0:
+        with kept:
+            server.follow()
+        torch.cuda.synchronize()
+        rec.update(seconds=time.perf_counter() - t0,
+                   launches=read_dist_counts(),
+                   stream=dict(messages=stream.messages, bytes=stream.bytes,
+                               seconds=stream.seconds))
+        rec["vs_plain"] = kept.check(what, rec["launches"])
+        kept.kept.clear()
+        rec["states_equal"] = _states_equal(grid, fleet.state())
+        check(rec["states_equal"], f"{what}: the ranks' fleet states differ")
+        return rec
+    tags = sorted(factors)
+    pools = {t: [torch.randn((factors[t].shape[0], SERVE_WIDTH),
+                             generator=gen, device=grid.device)
+                 for _ in range(8)] for t in tags}
+    scaler = api.Autoscaler(server)
+    server.reset_service_ewma()
+    server.set_admission(api.AdmissionController(slo_ms=slo_ms))
+    rng = np.random.default_rng(SERVE_SEED)
+    futs, depth_shed = [], 0
+    with kept, server:                 # the background drain loop
+        t_run = time.monotonic()
+        for rate, secs in ((SERVE_LOAD * capacity, SERVE_LOAD_S),
+                           (SERVE_SHIFT * capacity, SERVE_SHIFT_S)):
+            t_end = time.monotonic() + secs
+            t_next = time.monotonic()
+            while t_next < t_end:
+                t_next += rng.exponential(1.0 / rate)
+                delay = t_next - time.monotonic()
+                if delay > 0:
+                    time.sleep(delay)
+                i = len(futs) + depth_shed
+                tag = tags[i % len(tags)]
+                b = pools[tag][i % 8]
+                try:
+                    futs.append((t_next, tag, b, server.submit(
+                        b, tenant="traffic", tag=tag)))
+                except api.Overloaded:
+                    depth_shed += 1
+        served, deadline_shed = [], 0
+        for t_i, tag, b, f in futs:
+            try:
+                served.append((t_i, tag, b, f.result(timeout=120),
+                                f.completed))
+            except api.DeadlineUnmeetable:
+                deadline_shed += 1
+        elapsed = time.monotonic() - t_run
+    torch.cuda.synchronize()
+    launches = read_dist_counts()
+    st = server.stats()
+    rec["vs_plain"] = kept.check(what, launches)
+    kept.kept.clear()
+    worst = 0.0
+    for t_i, tag, b, X, _ in served:
+        L = factors[tag]
+        rel = (torch.linalg.norm(L.double() @ X.double() - b.double())
+               / torch.linalg.norm(b.double())).item()
+        check(rel <= SERVE_RELRES, f"{what}: {tag} relres {rel} > "
+                                   f"{SERVE_RELRES}")
+        worst = max(worst, rel)
+    check(st["submitted"] == st["served"] + st["stranded"]
+          and st["served"] == len(served) and st["pending"] == 0
+          and st["inflight"] == 0, f"{what}: stats {st} against "
+                                   f"{len(served)} served")
+    check(scaler.replans, f"{what}: the load shift made no replan")
+    lat = np.asarray([done - t_i for t_i, _, _, _, done in served])
+    waves = max(st["waves"], 1)
+    rec.update(
+        seconds=time.perf_counter() - t0, launches=launches,
+        offered=len(futs) + depth_shed, served=len(served),
+        goodput_rps=len(served) / elapsed, elapsed_s=elapsed,
+        p50_ms=float(np.percentile(lat, 50)) * 1e3,
+        p99_ms=float(np.percentile(lat, 99)) * 1e3,
+        violations=st["slo_violations"], depth_shed=depth_shed,
+        deadline_shed=deadline_shed, stranded=st["stranded"],
+        waves=st["waves"], relres=worst,
+        replans=[dict(kind=r["kind"], moved=r["moved"],
+                      opened=[k[0] for k in r["opened"]],
+                      closed=[k[0] for k in r["closed"]],
+                      rebuilt=[k[0] for k in r["rebuilt"]], t=r["t"])
+                 for r in scaler.replans],
+        buckets_after=sorted(k[0] for k in fleet.buckets),
+        stream=dict(messages=stream.messages, bytes=stream.bytes,
+                    seconds=stream.seconds,
+                    ms_per_wave=stream.seconds * 1e3 / waves,
+                    bytes_per_wave=stream.bytes / waves))
+    rec["states_equal"] = _states_equal(grid, fleet.state())
+    check(rec["states_equal"], f"{what}: the ranks' fleet states differ")
+    return rec
+
+
+def serve_rank(grid) -> dict:
+    """One rank's part of phase 15 (``serve_sync_rank``,
+    ``serve_more_rank``, then ``serve_async_rank``), in phase 14's ranks
+    after its cases."""
+    from repro_torch import api
+    t0 = time.perf_counter()
+    out = dict(sync=serve_sync_rank(api, grid))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["more"] = serve_more_rank(api, grid)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["async"] = serve_async_rank(api, grid, out["sync"])
+    out["seconds"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_report(ranks, gname: str, totals) -> None:
+    """Phase 15's lines: the sync fleet's (per wave: host-staged ms, MB
+    staged a rank, bucket waves; admissions; relres; the padded bits;
+    launches per rank), every kernel against its plain version, and the
+    async tier's (offered and served, goodput, p50/p99, sheds, the
+    replans, the stream's ms and bytes per wave and its share of a wave,
+    launches per rank)."""
+    sync = [r["serving"]["sync"] for r in ranks]
+    more = [r["serving"]["more"] for r in ranks]
+    asy = [r["serving"]["async"] for r in ranks]
+    for part in (sync, more):
+        check(all(s["x_sums"] == part[0]["x_sums"] for s in part),
+              f"phase 15 {gname}: X differs across ranks")
+    for s in sync + more + asy:
+        totals.update(s["launches"])
+    s0, a0 = sync[0], asy[0]
+    held = {}
+    held_rows(sync + more + asy, held)
+    wave_ms = [w["ms"] for w in s0["waves"]]
+    print(json.dumps({"serve_sync": dict(
+        grid=gname, plan=s0["plan"], served=s0["served"],
+        bucket_waves=s0["bucket_waves"], reclaims=s0["reclaims"],
+        ms_per_wave_rank0=wave_ms,
+        ms_per_wave_median=[float(np.median([w["ms"] for w in s["waves"]]))
+                            for s in sync],
+        staged_mb_per_wave_and_rank=[[w["staged_bytes"] / 1e6
+                                      for w in s["waves"]] for s in sync],
+        admit_ms_rank0=s0["admit_ms"], relres=max(s["relres"] for s in sync),
+        padded_bit_equal=all(s["padded_bit_equal"] for s in sync),
+        states_equal=all(s["states_equal"] for s in sync),
+        launches_per_rank=[{k: v for k, v in s["launches"].items() if v}
+                           for s in sync],
+        seconds=[s["seconds"] for s in sync])}), flush=True)
+    print(json.dumps({"serve_more": dict(
+        grid=gname, plans=more[0]["plans"], waves_rank0=more[0]["waves"],
+        relres=max(m["relres"] for m in more),
+        launches_per_rank=[{k: v for k, v in m["launches"].items() if v}
+                           for m in more],
+        seconds=[m["seconds"] for m in more])}), flush=True)
+    kernels_line("phase15_kernels", 15, gname, held, SERVE_KERNELS,
+                 gemm=[s["launches"]["gemm"] + m["launches"]["gemm"]
+                       + a["launches"]["gemm"]
+                       for s, m, a in zip(sync, more, asy)])
+    wave_s = a0["stream"]["ms_per_wave"]
+    print(json.dumps({"serve_async": dict(
+        grid=gname, **{k: a0[k] for k in (
+            "plan", "slo_ms", "slo_note", "capacity_rps", "offered",
+            "served", "goodput_rps", "elapsed_s", "p50_ms", "p99_ms",
+            "violations", "depth_shed", "deadline_shed", "stranded",
+            "waves", "relres", "replans", "buckets_after", "stream")},
+        stream_share_of_sync_wave=wave_s / float(np.median(wave_ms)),
+        follower_stream=[a["stream"] for a in asy[1:]],
+        states_equal=all(a["states_equal"] for a in asy),
+        launches_per_rank=[{k: v for k, v in a["launches"].items() if v}
+                           for a in asy],
+        seconds=[a["seconds"] for a in asy])}), flush=True)
+
+
 def distributed_phase(card: str) -> dict:
-    """Phases 12-14: It-Inv, rec, the one-shot ``core.trsm``, the 3D
+    """Phases 12-15: It-Inv, rec, the one-shot ``core.trsm``, the 3D
     product and the inversion, then the front door (``front_rank``),
     then structure and the producers (``front_rank`` on
-    ``struct_cases``, ``producer_rank``), at n = 8192 on the (2, 2), (2, 1) and (1, 4)
-    grids: one spawn of p ranks each, serving the three phases (spawn start method: this process holds a
-    CUDA context), gloo, every rank on cuda:0 with its own context.  NCCL
-    refuses two ranks on one GPU, so every collective goes through host
+    ``struct_cases``, ``producer_rank``), at n = 8192 on the (2, 2),
+    (2, 1) and (1, 4) grids, then on (2, 1) the serving tier
+    (``serve_rank``): one spawn of p ranks each, serving the phases
+    (spawn start method: this process holds a CUDA context), gloo,
+    every rank on cuda:0 with its own context.  NCCL refuses two ranks
+    on one GPU, so every collective goes through host
     memory (staged) while every kernel launch runs on the card: this
     checks the algorithms and their kernels, not an interconnect.  Any
     rank's failure fails the phase.  Returns {kernel: launches}, summed
-    over ranks, grids, cases and the three phases."""
+    over ranks, grids, cases and the four phases."""
     from repro_torch.core import selfcheck
     t0 = time.perf_counter()
     print(json.dumps(dict(distributed=dict(
@@ -3938,7 +4512,7 @@ def distributed_phase(card: str) -> dict:
              "staged through host memory, kernels run on the card; NCCL "
              "(one GPU per rank) is not exercised"))), flush=True)
     totals = collections.Counter()
-    t13 = t14 = 0.0
+    t13 = t14 = t15 = 0.0
     for p1, p2 in DIST_GRIDS:
         tg, t_spawn = time.perf_counter(), time.time()
         ranks = selfcheck.spawn(p1, p2, "cuda:0", dist_rank, N, DIST_K,
@@ -3950,7 +4524,7 @@ def distributed_phase(card: str) -> dict:
             if label == "setup":
                 setup = rec
                 continue
-            if label in ("front", "struct", "producer"):
+            if label in ("front", "struct", "producer", "serving"):
                 continue
             costs = [r[label]["cost"] for r in ranks]
             check(all(c == costs[0] for c in costs),
@@ -3995,12 +4569,15 @@ def distributed_phase(card: str) -> dict:
                                               for r in ranks]
                 row["top_rank0"] = rec["profile"]["top"]
             print(json.dumps({"distributed_case": row}), flush=True)
-        for name in DIST_VS_PLAIN:
+        for name in ("tri_inv_blocks", "trmm", "trsm_substitution"):
             check(name in vs_plain, f"phase 12 {gname}: {name} was held "
                                     f"against its plain version on no input")
+        labels = [k for k in ranks[0] if k not in (
+            "setup", "front", "struct", "producer", "serving")]
         print(json.dumps({"distributed_kernels": dict(
             grid=gname, note="each kernel against its plain version on the "
                              "inputs the grid's cases handed it, every rank",
+            gemm_launches_per_rank=gemm_per_rank(ranks, None, labels),
             **vs_plain)}), flush=True)
         print(json.dumps(dict(
             distributed_grid=gname, ranks=len(ranks),
@@ -4017,19 +4594,30 @@ def distributed_phase(card: str) -> dict:
             flush=True)
         t13 += max(r["setup"]["front_s"] for r in ranks)
         t14 += max(r["setup"]["phase14_s"] for r in ranks)
+        # phase 15 runs in these ranks after phase 14: its seconds are
+        # counted apart from phase 12's
         kernels_line("front_kernels", 13, gname,
                      front_report(ranks, gname, totals),
                      FRONT_KERNELS if gname == "2x2x2" else tuple(
                          k for k in FRONT_KERNELS
-                         if k != "trsm_substitution"))
+                         if k != "trsm_substitution"),
+                     gemm=gemm_per_rank(ranks, "front"))
         held = front_report(ranks, gname, totals, "struct", "struct_case")
         producer_report(ranks, gname, totals, held)
         kernels_line("phase14_kernels", 14, gname, held,
                      PHASE14_KERNELS if gname == "2x2x2"
-                     else PHASE14_KERNELS[:3])
-    print(json.dumps(dict(phase12_s=time.perf_counter() - t0 - t13 - t14,
-                          phase13_s=t13)), flush=True)
+                     else PHASE14_KERNELS[:3],
+                     gemm=[a + b for a, b in zip(
+                         gemm_per_rank(ranks, "struct"),
+                         gemm_per_rank(ranks, "producer"))])
+        if "serving" in ranks[0]:
+            serve_report(ranks, gname, totals)
+            t15 += max(r["serving"]["seconds"] for r in ranks)
+    print(json.dumps(dict(
+        phase12_s=time.perf_counter() - t0 - t13 - t14 - t15,
+        phase13_s=t13)), flush=True)
     print(json.dumps(dict(phase14_s=t14)), flush=True)
+    print(json.dumps(dict(phase15_s=t15)), flush=True)
     return dict(totals)
 
 
@@ -4047,6 +4635,14 @@ def main() -> int:
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
+    phase_s, t_lap = collections.Counter(), [t_start]
+
+    def lap(phase: int) -> None:
+        """Add the seconds since the last lap to ``phase``'s."""
+        now = time.perf_counter()
+        phase_s[phase] += now - t_lap[0]
+        t_lap[0] = now
+
     card = card_line()                                        # phase 1
     print(f"card: {card}", flush=True)
     t0 = time.perf_counter()
@@ -4060,7 +4656,9 @@ def main() -> int:
     L.diagonal().add_(N)
     L64 = L.double()
 
+    lap(1)
     records = kernel_phase(device, Timer(device))             # phase 2
+    lap(2)
 
     solvers, main_launches = [], {}
     for method, configs in (("inv", INV_CONFIGS), ("rec", REC_CONFIGS)):
@@ -4068,19 +4666,24 @@ def main() -> int:
             solver, launches, _ = serve(api, L, L64, method, precision,
                                         n0, seed=10 + len(solvers))
             solvers.append(solver)
+            lap(3)
             if i == 0:                         # the method's main path
                 main_launches[method] = launches
                 steady_state(api, solver, L64,
                              seed=30 + len(solvers))         # phase 4
+                lap(4)
     check(solvers[0].n0 == N // 2, f"default inv n0 {solvers[0].n0}")
     check(solvers[len(INV_CONFIGS)].spec_for(PANEL_K).n0 == N,
           "default rec n0 is not n")
 
     other_entry_points(api, L, L64, seed=40)                  # phase 5
+    lap(5)
     for i, solver in enumerate(solvers):                      # phase 6
         profile_window(solver, seed=50 + i)
+    lap(6)
     main_launches["structured"] = structured_phase(api, L, L64,  # phase 7
                                                    seed=60)
+    lap(7)
     del L, L64, solvers
     gc.collect()
     torch.cuda.empty_cache()
@@ -4089,14 +4692,17 @@ def main() -> int:
                                                           seed=100 + i)
         gc.collect()                  # the bank goes before the next one
         torch.cuda.empty_cache()
+    lap(8)
     main_launches["fleet"], _ = fleet_phase(api, seed=120)    # phase 9
     gc.collect()
     torch.cuda.empty_cache()
+    lap(9)
     main_launches["traffic"], _ = traffic_phase(api, seed=130)  # phase 10
     check(main_launches["traffic"]["trmm"] > 0,
           "trmm never launched on the traffic path")
     gc.collect()
     torch.cuda.empty_cache()
+    lap(10)
     t11 = time.perf_counter()
     grid = api.make_trsm_mesh(1, 1)
     producers_phase(api, grid, seed=140)                      # phase 11
@@ -4107,7 +4713,9 @@ def main() -> int:
     del grid
     gc.collect()
     torch.cuda.empty_cache()
-    dist_launches = distributed_phase(card)               # phases 12-14
+    lap(11)
+    dist_launches = distributed_phase(card)               # phases 12-15
+    lap(12)
 
     kernels = []
     for name, method, source, replaces in (
@@ -4132,7 +4740,7 @@ def main() -> int:
         check(launches > 0, f"{name} never launched on the {method} main "
                             f"path")
         check(dist_launches.get(name, 0) > 0,
-              f"{name} never launched at p > 1 (phases 12-14)")
+              f"{name} never launched at p > 1 (phases 12-15)")
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches,
                             max_abs_err=rec["max_abs_err"],
@@ -4141,6 +4749,13 @@ def main() -> int:
                             bound_by=rec["bound_by"],
                             library_ms=rec["library_ms"],
                             launches_distributed=dist_launches.get(name, 0)))
+    print(json.dumps(dict(gemm_launches_distributed=dist_launches.get(
+        "gemm", 0), note="the ordered ops.gemm (no TPU kernel's port), "
+                         "phases 12-15, summed over ranks")))
+    print(json.dumps(dict(phase_s={
+        ("12-15" if k == 12 else str(k)): v for k, v in phase_s.items()},
+        note="seconds from the script's start, by phase (1: the card and "
+             "the build; 12-15: the spawned ranks, split above)")))
     print(json.dumps(dict(elapsed_s=time.perf_counter() - t_start)))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -52,6 +52,7 @@ import torch
 
 from repro_torch.core import precision as preclib
 from repro_torch.core import session as sessionlib
+from repro_torch.core import stream
 from repro_torch.core.grid import TrsmGrid, cyclic_piece
 from repro_torch.core.session import CompiledSolverCache
 
@@ -82,6 +83,9 @@ class FactorBank:
     slots solve to zeros — they never contaminate live lanes); without
     it the bank is append-only (width == size grows per admission)."""
 
+    # the p > 1 AsyncSolveServer leading this bank (core.stream)
+    _relay = None
+
     def __init__(self, grid: TrsmGrid, n: int, *, method: str = "inv",
                  n0: int | None = None, mode: str | None = None,
                  lower: bool = True, transpose: bool = False,
@@ -108,7 +112,10 @@ class FactorBank:
             # and the residual's (B4) must use one block size
             raise ValueError("a structured 'rec' bank over p > 1 ranks "
                              "needs n0: its admission mask and its "
-                             "residual's block mask use that block size")
+                             "residual's block mask use that block size "
+                             "(a fleet's 'rec' bucket gets no n0 from "
+                             "its plan; the reference's structured 'rec' "
+                             "bank with n0 unset fails at admission too)")
         if self.structure is not None:
             self.structure.validate_for(n, lower=lower,
                                         transpose=transpose)
@@ -279,6 +286,30 @@ class FactorBank:
             self.policy, self.structure)
         return self._entry(tuple(p(Ls) for p in preps))
 
+    def _natural(self, L, ndim: int, pad_to: int | None) -> tuple:
+        """A natural-layout factor (``ndim`` 2) or stack (3) as admit and
+        replace take it with ``pad_to``: the tensor and the UpdateSpec's
+        ``pad_from``; raises ``ValueError`` otherwise."""
+        L = torch.as_tensor(L)
+        pad_from = self._resolve_pad(L, pad_to)
+        self._check_square(L, ndim, order=pad_from)
+        return L, pad_from
+
+    def check_factor(self, L, *, pad_to: int | None = None) -> None:
+        """Raise ``ValueError`` unless :meth:`admit` and :meth:`replace`
+        take the natural-layout factor ``L`` with ``pad_to`` (its shape
+        and padding; no slot is checked)."""
+        self._natural(L, 2, pad_to)
+
+    def _check_admit(self, L, *, pad_to: int | None = None) -> tuple:
+        L, pad_from = self._natural(L, 2, pad_to)
+        if self.capacity is not None and not self._free:
+            raise ValueError(
+                f"bank full: all {self.capacity} capacity slots are "
+                f"live (evict one before admitting)")
+        return L, pad_from
+
+    @stream.mutation(check="_check_admit")
     def admit(self, L, *, pad_to: int | None = None) -> int:
         """Admit one natural-layout (n, n) factor (gather with the
         operator reduction folded in, policy casts, diagonal blocks
@@ -291,15 +322,24 @@ class FactorBank:
         the leading d x k block of a solve is an unpadded order-d
         solve's at the same n0 (DESIGN.md Sec. 12).  Capacity banks
         only.  At p > 1 collective: every rank admits the same factor."""
-        L = torch.as_tensor(L)
-        pad_from = self._resolve_pad(L, pad_to)
-        self._check_square(L, 2, order=pad_from)
+        L, pad_from = self._check_admit(L, pad_to=pad_to)
         if self.capacity is not None:
             return self._admit_slot(L, "natural", pad_from=pad_from)
         self._chunks.append(self._prepare(L[None]))
         self._size += 1
         return self.size - 1
 
+    def _check_admit_stack(self, Ls) -> torch.Tensor:
+        Ls = torch.as_tensor(Ls)
+        self._check_square(Ls, 3)
+        M = Ls.shape[0]
+        if self.capacity is not None and M > len(self._free):
+            raise ValueError(
+                f"bank full: {M} factors for {len(self._free)} free "
+                f"slot(s) of capacity {self.capacity} (evict first)")
+        return Ls
+
+    @stream.mutation(check="_check_admit_stack")
     def admit_stack(self, Ls):
         """Admit a natural-layout (M, n, n) stack; returns the admitted
         slots (a range for an append-only bank, a list for a capacity
@@ -308,18 +348,13 @@ class FactorBank:
         stack in one batched admission (whose output is the resident
         stack); a partly filled capacity bank admits slot by slot.  At
         p > 1 collective: every rank admits the same stack."""
-        Ls = torch.as_tensor(Ls)
-        self._check_square(Ls, 3)
+        Ls = self._check_admit_stack(Ls)
         M = Ls.shape[0]
         if self.capacity is None:
             first = self.size
             self._chunks.append(self._prepare(Ls))
             self._size += M
             return range(first, self.size)
-        if M > len(self._free):
-            raise ValueError(
-                f"bank full: {M} factors for {len(self._free)} free "
-                f"slot(s) of capacity {self.capacity} (evict first)")
         if self._size == 0 and M == self.capacity:
             self._stacks = None            # free the zero stacks first
             self._stacks = self._prepare(Ls)
@@ -340,6 +375,7 @@ class FactorBank:
             return
         self._check_square(L_cyc, 2)
 
+    @stream.mutation(streamable=False)
     def admit_cyclic(self, L_cyc) -> int:
         """Admit a factor ALREADY in the cyclic storage the producers
         emit (``cholesky_cyclic`` / ``lu_cyclic``): only the policy's
@@ -444,6 +480,13 @@ class FactorBank:
         factor-side analogue of ``Solver.place_rhs``."""
         return torch.as_tensor(L).to(self.grid.device)
 
+    def _check_replace(self, slot: int, L, *,
+                       pad_to: int | None = None) -> tuple:
+        L, pad_from = self._natural(L, 2, pad_to)
+        self._check_live(slot)
+        return L, pad_from
+
+    @stream.mutation(check="_check_replace")
     def replace(self, slot: int, L, *, pad_to: int | None = None) -> int:
         """Refresh live ``slot`` IN PLACE with a new natural-layout
         (n, n) factor — on append-only banks too: the updater re-runs
@@ -452,13 +495,24 @@ class FactorBank:
         occupancy changes.  ``pad_to=n`` takes a smaller (d, d) factor
         as :meth:`admit` does.  Returns the slot.  At p > 1 collective:
         every rank replaces the same slot with the same factor."""
-        L = torch.as_tensor(L)
-        pad_from = self._resolve_pad(L, pad_to)
-        self._check_square(L, 2, order=pad_from)
-        self._check_live(slot)
+        L, pad_from = self._check_replace(slot, L, pad_to=pad_to)
         self._scatter(slot, L, "natural", pad_from=pad_from)
         return slot
 
+    def _check_replace_run(self, start: int, Ls, *,
+                           pad_to: int | None = None) -> tuple:
+        if self.capacity is None:
+            raise ValueError(
+                "replace_run requires a capacity-allocated bank "
+                "(FactorBank(..., capacity=C))")
+        Ls, pad_from = self._natural(Ls, 3, pad_to)
+        if int(Ls.shape[0]) < 1:
+            raise ValueError("replace_run needs at least one factor")
+        for slot in range(start, start + int(Ls.shape[0])):
+            self._check_live(slot)
+        return Ls, pad_from
+
+    @stream.mutation(check="_check_replace_run")
     def replace_run(self, start: int, Ls, *, pad_to: int | None = None
                     ) -> range:
         """Refresh the CONTIGUOUS run of live slots ``start .. start +
@@ -466,24 +520,15 @@ class FactorBank:
         (``UpdateSpec.chunk = u``): one batched admission, one copy per
         role.  Capacity banks only.  Returns the refreshed slots.  At
         p > 1 collective, as :meth:`replace`."""
-        if self.capacity is None:
-            raise ValueError(
-                "replace_run requires a capacity-allocated bank "
-                "(FactorBank(..., capacity=C))")
-        Ls = torch.as_tensor(Ls)
-        pad_from = self._resolve_pad(Ls, pad_to)
-        self._check_square(Ls, 3, order=pad_from)
+        Ls, pad_from = self._check_replace_run(start, Ls, pad_to=pad_to)
         u = int(Ls.shape[0])
-        if u < 1:
-            raise ValueError("replace_run needs at least one factor")
-        for slot in range(start, start + u):
-            self._check_live(slot)
         if u == 1:
             self._scatter(start, Ls[0], "natural", pad_from=pad_from)
         else:
             self._scatter(start, Ls, "natural", chunk=u, pad_from=pad_from)
         return range(start, start + u)
 
+    @stream.mutation(streamable=False)
     def replace_cyclic(self, slot: int, L_cyc) -> int:
         """:meth:`replace` for a factor already in cyclic storage: casts
         (and phase 1) only.  Same restriction as :meth:`admit_cyclic`,
@@ -495,18 +540,22 @@ class FactorBank:
         self._scatter(slot, L_cyc, "cyclic")
         return slot
 
-    def evict(self, slot: int) -> None:
-        """Return live ``slot`` to the free list (capacity banks only).
-        Its stale data stays resident: a server gives its lane a zero
-        panel, the liveness vector gates it off the "rec" base cases,
-        and the next ``admit`` overwrites it in place.  Local: no
-        collective runs (at p > 1 every rank evicts the same slot)."""
+    def _check_evict(self, slot: int) -> None:
         if self.capacity is None:
             raise ValueError(
                 "evict requires a capacity-allocated bank "
                 "(FactorBank(..., capacity=C)); append-only banks have "
                 "no free slots")
         self._check_live(slot)
+
+    @stream.mutation(check="_check_evict")
+    def evict(self, slot: int) -> None:
+        """Return live ``slot`` to the free list (capacity banks only).
+        Its stale data stays resident: a server gives its lane a zero
+        panel, the liveness vector gates it off the "rec" base cases,
+        and the next ``admit`` overwrites it in place.  Local: no
+        collective runs (at p > 1 every rank evicts the same slot)."""
+        self._check_evict(slot)
         self._live[slot] = False
         self._gens[slot] += 1
         self.valid.narrow(0, slot, 1).fill_(0)

@@ -237,6 +237,7 @@ class Mesh:
     rank: int
     groups: dict                 # axes tuple -> (ProcessGroup, ranks)
     staged_bytes: int = 0        # host copies of gloo-staged tensors
+    timeout: object = None       # the groups' collective timeout, or None
 
     @property
     def coords(self) -> tuple:
@@ -316,7 +317,7 @@ def make_mesh(p1: int, p2: int, timeout=None) -> Mesh:
                     grp = dist.new_group(ranks, timeout=timeout)
                 if rank in ranks:
                     groups[axes] = (grp, ranks)
-        _MESHES[key] = Mesh(p1, p2, rank, groups)
+        _MESHES[key] = Mesh(p1, p2, rank, groups, timeout=timeout)
     return _MESHES[key]
 
 

@@ -49,6 +49,12 @@ counters, so the FakeClock/DrainDriver harness (tests/conftest.py)
 reproduces admission and scaling decisions exactly.  The budget the
 planner prices with is its nominal dispatch constant
 (``plan.dispatch_s``), not a time measured on the card.
+
+Over p > 1 ranks both live on the leader (rank 0), whose clock alone
+decides: the server refuses either on a follower, and an adopted plan
+reaches the followers through the server's descriptor stream
+(``SolverFleet.apply_plan`` is streamed while the server leads the
+fleet), so every rank migrates the same factors into the same slots.
 """
 
 from __future__ import annotations
@@ -205,6 +211,10 @@ class Autoscaler:
                 "Autoscaler needs a fleet-mode AsyncSolveServer "
                 "(AsyncSolveServer(SolverFleet, ...)): bucket "
                 "splits/merges are a fleet concept")
+        if not server.leads:
+            raise _errors.ServingError(
+                "an Autoscaler decides on the leader's clock: over p > 1 "
+                "ranks make it on rank 0 only (its replans are streamed)")
         if not 0 < low_water < target < high_water:
             raise ValueError(
                 f"need 0 < low_water < target < high_water, got "
@@ -303,7 +313,8 @@ class Autoscaler:
         <repro_torch.core.fleet.SolverFleet.apply_plan>`), re-key
         queued requests onto their new slots (stranding nothing), and
         drop the dispatchers of closed/rebuilt buckets so the next
-        wave packs against the new banks."""
+        wave packs against the new banks.  At p > 1 ``apply_plan`` is
+        streamed, and each follower drops the same dispatchers."""
         srv = self.server
         with srv._step_lock:
             report = srv.fleet.apply_plan(

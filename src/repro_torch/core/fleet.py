@@ -33,14 +33,26 @@ banks:
 * **Fleet-wide stats** (:meth:`SolverFleet.stats`) — per-bucket
   occupancy plus admit / reclaim / lookup-hit-rate counters, printed
   by ``launch.serve --workload trsm-fleet --fleet-stats``.
+
+Over p > 1 ranks a fleet keeps the front door's contract: every rank
+makes each call (admit, lookup, replace, evict, apply_plan, a
+``SolveServer``'s submit and drain) in the same order with the same
+arguments, and every decision (routing, the integer LRU clock,
+reclaims, migrations) is a function of those calls, so each rank's
+banks hold the same factors in the same slots.  A p > 1
+``AsyncSolveServer`` over the fleet leads it from rank 0: its
+mutations are streamed to the other ranks, and its lookups' LRU
+touches go with each message (``core.stream``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 from repro_torch.core import cost_model as cm
 from repro_torch.core import precision as preclib
+from repro_torch.core import stream
 from repro_torch.core import tuning
 from repro_torch.core.bank import FactorBank
 from repro_torch.core.grid import TrsmGrid
@@ -274,14 +286,13 @@ class SolverFleet:
     generation counters catching every stale claim.
     """
 
+    # the p > 1 AsyncSolveServer leading this fleet (core.stream)
+    _relay = None
+
     def __init__(self, grid: TrsmGrid, plan: FleetPlan, *, cache=None,
                  lower: bool = True, transpose: bool = False,
                  map_mode: str = "vmap", warm: bool = False):
         from repro_torch.core import session as sessionlib
-        from repro_torch.core.grid import NEXT_SLICE
-        if grid.p > 1:
-            raise NotImplementedError(f"fleets over p > 1 ranks "
-                                      f"{NEXT_SLICE}")
         self.grid = grid
         self.plan = plan
         self.cache = cache if cache is not None \
@@ -292,6 +303,11 @@ class SolverFleet:
                                                      map_mode)
         self._dir: dict[str, list[FleetHandle]] = {}   # tenant index
         self._clock = 0
+        # the clock and the LRU stamps move under this lock: a submit's
+        # lookup never ticks between a streamed mutation's bookkeeping
+        # and its reclaim decision
+        self._lock = threading.RLock()
+        self._touched: dict = {}    # (bucket, slot) -> stamp, to stream
         self.admits = 0
         self.reclaims = 0
         self.lookup_hits = 0
@@ -392,33 +408,48 @@ class SolverFleet:
         b.last_used[slot] = self._tick()
         return handle
 
+    def _check_admit(self, L, **_) -> _Bucket:
+        """The bucket ``L``'s order routes to, which must take it: every
+        check before a full bucket reclaims a slot."""
+        order = int(L.shape[-1])
+        b = self._buckets[self.plan.bucket_for(order).key]
+        b.bank.check_factor(L, pad_to=b.plan.n if order < b.plan.n
+                            else None)
+        return b
+
+    @stream.mutation(check="_check_admit", lock="_lock")
     def admit(self, L, *, tenant: str = "default",
               tag: object = None) -> FleetHandle:
         """Route one natural-layout (d, d) factor to its planned
         bucket, zero-padding to the bucket order inside the updater.  A
         full bucket first reclaims its coldest slot (cross-tenant LRU).
         Returns the tenant's :class:`FleetHandle`."""
-        order = int(L.shape[-1])
-        bp = self.plan.bucket_for(order)
-        return self._admit_into(self._buckets[bp.key], L,
-                                tenant=tenant, tag=tag, order=order)
+        return self._admit_into(self._check_admit(L), L, tenant=tenant,
+                                tag=tag, order=int(L.shape[-1]))
 
-    def replace(self, handle: FleetHandle, L) -> FleetHandle:
-        """Refresh the handle's slot in place (same order, same
-        bucket) through the bank's updater.  Raises ``KeyError`` on a
-        stale handle (slot reclaimed since)."""
+    def _check_replace(self, handle: FleetHandle, L) -> _Bucket:
         b = self._check_current(handle)
         d = int(L.shape[-1])
         if d != handle.order:
             raise ValueError(f"replacement order {d} != admitted order "
                              f"{handle.order}; evict and re-admit to "
                              f"change order")
-        b.bank.replace(handle.slot, L,
-                       pad_to=b.plan.n if d < b.plan.n else None)
+        b.bank.check_factor(L, pad_to=b.plan.n if d < b.plan.n else None)
+        return b
+
+    @stream.mutation(check="_check_replace", lock="_lock")
+    def replace(self, handle: FleetHandle, L) -> FleetHandle:
+        """Refresh the handle's slot in place (same order, same
+        bucket) through the bank's updater.  Raises ``KeyError`` on a
+        stale handle (slot reclaimed since)."""
+        b = self._check_replace(handle, L)
+        b.bank.replace(handle.slot, L, pad_to=b.plan.n
+                       if handle.order < b.plan.n else None)
         b.factors[handle.slot] = L
         self._touch(handle)
         return handle
 
+    @stream.mutation(check="_check_current", lock="_lock")
     def evict(self, handle: FleetHandle) -> None:
         """Explicitly release the handle's slot back to its bucket."""
         self._drop(self._check_current(handle), handle)
@@ -429,24 +460,70 @@ class SolverFleet:
         Ambiguous lookups (several live handles match) raise with the
         candidate tags; misses raise ``KeyError`` and count toward the
         fleet hit rate."""
-        matches = [h for h in self._dir.get(tenant, ())
-                   if (order is None or h.order == order)
-                   and (tag is None or h.tag == tag)]
-        if not matches:
-            self.lookup_misses += 1
-            raise KeyError(
-                f"no live factor for tenant {tenant!r}"
-                + (f" at order {order}" if order is not None else "")
-                + (f" tag {tag!r}" if tag is not None else "")
-                + " (evicted by a cross-tenant reclaim? re-admit)")
-        if len(matches) > 1:
-            raise ValueError(
-                f"ambiguous lookup for tenant {tenant!r}: "
-                f"{len(matches)} live factors match; disambiguate with "
-                f"tag= (candidates: {[h.tag for h in matches]})")
-        self.lookup_hits += 1
-        self._touch(matches[0])
-        return matches[0]
+        with self._lock:
+            matches = [h for h in self._dir.get(tenant, ())
+                       if (order is None or h.order == order)
+                       and (tag is None or h.tag == tag)]
+            if not matches:
+                self.lookup_misses += 1
+                raise KeyError(
+                    f"no live factor for tenant {tenant!r}"
+                    + (f" at order {order}" if order is not None else "")
+                    + (f" tag {tag!r}" if tag is not None else "")
+                    + " (evicted by a cross-tenant reclaim? re-admit)")
+            if len(matches) > 1:
+                raise ValueError(
+                    f"ambiguous lookup for tenant {tenant!r}: "
+                    f"{len(matches)} live factors match; disambiguate "
+                    f"with tag= (candidates: {[h.tag for h in matches]})")
+            h = matches[0]
+            self.lookup_hits += 1
+            self._touch(h)
+            if self._relay is not None:      # the leader streams it
+                self._touched[(h.bucket, h.slot)] = self._clock
+            return h
+
+    def _sync_out(self) -> dict:
+        """The LRU bookkeeping a leader streams with each message: the
+        clock, the lookup counts and every (bucket, slot) stamp a lookup
+        set since the last message."""
+        with self._lock:
+            touched, self._touched = self._touched, {}
+            return dict(clock=self._clock, hits=self.lookup_hits,
+                        misses=self.lookup_misses,
+                        touched=list(touched.items()))
+
+    def _sync_in(self, sync: dict) -> None:
+        """A follower applies the leader's bookkeeping
+        (:meth:`_sync_out`) before the message it came with."""
+        with self._lock:
+            self._clock = sync["clock"]
+            self.lookup_hits = sync["hits"]
+            self.lookup_misses = sync["misses"]
+            for (bucket, slot), stamp in sync["touched"]:
+                b = self._buckets.get(bucket)
+                if b is not None and slot in b.handles:
+                    b.last_used[slot] = stamp
+
+    def state(self) -> dict:
+        """Every input of the fleet's decisions, comparable across
+        ranks: the LRU clock, the counters and, per bucket, its handles,
+        every slot's generation, the LRU stamps, the live slots, admits
+        and reclaims."""
+        with self._lock:
+            return dict(
+                clock=self._clock, admits=self.admits,
+                reclaims=self.reclaims, lookup_hits=self.lookup_hits,
+                lookup_misses=self.lookup_misses,
+                buckets={f"{k[0]}/{k[1].name}": dict(
+                    handles={s: (h.tenant, h.tag, h.order, h.generation)
+                             for s, h in sorted(b.handles.items())},
+                    generations=[b.bank.slot_generation(s)
+                                 for s in range(b.bank.width)],
+                    last_used=dict(sorted(b.last_used.items())),
+                    live=list(b.bank.live_slots()), admits=b.admits,
+                    reclaims=b.reclaims)
+                    for k, b in self._buckets.items()})
 
     def handles(self, tenant: str | None = None) -> tuple:
         """All live handles (optionally one tenant's), admission order."""
@@ -463,6 +540,11 @@ class SolverFleet:
             man[h.order] = man.get(h.order, 0) + 1
         return man
 
+    def _check_plan(self, new_plan: FleetPlan, **_) -> None:
+        for d in self.manifest():
+            new_plan.bucket_for(d)       # raises if any order unroutable
+
+    @stream.mutation(check="_check_plan", lock="_lock", local=("on_move",))
     def apply_plan(self, new_plan: FleetPlan, *,
                    on_move=None) -> dict:
         """Live-migrate the fleet onto ``new_plan``.
@@ -478,11 +560,11 @@ class SolverFleet:
         on B5 where it is padded) and its old slot is evicted —
         generation counters bump, so a stale claim on the old slot
         stays detectable.  ``on_move(old_handle, new_handle)`` fires
-        per migrated handle; LRU clocks carry over.  Returns
+        per migrated handle (on the leader alone where a p > 1 server
+        streams the plan); LRU clocks carry over.  Returns
         ``dict(moved=[(old, new), ...], opened=[...], closed=[...],
         rebuilt=[...])``."""
-        for d in self.manifest():
-            new_plan.bucket_for(d)       # raises if any order unroutable
+        self._check_plan(new_plan)
         targets: dict[tuple, _Bucket] = {}
         opened, rebuilt = [], []
         for bp in new_plan.buckets:

@@ -178,12 +178,6 @@ def cyclic_matrix_device(A: torch.Tensor, p_row: int, p_col: int, *,
     return A.contiguous()
 
 
-# what a p > 1 grid does not run yet says so with this: fleets and the
-# serving tiers, which need a cross-rank request protocol
-NEXT_SLICE = ("comes with the next slice of the distributed port (ROADMAP "
-              "A12 item 4: fleets and servers over p > 1 ranks)")
-
-
 def require_mesh(grid: TrsmGrid) -> None:
     """Raise unless ``grid`` can run a program: a device and, at p > 1,
     this rank's mesh (a ``solver.plan_grid`` has neither)."""

@@ -20,20 +20,14 @@ failure, a rank's included.
 from __future__ import annotations
 
 import argparse
-import datetime
 import json
 import os
-import pickle
 import sys
-import tempfile
-import time
-import traceback
 
 import numpy as np
 import torch
 
-# a collective that waits longer than this fails its rank
-TIMEOUT_S = 120
+from repro_torch.core.world import TIMEOUT_S, spawn  # noqa: F401
 
 
 def random_tril(seed: int, n: int, dtype=np.float64) -> np.ndarray:
@@ -90,8 +84,8 @@ def masked(L: np.ndarray, structure, n0: int) -> np.ndarray:
 # then this package's: ``trsm`` (the one-shot core.trsm in its four
 # operator variants), ``overlap`` (the pipelined programs against the
 # sequential ones, bit for bit), ``face`` (phase 1's transposed faces
-# are lower triangular in every mode) and ``deferred`` (what the next
-# slice brings raises NotImplementedError, never a wrong answer).
+# are lower triangular in every mode) and ``serving`` (the fleet, both
+# servers and the control plane over p > 1 ranks as at p = 1).
 CASES = {
     "order": [(2, 2)],
     "mm3d": [(2, 2, 16, 16, 8), (2, 1, 8, 8, 4), (1, 2, 8, 8, 8),
@@ -120,7 +114,7 @@ CASES = {
     "face": [(2, 2, 64, 8, "alltoall"), (2, 2, 64, 16, "doubling"),
              (2, 2, 64, 16, "allgather"), (2, 1, 32, 8, "doubling"),
              (1, 2, 32, 8, "allgather")],
-    "deferred": [(2, 1, 32, 8, 8)],
+    "serving": [(2, 1, 32), (1, 2, 32)],
     # the reference's check_cholesky (its transpose cases, then
     # (p1, p2, n, n0)), check_lu, and check_bank's cyclic ingestion of
     # a distributed Cholesky piece
@@ -360,31 +354,419 @@ def check_face(grid, case):
                    f"strict-where-y<x={strict} {'OK' if ok else 'FAIL'}", ok)
 
 
-def check_deferred(grid, case):
-    """What the next slice brings raises NotImplementedError naming it
-    on a p > 1 grid: a fleet, a SolveServer and an AsyncSolveServer."""
+def check_serving(grid, case):
+    """The serving tier over p > 1 ranks against the same calls at
+    p = 1 in this rank: the synchronous fleet and ``SolveServer``
+    (SPMD; fp64 X within 1e-10), and ``AsyncSolveServer`` led by rank 0
+    and followed by the others under one fake clock, in plain mode (a
+    capacity bank: depth and deadline sheds, a streamed replace, evict
+    and re-admit, stranded requests) and fleet mode (the Autoscaler's
+    split and merge, streamed): every future's outcome, X within 1e-10
+    (fp64), the stats and the replans the p = 1 run's, every rank's
+    fleet state equal at stop, a follower's submit refused."""
+    import torch.distributed as dist
     from repro_torch import api
-    p1, p2, n, k, n0 = case
-    L = random_tril(n, n)
-    attempts = {
-        "fleet": lambda: api.SolverFleet(grid, api.plan_fleet({n: 1}, grid,
-                                                              k=k)),
-        "SolveServer": lambda: api.SolveServer(api.Solver.from_factor(
-            torch.as_tensor(L), grid, n0=n0), panel_k=k),
-        "AsyncSolveServer": lambda: api.AsyncSolveServer(
-            api.Solver.from_factor(torch.as_tensor(L), grid, n0=n0),
-            panel_k=k),
-    }
-    raised = {}
-    for what, fn in attempts.items():
-        try:
-            fn()
-            raised[what] = False
-        except NotImplementedError as e:
-            raised[what] = "next slice" in str(e)
-    ok = all(raised.values())
-    return _result(f"deferred p1={p1} p2={p2}: {raised} "
+    from repro_torch.core import cost_model, errors
+    p1, p2, n = case
+    one = api.make_trsm_mesh(1, 1, device=grid.device)
+    machine = cost_model.tpu_v5e()
+    lines, ok = [], True
+    got = serving_sync(api, grid, machine, "dense", np.float64)
+    want = serving_sync(api, one, machine, "dense", np.float64)
+    gap = max(float(np.abs(g - w).max() / np.abs(w).max())
+              for g, w in zip(got["x"], want["x"]))
+    same = got["state"] == want["state"] and got["stats"] == want["stats"]
+    ok = ok and gap <= 1e-10 and same
+    lines.append(f"sync gap {gap:.1e} state={same}")
+    leads = grid.mesh.rank == 0
+    for mode in ("plain", "fleet"):
+        got = serving_async(api, grid, machine, mode, np.float64,
+                            leads=leads)
+        states = [None] * grid.p
+        dist.all_gather_object(states, got["state"])
+        agree = all(st == states[0] for st in states)
+        line = f"async {mode}: fleet states equal={agree}"
+        if leads:
+            want = serving_async(api, one, machine, mode, np.float64)
+            same = (got["stats"] == want["stats"]
+                    and got["replans"] == want["replans"]
+                    and [f[0] for f in got["futures"]]
+                    == [f[0] for f in want["futures"]])
+            gap = max([float(np.abs(g[1] - w[1]).max()
+                             / np.abs(w[1]).max())
+                       for g, w in zip(got["futures"], want["futures"])
+                       if g[0] == "ok"], default=0.0)
+            agree = (agree and same and gap <= 1e-10
+                     and got["bad"] == [ValueError, ValueError])
+            line += (f" stats/replans/outcomes as p = 1: {same} gap "
+                     f"{gap:.1e} served {got['stats']['served']} shed "
+                     f"{got['stats']['shed']} stranded "
+                     f"{got['stats']['stranded']} replans "
+                     f"{len(got['replans'])}")
+        else:
+            agree = agree and got["refused"] is errors.ServingError
+            line += f" follower submit refused={got['refused'] is not None}"
+        ok = ok and agree
+        lines.append(line)
+    return _result(f"serving p1={p1} p2={p2} n={n}: {'; '.join(lines)} "
                    f"{'OK' if ok else 'FAIL'}", ok)
+
+
+# ------------------------- the serving scenarios -------------------------
+#
+# The same calls through either package's api (``repro_torch.api`` on a
+# grid of any p, or the reference's ``repro.api``): numpy inputs from
+# SERVE_SEED, numpy outputs.  A p > 1 port grid runs the synchronous
+# scenario in every rank alike and the async one led by rank 0.
+
+SERVE_SEED = 260
+SERVE_DISPATCH_S = 5e-5
+# the synchronous scenarios: (manifest, panel width, block mask); at
+# k = 16 the order-64 bucket plans "inv" at n0 = 32 on (2, 1) and (1, 2)
+# alike, and the 2 x 2 mask leaves out its one off-diagonal block
+SYNC_CASES = {"dense": ({32: 2, 16: 2}, 4, None),
+              "structured": ({64: 2, 32: 2}, 16, ((1, 0), (0, 1)))}
+ASYNC_K = 4
+
+
+class ManualClock:
+    """A clock that moves only when told to (the async scenarios'
+    schedule; ``monotonic``/``sleep``, as the servers inject it)."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def monotonic(self) -> float:
+        return self.t
+
+    def sleep(self, dt: float) -> None:
+        self.t += dt
+
+
+def serving_factor(d: int, rng, dtype=np.float64) -> np.ndarray:
+    L = np.tril(rng.standard_normal((d, d)))
+    L[np.diag_indices(d)] = np.abs(L[np.diag_indices(d)]) + d
+    return L.astype(dtype)
+
+
+def _np64(x) -> np.ndarray:
+    if torch.is_tensor(x):
+        return x.detach().cpu().double().numpy()
+    return np.asarray(x, np.float64)
+
+
+def _plan_row(plan) -> list:
+    return [(b.n, b.capacity, b.method, b.n0, b.orders, b.counts,
+             b.structure is not None) for b in plan.buckets]
+
+
+def serving_sync(api, grid, machine, which: str, dtype) -> dict:
+    """The synchronous fleet tier: ``plan_fleet`` of SYNC_CASES[which]
+    (two tenants, one factor per order each: the bucket full), a
+    ``SolveServer`` over the fleet, 12 requests of widths 1..k in two
+    drains, a replace, a third tenant's admission reclaiming the
+    coldest slot across tenants, 6 more requests.  Returns every X in
+    drain order, the plan, the server's counts and (the port) the
+    fleet's state."""
+    man, k, mask = SYNC_CASES[which]
+    rng = np.random.default_rng(SERVE_SEED)
+    structure = None if mask is None else api.FactorStructure.block_sparse(
+        np.asarray(mask, bool))
+    plan = api.plan_fleet(man, grid, k=k, machine=machine,
+                          dispatch_s=SERVE_DISPATCH_S, dtype=dtype,
+                          structure=structure)
+    fleet = api.SolverFleet(grid, plan)
+    keys = []
+    for tenant in ("a", "b"):
+        for d in sorted(man, reverse=True):
+            fleet.admit(serving_factor(d, rng, dtype), tenant=tenant,
+                        tag=f"o{d}")
+            keys.append((tenant, f"o{d}", d))
+    server = api.SolveServer(fleet, k).warmup()
+    xs = []
+
+    def serve(count):
+        for i in range(count):
+            tenant, tag, d = keys[i % len(keys)]
+            w = int(rng.integers(1, k + 1))
+            server.submit(rng.standard_normal((d, w)).astype(dtype),
+                          tenant=tenant, tag=tag)
+        outs = server.drain()
+        for key in sorted(outs):
+            xs.extend(_np64(x) for x in outs[key])
+
+    serve(6)
+    serve(6)
+    d0 = keys[0][2]
+    fleet.replace(fleet.lookup("a", tag=keys[0][1]),
+                  serving_factor(d0, rng, dtype))
+    d1 = min(man)
+    fleet.admit(serving_factor(d1, rng, dtype), tenant="c", tag="burst")
+    live = {(h.tenant, h.tag) for h in fleet.handles()}
+    keys = [key for key in keys if key[:2] in live] + [("c", "burst", d1)]
+    serve(6)
+    state = fleet.state() if hasattr(fleet, "state") else None
+    return dict(x=xs, plan=_plan_row(plan), state=state,
+                stats=(server.requests_served, server.waves_solved,
+                       fleet.stats()["reclaims"]))
+
+
+def serving_rank(grid) -> dict:
+    """One rank's run of every serving scenario on a p > 1 grid, fp64
+    on the tpu_v5e cost model (the planner's parity machine): the two
+    synchronous ones in every rank alike, the two async ones led by
+    rank 0 and followed by the others."""
+    from repro_torch import api
+    from repro_torch.core import cost_model
+    machine = cost_model.tpu_v5e()
+    out = {("sync", which): serving_sync(api, grid, machine, which,
+                                         np.float64)
+           for which in SYNC_CASES}
+    for mode in ("plain", "fleet"):
+        out[("async", mode)] = serving_async(
+            api, grid, machine, mode, np.float64,
+            leads=grid.mesh.rank == 0)
+    out[("stress",)] = serving_stress(api, grid, machine)
+    return out
+
+
+def serving_stress(api, grid, machine) -> dict:
+    """The leader's drain thread against two submit threads and an
+    admitting thread at once, a short switch interval: a fleet of 6
+    factors, full, so each of the third tenant's 6 admissions reclaims
+    the slot the concurrent submits' lookups left coldest, streamed
+    while the waves go out.  The leader returns its fleet state, the
+    stats, each future's outcome and whether every thread finished; a
+    follower its fleet state."""
+    import collections
+    import threading
+    rng = np.random.default_rng(SERVE_SEED + 2)
+    man = {32: 3, 16: 3}
+    fleet = api.SolverFleet(grid, api.plan_fleet(
+        man, grid, k=ASYNC_K, machine=machine, dispatch_s=SERVE_DISPATCH_S))
+    tags = []
+    for d, count in man.items():
+        for i in range(count):
+            fleet.admit(serving_factor(d, rng, np.float32), tenant=f"t{d}",
+                        tag=f"f{i}")
+            tags.append((d, f"t{d}", f"f{i}"))
+    srv = api.AsyncSolveServer(fleet, ASYNC_K, queue_depth=256).warmup()
+    if grid.mesh.rank != 0:
+        srv.follow()
+        return dict(state=fleet.state())
+    futs, errors = [], []
+
+    def producer(seed):
+        r = np.random.default_rng(seed)
+        for _ in range(60):
+            d, tenant, tag = tags[int(r.integers(len(tags)))]
+            try:
+                futs.append(srv.submit(r.standard_normal((d, 1)),
+                                       tenant=tenant, tag=tag))
+            except KeyError:
+                pass                 # displaced by a reclaim: a miss
+            except Exception as e:
+                errors.append(repr(e))
+
+    def admitter():
+        r = np.random.default_rng(SERVE_SEED + 3)
+        for j in range(6):
+            try:
+                fleet.admit(serving_factor(16, r, np.float32), tenant="c",
+                            tag=f"m{j}")
+            except Exception as e:
+                errors.append(repr(e))
+
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        srv.start()
+        threads = [threading.Thread(target=producer, args=(s,))
+                   for s in (1, 2)] + [threading.Thread(target=admitter)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        finished = not any(t.is_alive() for t in threads)
+        srv.stop()
+    finally:
+        sys.setswitchinterval(prev)
+    outcomes = collections.Counter(
+        type(f.exception(timeout=60)).__name__ for f in futs)
+    return dict(state=fleet.state(), stats=srv.stats(), finished=finished,
+                errors=errors, outcomes=dict(outcomes))
+
+
+def _outcome(f) -> tuple:
+    err = f.exception(timeout=0)
+    if err is not None:
+        return (type(err).__name__,)
+    return ("ok", _np64(f.result(timeout=0)))
+
+
+def _replans(scaler) -> list:
+    def keys(ks):
+        return sorted((k[0], k[1].name) for k in ks)
+    return [(r["t"], r["kind"], r["moved"], r["pressure"], r["dispatch_s"],
+             keys(r["opened"]), keys(r["closed"]), keys(r["rebuilt"]))
+            for r in (scaler.replans if scaler is not None else ())]
+
+
+def _drain(srv, clock, advance):
+    for _ in range(1000):
+        clock.sleep(advance)
+        srv.step()
+        if not srv.pending() and not srv._inflight:
+            srv.flush()
+            return
+    raise AssertionError("the server did not drain in 1000 waves")
+
+
+def serving_async(api, grid, machine, mode: str, dtype, *,
+                  leads: bool = True) -> dict:
+    """The async tier under one fake-clock schedule.  ``mode`` "plain":
+    a capacity-3 bank of order 32 (n0 = 16), queue depth 4, SLO 2.5 ms:
+    a wave per slot (the service estimate), then with an
+    ``AdmissionController`` a burst that sheds at depth and at the
+    deadline, a replace, two requests queued on a slot that is then
+    evicted (stranded) and re-admitted, a drain, a request to the
+    re-admitted slot.  ``mode`` "fleet":
+    ``plan_fleet({32: 3, 16: 3})`` (one merged bucket), an
+    ``Autoscaler``: a measured wave, a burst that splits the bucket
+    (requests in flight re-keyed, none stranded), a drain, idle ticks
+    that merge it back, one more request, a third tenant's admission
+    reclaiming the coldest slot (by the submits' lookups), a request to
+    every handle (the displaced one misses).  Through the port's api the
+    leader also makes two mutations with a bad argument after the first
+    wave (plain: an admit into the full bank, a replace with a
+    non-square factor; fleet: a non-square admit into the full bucket,
+    a replace with a non-square factor), each of which must raise
+    before it is streamed.  The leader returns every future's outcome
+    (the error's name, or "ok" and X), the stats, the replans, the
+    fleet's state, what the bad mutations raised and the stream's
+    message counts; a follower (``leads`` False, a p > 1 port grid)
+    follows, and returns the state, what its submit raised and its
+    stream's message counts."""
+    from repro_torch.core import errors as port_errors
+    rng = np.random.default_rng(SERVE_SEED + (mode == "fleet"))
+    clock = ManualClock()
+    scaler = None
+    if mode == "plain":
+        bank = api.FactorBank(grid, 32, n0=16, capacity=3, dtype=dtype)
+        for _ in range(3):
+            bank.admit(serving_factor(32, rng, dtype))
+        owner = bank
+        srv = api.AsyncSolveServer(api.Solver.from_bank(bank), ASYNC_K,
+                                   queue_depth=4, slo_ms=2.5, clock=clock)
+    else:
+        man = {32: 3, 16: 3}
+        plan = api.plan_fleet(man, grid, k=ASYNC_K, machine=machine,
+                              dispatch_s=SERVE_DISPATCH_S, dtype=dtype)
+        fleet = api.SolverFleet(grid, plan)
+        for d, count in man.items():
+            for i in range(count):
+                fleet.admit(serving_factor(d, rng, dtype), tenant=f"t{d}",
+                            tag=f"f{i}")
+        owner = fleet
+        srv = api.AsyncSolveServer(fleet, ASYNC_K, queue_depth=64,
+                                   clock=clock)
+    srv.warmup()
+
+    def state():
+        if mode == "fleet":
+            return owner.state() if hasattr(owner, "state") else None
+        return (owner.live_slots(), [owner.slot_generation(s)
+                                     for s in range(3)])
+
+    def messages():
+        return dict(srv.stream.messages) if getattr(
+            srv, "stream", None) is not None else None
+
+    if not leads:
+        try:
+            srv.submit(np.zeros((32, 1), dtype))
+            refused = None
+        except port_errors.ServingError as e:
+            refused = type(e)
+        srv.follow()
+        return dict(state=state(), refused=refused, messages=messages())
+    futs, bad = [], []
+
+    def bad_mutations(*calls):
+        # the port checks every argument before it streams a mutation
+        if not api.__name__.startswith("repro_torch"):
+            return
+        for call in calls:
+            try:
+                call()
+                bad.append(None)
+            except Exception as e:
+                bad.append(type(e))
+
+    def sub(b, **kw):
+        try:
+            futs.append(srv.submit(b.astype(dtype), **kw))
+        except Exception as e:       # a depth shed raises at submit
+            futs.append(e)
+
+    if mode == "plain":
+        for slot in range(3):
+            sub(rng.standard_normal((32, 2)), factor=slot)
+        _drain(srv, clock, 0.001)
+        bad_mutations(lambda: bank.admit(np.eye(32, dtype=dtype)),
+                      lambda: bank.replace(0, np.eye(32, dtype=dtype)[1:]))
+        srv.set_admission(api.AdmissionController(machine=machine))
+        for j in range(6):
+            sub(rng.standard_normal((32, 1)), factor=0)
+        for j in range(3):
+            sub(rng.standard_normal((32, 4)), factor=1)
+        clock.sleep(0.001)
+        srv.step()
+        bank.replace(1, serving_factor(32, rng, dtype))
+        for _ in range(2):
+            sub(rng.standard_normal((32, 1)), factor=2)
+        bank.evict(2)
+        bank.admit(serving_factor(32, rng, dtype))
+        _drain(srv, clock, 0.001)
+        sub(rng.standard_normal((32, 3)), factor=2)
+        _drain(srv, clock, 0.001)
+    else:
+        scaler = api.Autoscaler(srv, machine=machine, dwell_s=0.5,
+                                rate_alpha=1.0)
+        sub(rng.standard_normal((32, 2)), tenant="t32", tag="f0")
+        _drain(srv, clock, 0.001)
+        bad_mutations(
+            lambda: fleet.admit(np.eye(16, dtype=dtype)[1:], tenant="x"),
+            lambda: fleet.replace(fleet.handles("t16")[0],
+                                  np.eye(16, dtype=dtype)[1:]))
+        scaler.observe(now=clock.monotonic())
+        for j in range(20):
+            for d, i in ((32, 0), (32, 1), (32, 2), (16, 0), (16, 1),
+                         (16, 2)):
+                sub(rng.standard_normal((d, 4)), tenant=f"t{d}",
+                    tag=f"f{i}")
+        clock.sleep(0.01)
+        scaler.tick(now=clock.monotonic())
+        _drain(srv, clock, 0.001)
+        for _ in range(5):
+            clock.sleep(5.0)
+            if scaler.tick(now=clock.monotonic()) is not None:
+                break
+        sub(rng.standard_normal((16, 1)), tenant="t16", tag="f1")
+        _drain(srv, clock, 0.001)
+        # a third tenant's admission reclaims the slot the submits'
+        # lookups left coldest; the displaced tenant's lookup then misses
+        fleet.admit(serving_factor(16, rng, dtype), tenant="c", tag="burst")
+        for d, i in ((32, 0), (32, 1), (32, 2), (16, 0), (16, 1), (16, 2)):
+            sub(rng.standard_normal((d, 1)), tenant=f"t{d}", tag=f"f{i}")
+        sub(rng.standard_normal((16, 2)), tenant="c", tag="burst")
+        _drain(srv, clock, 0.001)
+    stats = srv.stats()
+    srv.stop()
+    return dict(futures=[(type(f).__name__,) if isinstance(f, Exception)
+                         else _outcome(f) for f in futs],
+                stats=stats, replans=_replans(scaler), state=state(),
+                bad=bad, messages=messages())
 
 
 def check_transpose(grid, case):
@@ -1026,7 +1408,7 @@ RUN = {"order": check_order, "mm3d": check_mm3d, "tri_inv": check_tri_inv,
        "doubling": check_doubling, "it_inv_trsm": check_it_inv_trsm,
        "rec_trsm": check_rec_trsm, "trsm": check_trsm,
        "overlap": check_overlap, "face": check_face,
-       "deferred": check_deferred, "session": check_session,
+       "serving": check_serving, "session": check_session,
        "session_refine": check_session_refine, "bank": check_bank,
        "cyclic": check_cyclic, "capacity": check_capacity,
        "padded": check_padded, "bank_bits": check_bank_bits,
@@ -1039,82 +1421,6 @@ RUN = {"order": check_order, "mm3d": check_mm3d, "tri_inv": check_tri_inv,
 
 def _run_items(grid, items):
     return [(name, i, RUN[name](grid, CASES[name][i])) for name, i in items]
-
-
-def _rank_main(rank, p1, p2, device, tmp, target, args, log_dir):
-    def note(stage):
-        if log_dir is not None:
-            print(f"rank {rank} pid {os.getpid()}: {stage} at "
-                  f"{time.time():.3f}", flush=True)
-
-    if log_dir is not None:
-        # this rank's output, gloo's and the traceback of a failure included
-        log = os.open(os.path.join(log_dir, f"rank{rank}.log"),
-                      os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
-        sys.stdout.flush()
-        sys.stderr.flush()
-        os.dup2(log, 1)
-        os.dup2(log, 2)
-        os.close(log)
-    import torch.distributed as dist
-    from repro_torch.core import grid as gridlib
-    timeout = datetime.timedelta(seconds=TIMEOUT_S)
-    if torch.device(device).type == "cpu":
-        torch.set_num_threads(1)
-    note("started")
-    try:
-        dist.init_process_group(
-            "gloo", init_method=f"file://{tmp}/rendezvous", rank=rank,
-            world_size=p1 * p1 * p2, timeout=timeout)
-        note("joined the world")
-        try:
-            grid = gridlib.make_trsm_mesh(p1, p2, device=device,
-                                          timeout=timeout)
-            note("built the mesh")
-            result = target(grid, *args)
-            with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
-                pickle.dump(result, f)
-            note("ran the target")
-            dist.barrier()
-        finally:
-            dist.destroy_process_group()
-        note("left the world")
-    except BaseException:
-        traceback.print_exc()
-        raise
-    # the result is written and the world is gone: exit at once.  In the
-    # interpreter's teardown gloo's threads have aborted a rank whose
-    # every collective had finished ("terminate called without an
-    # active exception", SIGABRT), failing a run that had passed
-    sys.stdout.flush()
-    sys.stderr.flush()
-    os._exit(0)
-
-
-def spawn(p1: int, p2: int, device, target, *args, log_dir=None) -> list:
-    """Run ``target(grid, *args)`` in each rank of a p1 x p1 x p2 grid:
-    p processes started by the spawn method (a parent holding a CUDA
-    context cannot fork), a gloo world that meets through a file in a
-    new temporary directory, every rank on ``device``, every collective
-    bounded by :data:`TIMEOUT_S`.  ``target`` must be importable by
-    name.  Returns the ranks' results (picklable), in rank order; a rank
-    that raises makes this raise.  With ``log_dir``, rank r writes its
-    standard output and error to ``log_dir/rank<r>.log``."""
-    import torch.multiprocessing as mp
-    from repro_torch.core.selfcheck import _rank_main
-    p = p1 * p1 * p2
-    if log_dir is not None:
-        os.makedirs(log_dir, exist_ok=True)
-    with tempfile.TemporaryDirectory() as tmp:
-        mp.start_processes(_rank_main,
-                           args=(p1, p2, device, tmp, target, args,
-                                 log_dir),
-                           nprocs=p, join=True, start_method="spawn")
-        out = []
-        for r in range(p):
-            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
-                out.append(pickle.load(f))
-    return out
 
 
 def run_grid(p1, p2, items, device, log_dir=None) -> list:

@@ -57,6 +57,19 @@ Determinism for tests: construct with a fake ``clock``, never call
 :meth:`AsyncSolveServer.start`, and drive :meth:`step` /
 :meth:`flush` by hand — no thread, no sleeps, no wall-clock
 (tests/conftest.py packages this as ``FakeClock`` + ``DrainDriver``).
+
+* **Over p > 1 ranks: a leader and followers.**  The server decides on
+  a clock, so the ranks cannot each decide.  Every rank constructs it
+  (collectively: it makes the descriptor stream's group) and calls
+  :meth:`~AsyncSolveServer.warmup`; then rank 0, the leader, serves
+  exactly as at p = 1 — ``submit``, ``step`` or the background loop,
+  ``stats``, the futures, the admission controller and the autoscaler
+  live there, and only it reads the clock — while every other rank
+  calls :meth:`~AsyncSolveServer.follow`, which applies the leader's
+  stream (``core.stream``: each wave's composition and RHS, each
+  mutation of the fleet or bank, the fleet's LRU touches) until the
+  leader's ``stop()``.  A follower's ``submit``, ``step`` and
+  mutations raise :class:`~repro_torch.core.errors.ServingError`.
 """
 
 from __future__ import annotations
@@ -68,9 +81,11 @@ import threading
 import time as _time
 from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.core import errors as _errors
+from repro_torch.core import stream
 from repro_torch.core.solver import SolveServer
 
 
@@ -331,6 +346,10 @@ class AsyncSolveServer:
     clock.  Whether a wave is finalized by waiting on a CUDA event or
     is complete when dispatched follows the device of the solver's
     (or the fleet's) grid.
+
+    Over p > 1 ranks rank 0 leads and the others :meth:`follow` (the
+    module's docstring): every rank constructs the server and warms it
+    up, in the same order.
     """
 
     def __init__(self, solver, panel_k: int = 16, *,
@@ -357,11 +376,31 @@ class AsyncSolveServer:
         if self.fleet is not None:
             self.solver = None
             self._servers: dict = {}    # bucket key -> wave dispatcher
-            self._device = self.fleet.grid.device
+            grid = self.fleet.grid
         else:
             self.solver = solver
             self._server = SolveServer(solver, panel_k)
-            self._device = solver.grid.device
+            grid = solver.grid
+        self._device = grid.device
+        # p > 1: the descriptor stream (core.stream) and the fleet or
+        # bank whose mutations it carries (its _relay: self.guard); a
+        # streamed mutation's body runs with _applying set to its thread
+        self._stream = None
+        self._owner = self.fleet if self.fleet is not None \
+            else solver.bank
+        self._applying = None
+        self._loop_error = None
+        if grid.p > 1:
+            if self._owner._relay is not None:
+                raise _errors.ServingError(
+                    "another AsyncSolveServer leads this fleet or bank "
+                    "over p > 1 ranks: stop it first")
+            self._stream = stream.ControlStream(grid.mesh)
+            if not self.leads and admission is not None:
+                raise _errors.ServingError(
+                    "an AdmissionController decides on the leader's "
+                    "clock: pass admission= on rank 0 only")
+            self._owner._relay = self
         self._clock = clock if clock is not None else SystemClock()
         self._now = self._clock.monotonic
         self._poll_s = poll_s
@@ -423,16 +462,42 @@ class AsyncSolveServer:
         fleet mode, None in plain mode)."""
         return key[0] if self.fleet is not None else None
 
+    @property
+    def leads(self) -> bool:
+        """Whether this rank decides: always at p = 1, rank 0 at p > 1."""
+        return self._stream is None or self._stream.leader
+
+    @property
+    def stream(self):
+        """The descriptor stream at p > 1 (its ``messages``, ``bytes``
+        and ``seconds``), else None."""
+        return self._stream
+
+    def _leader_only(self, what: str) -> None:
+        if not self.leads:
+            raise _errors.ServingError(
+                f"{what} on a follower: over p > 1 ranks rank 0 leads "
+                f"the server (submits, steps, control plane) and the "
+                f"other ranks call follow()")
+        if self._stream is not None and self._stream.closed:
+            raise _errors.ServingError(
+                f"{what} after stop(): the followers have returned")
+
     def attach_autoscaler(self, autoscaler) -> None:
         """Hook an :class:`~repro_torch.core.control.Autoscaler`:
         ``step()`` ticks it after finalization, on the server's
-        injected clock."""
+        injected clock.  Leader only at p > 1: its replans reach the
+        followers through the stream."""
+        self._leader_only("an Autoscaler")
         self._autoscaler = autoscaler
 
     def set_admission(self, admission) -> None:
         """Install (or remove, with None) the admission controller
         after construction — e.g. only AFTER priming traffic, so
-        startup builds never feed the controller's signals."""
+        startup builds never feed the controller's signals.  Leader
+        only at p > 1."""
+        if admission is not None:
+            self._leader_only("an AdmissionController")
         with self._cond:
             self.admission = admission
         if admission is not None and hasattr(admission, "attach"):
@@ -476,6 +541,7 @@ class AsyncSolveServer:
     def start(self) -> "AsyncSolveServer":
         """Spawn the background drain loop (thread via the injectable
         factory)."""
+        self._leader_only("start()")
         if self._thread is not None:
             raise RuntimeError("drain loop already running")
         self._stop_evt.clear()
@@ -489,7 +555,15 @@ class AsyncSolveServer:
         """Stop the loop.  ``drain=True`` (default) serves everything
         still queued first, so every outstanding future resolves;
         ``drain=False`` abandons the queues (their futures never
-        resolve — use only when tearing the whole process down)."""
+        resolve — use only when tearing the whole process down).
+
+        At p > 1 the leader's ``stop()`` then streams STOP, and every
+        follower's :meth:`follow` returns; a follower's ``stop()`` does
+        nothing.  An error that ended the background loop is raised
+        here (and reaches the followers with STOP)."""
+        if not self.leads or (self._stream is not None
+                              and self._stream.closed):
+            return self
         self._drain_on_stop = drain
         self._stop_evt.set()
         with self._cond:
@@ -497,11 +571,32 @@ class AsyncSolveServer:
         if self._thread is not None:
             self._thread.join(timeout)
             self._thread = None
-        if drain:                       # also covers never-started servers
-            while self.step():
-                pass
-            self.flush()
+        error = self._loop_error
+        try:
+            if drain and error is None:  # also covers never-started servers
+                while self.step():
+                    pass
+                self.flush()
+        except BaseException as e:
+            error = e
+            raise
+        finally:
+            if self._stream is not None:
+                with self._step_lock:
+                    self._stream.send(stream.STOP, dict(
+                        sync=self._sync(),
+                        error=None if error is None else repr(error)))
+                    self._stream.closed = True
+                self._detach()
+        if error is not None:
+            raise error
         return self
+
+    def _detach(self) -> None:
+        if self._owner._relay is self:
+            self._owner._relay = None
+        if self.fleet is not None:
+            self.fleet._touched.clear()
 
     def __enter__(self) -> "AsyncSolveServer":
         return self.start()
@@ -509,26 +604,46 @@ class AsyncSolveServer:
     def __exit__(self, *exc) -> None:
         self.stop(drain=True)
 
+    def _pinned(self):
+        """The grid's device as the thread's current one: a loop or a
+        follower enqueues on its own thread's current stream."""
+        return torch.cuda.device(self._device) \
+            if self._device.type == "cuda" else contextlib.nullcontext()
+
     def _loop(self) -> None:
-        # the drain thread enqueues on its own current stream: pin the
-        # grid's device rather than rely on the thread's default one
-        with (torch.cuda.device(self._device)
-              if self._device.type == "cuda" else contextlib.nullcontext()):
-            while True:
-                served = self.step()
-                if self._stop_evt.is_set():
-                    if not self._drain_on_stop or not self.pending():
-                        break
-                    continue
-                if not served:
-                    with self._cond:
-                        if not self._has_work() \
-                                and not self._stop_evt.is_set():
-                            self._cond.wait(self._poll_s)
-            if self._drain_on_stop:
-                while self.step():
-                    pass
-            self.flush()
+        with self._pinned():
+            try:
+                while True:
+                    served = self.step()
+                    if self._stop_evt.is_set():
+                        if not self._drain_on_stop or not self.pending():
+                            break
+                        continue
+                    if not served:
+                        with self._cond:
+                            if not self._has_work() \
+                                    and not self._stop_evt.is_set():
+                                self._cond.wait(self._poll_s)
+                if self._drain_on_stop:
+                    while self.step():
+                        pass
+                self.flush()
+            except Exception as e:
+                # never swallowed: every open future fails with it, and
+                # stop() raises it
+                self._loop_error = e
+                self._fail_open(e)
+
+    def _fail_open(self, error: BaseException) -> None:
+        """Fail every queued and in-flight future with ``error``."""
+        now = self._now()
+        with self._lock:
+            for fq in self._queues.values():
+                for r in fq.pop_if(lambda r: True):
+                    r.future._fail(error, now)
+        while self._inflight:
+            for r, _ in self._inflight.popleft()[0]:
+                r.future._fail(error, now)
 
     # ------------------------------ admission ------------------------------
 
@@ -549,13 +664,19 @@ class AsyncSolveServer:
 
     def _server_for(self, key) -> SolveServer:
         """A bucket's wave dispatcher: a plain-mode SolveServer over
-        the bucket's solver, made on first use (and again after
+        the bucket's solver, made on first use and again when the
+        bucket's solver changed (``apply_plan`` rebuilt it; also after
         :meth:`drop_dispatch_unit` forgot a rebuilt bucket's)."""
+        solver = self.fleet.solver(key)
         srv = self._servers.get(key)
-        if srv is None:
-            srv = self._servers[key] = SolveServer(
-                self.fleet.solver(key), self.panel_k)
+        if srv is None or srv.solver is not solver:
+            srv = self._servers[key] = SolveServer(solver, self.panel_k)
         return srv
+
+    def _dispatcher(self, unit) -> SolveServer:
+        """The wave dispatcher of a dispatch unit (:meth:`_unit`)."""
+        return self._server if self.fleet is None \
+            else self._server_for(unit)
 
     def submit(self, b, factor: int = 0, *, tenant: str = "default",
                tag: object = None) -> SolveFuture:
@@ -571,7 +692,8 @@ class AsyncSolveServer:
         slot, over-wide request, shape mismatch).  In fleet mode the
         request is addressed by ``(tenant, order[, tag])`` — the RHS
         row count IS the order — and a missing/stale route raises
-        ``KeyError`` here, at admission."""
+        ``KeyError`` here, at admission.  At p > 1 the leader's alone."""
+        self._leader_only("submit")
         b = torch.as_tensor(b)
         if b.ndim == 1:
             b = b[:, None]
@@ -671,7 +793,9 @@ class AsyncSolveServer:
         work, then finalize waves beyond the pipeline depth; with no
         work, finalize everything in flight.  Returns the number of
         requests dispatched (0 = idle).  The background loop calls
-        this; deterministic tests call it directly."""
+        this; deterministic tests call it directly.  At p > 1 the
+        leader's alone; idle, it streams a heartbeat when one is due."""
+        self._leader_only("step()")
         with self._step_lock:
             now = self._now()
             with self._lock:
@@ -686,6 +810,10 @@ class AsyncSolveServer:
                 self._finalize(all_waves=True)
                 if self._autoscaler is not None:
                     self._autoscaler.tick()
+                if self._stream is not None \
+                        and self._stream.heartbeat_due():
+                    self._stream.send(stream.IDLE,
+                                      dict(sync=self._sync()))
                 return 0
             dispatched = self._dispatch(waves)
             self._finalize(all_waves=False)
@@ -702,19 +830,25 @@ class AsyncSolveServer:
         """One program dispatch per dispatch unit (the whole bank in
         plain mode; per bucket in fleet mode); futures join the
         in-flight pipeline with their solutions, views of the wave's
-        output that the device is still computing."""
-        units: dict = {}             # dispatcher -> {slot: [req, ...]}
+        output that the device is still computing.  At p > 1 the WAVE
+        descriptor goes out first, so every follower solves the same
+        units in the same order."""
+        units: dict = {}             # dispatch unit -> {slot: [req, ...]}
         for key, wave in waves.items():
-            if self.fleet is not None:
-                bucket, slot = key
-                units.setdefault(self._server_for(bucket), {})[slot] = \
-                    wave
-            else:
-                units.setdefault(self._server, {})[key] = wave
+            unit, slot = key if self.fleet is not None else (None, key)
+            units.setdefault(unit, {})[slot] = wave
+        if self._stream is not None:
+            self._stream.send(stream.WAVE, dict(units=[
+                (unit, [(slot, [(r.seq, r.width) for r in wave])
+                        for slot, wave in slots.items()])
+                for unit, slots in units.items()], sync=self._sync()),
+                [torch.cat([r.b for wave in slots.values() for r in wave],
+                           dim=1) for slots in units.values()])
         now = self._now()
         pairs: list = []
         total = 0
-        for srv, unit in units.items():
+        for unit_key, unit in units.items():
+            srv = self._dispatcher(unit_key)
             by_seq = {r.seq: r for wave in unit.values() for r in wave}
             try:
                 out = srv._solve_wave(
@@ -723,6 +857,8 @@ class AsyncSolveServer:
             except Exception as e:       # surface through the futures,
                 for r in by_seq.values():     # never hang the loop
                     r.future._fail(e, now)
+                if self._stream is not None:
+                    raise                # the followers are in this wave
                 continue
             self.waves += 1
             for xs in out.values():
@@ -852,6 +988,136 @@ class AsyncSolveServer:
             if moved:
                 self._cond.notify()
         return len(moved)
+
+    # ------------------------- p > 1: the stream -------------------------
+
+    def _sync(self):
+        """The fleet's LRU bookkeeping to stream, or None (plain mode)."""
+        return self.fleet._sync_out() if self.fleet is not None else None
+
+    @contextlib.contextmanager
+    def guard(self, owner, kind: str, args: tuple, kwargs: dict, *,
+              check, lock):
+        """Run one mutation of the fleet or bank this server leads over
+        p > 1 ranks (the hook of ``core.stream.mutation``).  The leader
+        holds the step lock, so no wave interleaves, and the owner's
+        ``lock``; runs ``check`` (which raises before anything is
+        streamed); streams the call; and runs it.  A follower refuses
+        it: only the leader decides.  What a streamed mutation calls in
+        turn, and a follower's application of it, runs as it is."""
+        if self._applying == threading.get_ident():
+            with lock:
+                yield
+            return
+        if not self.leads:
+            raise _errors.ServingError(
+                f"{type(owner).__name__}.{kind} on a follower: while an "
+                f"AsyncSolveServer leads it over p > 1 ranks, mutations "
+                f"go through the leader (rank 0), which streams them")
+        with self._step_lock, lock:
+            check()
+            self._forward(kind, args, kwargs)
+            with self._applying_here():
+                yield
+
+    @contextlib.contextmanager
+    def _applying_here(self):
+        """Mark this thread as running a streamed mutation's body."""
+        prev, self._applying = self._applying, threading.get_ident()
+        try:
+            yield
+        finally:
+            self._applying = prev
+
+    def _forward(self, kind: str, args: tuple, kwargs: dict) -> None:
+        """The leader streams one mutation: a tensor or array argument
+        goes as a tensor, a fleet handle as its (bucket, slot), anything
+        else pickled."""
+        from repro_torch.core.fleet import FleetHandle
+        tensors = []
+
+        def enc(a):
+            if isinstance(a, FleetHandle):
+                return ("handle", a.bucket, a.slot)
+            if torch.is_tensor(a) or isinstance(a, np.ndarray):
+                tensors.append(torch.as_tensor(a))
+                return ("tensor", len(tensors) - 1)
+            return ("value", a)
+
+        head = dict(kind=kind, args=[enc(a) for a in args],
+                    kwargs={k: enc(v) for k, v in kwargs.items()},
+                    sync=self._sync())
+        self._stream.send(stream.MUTATE, head, tensors)
+
+    def follow(self) -> "AsyncSolveServer":
+        """A follower's serving loop over p > 1 ranks: apply the
+        leader's descriptor stream — solve each wave the leader
+        dispatches, on the same RHS, through the same dispatcher; apply
+        each streamed mutation; take the fleet's LRU bookkeeping — until
+        the leader's ``stop()``, then return.  Keeps no futures and
+        drops each X once computed; never reads the clock.  Pins the
+        grid's device as the drain loop does.  An exception raised here
+        propagates; an error that ended the leader's loop raises
+        :class:`~repro_torch.core.errors.ServingError` here."""
+        if self.leads:
+            raise _errors.ServingError(
+                "follow() is a follower's: over p > 1 ranks rank 0 leads "
+                "(submit, step, start, stop) and the other ranks follow")
+        if self._stream.closed:
+            raise _errors.ServingError("the leader stopped this server")
+        with self._pinned():
+            while True:
+                kind, head, tensors = self._stream.recv()
+                if self.fleet is not None:
+                    self.fleet._sync_in(head["sync"])
+                if kind == stream.WAVE:
+                    self._follow_wave(head["units"], tensors)
+                elif kind == stream.MUTATE:
+                    self._apply_mutation(head, tensors)
+                elif kind == stream.STOP:
+                    break
+        self._stream.closed = True
+        self._detach()
+        if head["error"] is not None:
+            raise _errors.ServingError(
+                f"the leader's drain loop failed: {head['error']}")
+        return self
+
+    def _follow_wave(self, units, tensors) -> None:
+        """Solve one streamed wave: per unit, the packed RHS split back
+        into its requests, through the unit's dispatcher."""
+        for (unit, slots), (packed, _) in zip(units, tensors):
+            b = packed.to(self._device)
+            wave, off = {}, 0
+            for slot, reqs in slots:
+                wave[slot] = []
+                for seq, j in reqs:
+                    wave[slot].append((seq, b[:, off:off + j]))
+                    off += j
+            self._dispatcher(unit)._solve_wave(wave)
+            self.waves += 1
+
+    def _apply_mutation(self, head, tensors) -> None:
+        """Apply one streamed mutation to this rank's fleet or bank; a
+        fleet's ``apply_plan`` also drops the dispatchers of the buckets
+        it closed or rebuilt, as ``Autoscaler.apply`` does."""
+        target = self.fleet if self.fleet is not None else self.solver.bank
+
+        def dec(enc):
+            if enc[0] == "handle":
+                return self.fleet.bucket(enc[1]).handles[enc[2]]
+            if enc[0] == "tensor":
+                t, on_device = tensors[enc[1]]
+                return t.to(self._device) if on_device else t
+            return enc[1]
+
+        with self._applying_here():
+            out = getattr(target, head["kind"])(
+                *map(dec, head["args"]),
+                **{k: dec(v) for k, v in head["kwargs"].items()})
+        if head["kind"] == "apply_plan":
+            for key in out["closed"] + out["rebuilt"]:
+                self.drop_dispatch_unit(key)
 
     def drop_dispatch_unit(self, bucket_key) -> None:
         """Forget the wave dispatcher and any empty queues of a bucket

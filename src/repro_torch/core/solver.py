@@ -31,9 +31,13 @@ append-only or capacity, every precision preset), every rank calling
 each constructor, admission, update and ``solve`` in the same order
 with the same arguments: the caller passes the natural B, the same on
 every rank, and gets the natural X back on every rank, a structured
-factor's too.  A fleet, a :class:`SolveServer` or an
-``AsyncSolveServer`` there raises ``NotImplementedError``: they come
-with the next slice of the distributed port (ROADMAP A12 item 4).
+factor's too.  A :class:`SolveServer` and a
+:class:`~repro_torch.core.fleet.SolverFleet` keep that contract there
+(every rank submits, drains, admits and looks up alike; packing,
+routing, the fleet's LRU clock and its reclaims follow from the calls
+alone).  An ``AsyncSolveServer`` decides on a clock, so at p > 1 rank
+0 leads it and the other ranks follow its descriptor stream
+(``core.stream``).
 """
 
 from __future__ import annotations
@@ -747,14 +751,14 @@ class SolveServer:
         server = SolveServer(fleet, panel_k=16)
         server.submit(b, tenant="modelA", tag="layer0")
         outs = server.drain()          # {(tenant, tag): [X, ...]}
+
+    Over p > 1 ranks every rank makes each call (submit, drain, warmup,
+    cancel) in the same order with the same arguments; each wave is one
+    collective solve, and every rank gets the natural solutions.
     """
 
     def __init__(self, solver, panel_k: int):
         from repro_torch.core.fleet import SolverFleet
-        from repro_torch.core.grid import NEXT_SLICE
-        if not isinstance(solver, SolverFleet) and solver.grid.p > 1:
-            raise NotImplementedError(f"SolveServer over p > 1 ranks "
-                                      f"{NEXT_SLICE}")
         self.fleet = solver if isinstance(solver, SolverFleet) else None
         self.solver = None if self.fleet is not None else solver
         self.panel_k = panel_k

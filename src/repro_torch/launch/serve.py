@@ -2,13 +2,14 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --workload trsm \
         --n 8192 --panel-k 16 --requests 64 [--n0 4096] \
-        [--method inv|rec|auto] \
+        [--method inv|rec|auto] [--p1 2 --p2 1] [--overlap auto|on|off] \
         [--precision fp32|bf16|bf16_refine|fp64_refine] [--cache-stats] \
         [--structure dense|banded[:BW]|block-sparse] [--device cuda:0|cpu]
 
     # M resident factors (a FactorBank), every wave one solve over all M
     PYTHONPATH=src python -m repro_torch.launch.serve --workload trsm-bank \
-        --bank 16 --n 256 --panel-k 16 --requests 256 [--method inv|rec]
+        --bank 16 --n 256 --panel-k 16 --requests 256 [--method inv|rec] \
+        [--map-mode vmap|scan]
 
     # a capacity-allocated live-mutable bank, warmed up empty, started at
     # half occupancy; between waves a slot is replaced in place and every
@@ -57,11 +58,25 @@ depth and at admission), the autoscaler's replans, and with
 ``--stats-json`` one JSON line of server, admission and autoscaler
 stats.  The ``lm`` workload of ``repro.launch.serve`` is not ported
 yet.
+
+Every trsm workload runs on a p1 x p1 x p2 grid (``--p1``/``--p2``,
+default 1 x 1 x 1).  With p = p1^2 p2 > 1 the CLI joins the world a
+launcher started (torchrun: ``WORLD_SIZE`` and ``RANK`` in the
+environment; NCCL where each rank has a card of its own, gloo where
+ranks share one), or else starts its own p ranks (the spawn start
+method, a file rendezvous, gloo, every rank on ``--device``).  Every
+rank makes the same factors and requests and makes each call alike
+(the synchronous servers and the fleet are SPMD); ``trsm-traffic``
+serves from rank 0, which draws the arrivals and right-hand sides,
+while the other ranks follow its stream (``AsyncSolveServer.follow``).
+Rank 0 prints the summary lines.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import time
 
 import numpy as np
@@ -79,10 +94,13 @@ def _print_cache_stats():
           f"hit_rate={st['hit_rate']:.3f}")
 
 
-def serve_trsm(args):
+def _on(grid) -> str:
+    return f"grid p1={grid.p1} p2={grid.p2} ({grid.device})"
+
+
+def serve_trsm(args, grid):
     """Serve TRSM solve requests against a device-resident factor."""
     from repro_torch import api
-    grid = api.make_trsm_mesh(1, 1, device=args.device)
     rng = np.random.default_rng(0)
     n = args.n
     gen = torch.Generator(device=grid.device).manual_seed(0)
@@ -96,7 +114,8 @@ def serve_trsm(args):
     solver = api.Solver.from_factor(L, grid, method=args.method,
                                     n0=args.n0, precision=args.precision,
                                     k_hint=args.panel_k,
-                                    structure=structure)
+                                    structure=structure,
+                                    overlap=args.overlap)
     server = api.SolveServer(solver, args.panel_k).warmup()
     widths = rng.integers(1, args.panel_k + 1, args.requests)
     if grid.device.type == "cuda":
@@ -114,7 +133,7 @@ def serve_trsm(args):
     print(f"served {server.requests_served} solve requests "
           f"({int(widths.sum())} columns) in {panels} panels, "
           f"{dt:.3f}s ({dt / max(panels, 1) * 1e3:.2f} ms/panel) "
-          f"on {grid.device} n={n} "
+          f"on {_on(grid)} n={n} "
           f"n0={solver.spec_for(args.panel_k).n0} "
           f"method={solver.method} precision={policy.name} "
           f"structure={args.structure or 'dense'} "
@@ -144,17 +163,18 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def serve_trsm_bank(args):
+def serve_trsm_bank(args, grid):
     """Serve solve requests against a bank of M resident factors: one
     solve per wave covers every factor."""
     from repro_torch import api
-    grid = api.make_trsm_mesh(1, 1, device=args.device)
     rng = np.random.default_rng(0)
     n, M = args.n, args.bank
     fresh, gen = _factor_maker(n, args, grid.device)
     solver = api.Solver.from_factors(torch.stack([fresh() for _ in range(M)]),
                                      grid, method=args.method, n0=args.n0,
-                                     precision=args.precision)
+                                     precision=args.precision,
+                                     map_mode=args.map_mode,
+                                     overlap=args.overlap)
     server = api.SolveServer(solver, args.panel_k).warmup()
     widths = rng.integers(1, args.panel_k + 1, args.requests)
     _sync(grid.device)
@@ -172,26 +192,27 @@ def serve_trsm_bank(args):
           f"{waves} waves (one solve per wave, {M} factors each), "
           f"{dt:.3f}s ({dt / max(waves, 1) * 1e3:.2f} ms/wave, "
           f"{dt / max(waves * M, 1) * 1e3:.3f} ms/factor solve) on "
-          f"{grid.device} n={n} n0={solver.spec_for(args.panel_k).n0} "
+          f"{_on(grid)} n={n} n0={solver.spec_for(args.panel_k).n0} "
+          f"map_mode={solver.bank.map_mode} "
           f"method={solver.method} precision={policy.name} "
           f"({policy.describe()})")
     if args.cache_stats:
         _print_cache_stats()
 
 
-def serve_trsm_churn(args):
+def serve_trsm_churn(args, grid):
     """Serve against a capacity-allocated live-mutable bank while its
     factors churn: a replace between waves and, every third update, an
     evict followed by a re-admit into the same (lowest free) slot; one
     program (keyed on the capacity) and one updater throughout."""
     from repro_torch import api
     from repro_torch.core import session
-    grid = api.make_trsm_mesh(1, 1, device=args.device)
     rng = np.random.default_rng(0)
     n, C = args.n, args.bank
     fresh, gen = _factor_maker(n, args, grid.device)
     bank = api.FactorBank(grid, n, method=args.method, n0=args.n0,
-                          precision=args.precision, capacity=C)
+                          precision=args.precision, capacity=C,
+                          map_mode=args.map_mode, overlap=args.overlap)
     solver = api.Solver.from_bank(bank)
     server = api.SolveServer(solver, args.panel_k).warmup()   # EMPTY
     for _ in range(max(C // 2, 1)):          # start at half occupancy
@@ -241,13 +262,13 @@ def serve_trsm_churn(args):
           f"{dt_total:.3f}s total, "
           f"{t_update / max(updates, 1) * 1e3:.2f} ms/update; "
           f"rebuilds solve={rebuilt[0]} update={rebuilt[1]} "
-          f"(steady state: 0/0) on {grid.device} n={n} "
+          f"(steady state: 0/0) on {_on(grid)} n={n} "
           f"n0={key.n0} method={solver.method} precision={policy.name}")
     if args.cache_stats:
         _print_cache_stats()
 
 
-def serve_trsm_fleet(args):
+def serve_trsm_fleet(args, grid):
     """Mixed-order multi-tenant serving through the fleet tier: the
     planner buckets the order spectrum, two tenants' factors land in
     the planned buckets, requests route by (tenant, order), churn
@@ -255,7 +276,6 @@ def serve_trsm_fleet(args):
     their coldest slot across tenants (DESIGN.md Sec. 12)."""
     from repro_torch import api
     from repro_torch.core import session
-    grid = api.make_trsm_mesh(1, 1, device=args.device)
     rng = np.random.default_rng(0)
     n = args.n
     orders = [n, n // 2, n // 4]        # the tenants' order spectrum
@@ -264,9 +284,9 @@ def serve_trsm_fleet(args):
     # two tenants, two factors per order each
     manifest = {d: 4 for d in orders}
     plan = api.plan_fleet(manifest, grid, k=args.panel_k,
-                          precision=args.precision)
+                          precision=args.precision, overlap=args.overlap)
     print(plan.table())
-    fleet = api.SolverFleet(grid, plan)
+    fleet = api.SolverFleet(grid, plan, map_mode=args.map_mode)
     handles = {}
     for tenant in ("tenant-a", "tenant-b"):
         for d in orders:
@@ -321,7 +341,7 @@ def serve_trsm_fleet(args):
           f"bucket(s)) in {server.waves_solved} bucket-waves, "
           f"{dt_total:.3f}s; {replaced} in-place refreshes, "
           f"{st['reclaims']} cross-tenant reclaims; rebuilds solve="
-          f"{rebuilt} (steady state: 0) on {grid.device} n={n} "
+          f"{rebuilt} (steady state: 0) on {_on(grid)} n={n} "
           f"precision={plan.buckets[0].policy.name}")
     if args.fleet_stats:
         print(fleet.format_stats())
@@ -329,7 +349,7 @@ def serve_trsm_fleet(args):
         _print_cache_stats()
 
 
-def serve_trsm_traffic(args):
+def serve_trsm_traffic(args, grid):
     """Open-loop async serving: Poisson arrivals against the
     background drain loop, futures resolved as waves finalize, tail
     latency reported against the --slo-ms objective.
@@ -338,11 +358,12 @@ def serve_trsm_traffic(args):
     (requests whose estimated queue wait cannot meet --slo-ms are shed
     at submit with DeadlineUnmeetable, surfaced through the future);
     ``--autoscale`` serves a mixed-order FLEET instead of a flat bank
-    and attaches the planner-driven Autoscaler (DESIGN.md Sec. 15)."""
+    and attaches the planner-driven Autoscaler (DESIGN.md Sec. 15).
+    At p > 1 rank 0 serves the traffic and the other ranks follow."""
     import json
 
     from repro_torch import api
-    grid = api.make_trsm_mesh(1, 1, device=args.device)
+    leads = grid.p == 1 or grid.mesh.rank == 0
     rng = np.random.default_rng(0)
     n, M = args.n, min(args.bank, 4)
     admission = api.AdmissionController(slo_ms=args.slo_ms) \
@@ -358,8 +379,9 @@ def serve_trsm_traffic(args):
         for d in orders:
             manifest[d] = manifest.get(d, 0) + 1
         plan = api.plan_fleet(manifest, grid, k=args.panel_k,
-                              precision=args.precision)
-        fleet = api.SolverFleet(grid, plan)
+                              precision=args.precision,
+                              overlap=args.overlap)
+        fleet = api.SolverFleet(grid, plan, map_mode=args.map_mode)
         tags = []
         for j, d in enumerate(orders):
             tag = f"f{j}"
@@ -368,18 +390,22 @@ def serve_trsm_traffic(args):
         server = api.AsyncSolveServer(
             fleet, args.panel_k, queue_depth=args.queue_depth,
             slo_ms=args.slo_ms).warmup()
-        scaler = api.Autoscaler(server)
+        scaler = api.Autoscaler(server) if leads else None
         policy = fleet.solver(next(iter(fleet.buckets))).policy
     else:
         fresh, _ = _factor_maker(n, args, grid.device)
         solver = api.Solver.from_factors(
             torch.stack([fresh() for _ in range(M)]), grid,
-            method=args.method, n0=args.n0, precision=args.precision)
+            method=args.method, n0=args.n0, precision=args.precision,
+            map_mode=args.map_mode, overlap=args.overlap)
         server = api.AsyncSolveServer(
             solver, args.panel_k, queue_depth=args.queue_depth,
             slo_ms=args.slo_ms).warmup()
         scaler = None
         policy = solver.policy
+    if not leads:
+        server.follow()               # until rank 0's stop()
+        return
     width = max(args.panel_k // 4, 1)
     dtype = torch.float64 if args.precision == "fp64_refine" \
         else torch.float32
@@ -448,7 +474,7 @@ def serve_trsm_traffic(args):
           f"{args.slo_ms:.0f} ms ({violations} violations); "
           f"shed {shed} at depth {args.queue_depth} + "
           f"{deadline_shed} at admission ({args.admission}) on "
-          f"{grid.device} n={n} precision={policy.name}")
+          f"{_on(grid)} n={n} precision={policy.name}")
     if scaler is not None:
         print(f"autoscaler: {len(scaler.replans)} replan(s) "
               + "".join(f"[{r['kind']}: {r['moved']} moved] "
@@ -464,6 +490,20 @@ def serve_trsm_traffic(args):
         print(json.dumps(st, default=str, sort_keys=True))
     if args.cache_stats:
         _print_cache_stats()
+
+
+WORKLOADS = {"trsm": serve_trsm, "trsm-bank": serve_trsm_bank,
+             "trsm-churn": serve_trsm_churn, "trsm-fleet": serve_trsm_fleet,
+             "trsm-traffic": serve_trsm_traffic}
+
+
+def _serve_rank(grid, args):
+    """A spawned rank's run of the workload: rank 0 returns what it
+    printed, the other ranks' output is dropped."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        WORKLOADS[args.workload](args, grid)
+    return out.getvalue() if grid.mesh.rank == 0 else None
 
 
 def main(argv=None):
@@ -524,18 +564,49 @@ def main(argv=None):
     ap.add_argument("--cache-stats", action="store_true",
                     help="print compiled-solver cache stats after the "
                          "drain")
+    ap.add_argument("--p1", type=int, default=1,
+                    help="the grid's p1 (p = p1 * p1 * p2 ranks)")
+    ap.add_argument("--p2", type=int, default=1,
+                    help="the grid's p2")
+    ap.add_argument("--overlap", default="auto",
+                    choices=["auto", "on", "off"],
+                    help="software-pipeline the steady-state sweep "
+                         "(prefetch the next panel's collectives under "
+                         "this panel's compute; bit-identical results; "
+                         "DESIGN.md Sec. 16)")
+    ap.add_argument("--map-mode", default="vmap",
+                    choices=["vmap", "scan"],
+                    help="how the bank program maps the factor axis")
     ap.add_argument("--device", default=None,
-                    help="device of the 1 x 1 x 1 grid (default cuda:0)")
+                    help="every rank's device (default cuda:0; cuda:<local "
+                         "rank> under a launcher with a card per rank)")
     args = ap.parse_args(argv)
     if args.workload in _NOT_PORTED:
         ap.error(f"workload {args.workload!r} is not ported yet (ROADMAP "
                  f"{_NOT_PORTED[args.workload]})")
     if args.workload != "trsm" and args.method == "auto":
         ap.error("a bank takes --method inv or rec (auto depends on k)")
-    {"trsm": serve_trsm, "trsm-bank": serve_trsm_bank,
-     "trsm-churn": serve_trsm_churn,
-     "trsm-fleet": serve_trsm_fleet,
-     "trsm-traffic": serve_trsm_traffic}[args.workload](args)
+    if args.p1 < 1 or args.p2 < 1:
+        ap.error("--p1 and --p2 must be >= 1")
+    from repro_torch.core import world
+    run = WORKLOADS[args.workload]
+    if args.p1 * args.p1 * args.p2 == 1:
+        from repro_torch import api
+        run(args, api.make_trsm_mesh(1, 1, device=args.device))
+    elif world.launched():
+        if args.device is None and not torch.cuda.is_available():
+            ap.error("no CUDA device: pass --device cpu")
+        grid = world.join(args.p1, args.p2, args.device)
+        with (contextlib.nullcontext() if grid.mesh.rank == 0
+              else contextlib.redirect_stdout(io.StringIO())):
+            run(args, grid)
+    else:
+        device = args.device or "cuda:0"
+        if torch.device(device).type == "cuda" \
+                and not torch.cuda.is_available():
+            ap.error("no CUDA device: pass --device cpu")
+        print(world.spawn(args.p1, args.p2, device, _serve_rank, args)[0],
+              end="")
 
 
 if __name__ == "__main__":

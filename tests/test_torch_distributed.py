@@ -20,8 +20,9 @@ all on the same seeded inputs: the selfchecks' cases
   programs give the sequential ones' bits (``overlap``, the banded
   structure's level schedule included), phase 1's transposed faces are
   lower triangular (``face``), the tuple-axis collectives keep the
-  reference's rank order (``order``), what the next slice brings
-  raises (``deferred``), a structure that leaves out nothing is the
+  reference's rank order (``order``), the fleet, both servers and the
+  control plane serve over p > 1 ranks as at p = 1 (``serving``), a
+  structure that leaves out nothing is the
   dense program bit for bit (``struct_dense``), a structured bank's
   "scan" is its "vmap", overlap on its off and a padded slot its
   unpadded bank (``struct_bits``), and every rank records the same
@@ -64,7 +65,7 @@ COMPARED = ("mm3d", "tri_inv", "doubling", "it_inv_trsm", "rec_trsm", "trsm",
             "cholesky", "lu")
 COSTED = ("mm3d", "tri_inv", "doubling", "it_inv_trsm", "rec_trsm",
           "cholesky", "lu")
-PORT_ONLY = ("order", "overlap", "face", "deferred", "padded", "bank_bits",
+PORT_ONLY = ("order", "overlap", "face", "serving", "padded", "bank_bits",
              "struct_dense", "struct_bits")
 # the front door: Solver and FactorBank at p > 1 against the reference's
 # Solver and FactorBank; the banked programs' costs against the
@@ -459,8 +460,10 @@ def test_cost_trace_matches_reference(runs, name, i):
 def test_port_check(runs, name, i):
     """``overlap``: the same bits as the sequential program; ``face``: the
     faces are lower triangular on every rank; ``order``: x-major rank
-    order of the tuple-axis collectives; ``deferred``: fleets and the
-    serving tiers raise, naming the next slice; ``padded``: a padded
+    order of the tuple-axis collectives; ``serving``: the synchronous
+    fleet and server, and the async server led by rank 0 and followed
+    by the others, as the same calls at p = 1, every rank's fleet state
+    equal at stop; ``padded``: a padded
     slot's leading block is the unpadded bank's, bit for bit, lower,
     upper and transposed; ``bank_bits``: a bank's "scan" gives "vmap"'s
     bits, overlap on gives off's; ``struct_dense``: ``structure=dense``

@@ -33,10 +33,11 @@ BLOCKS = _port_blocks()
 
 
 def test_port_section_keeps_its_snippets():
-    """Six snippets (fleet, structure, churn, async, producers and
-    K-FAC, structure and a producer over p > 1 ranks), each on the
-    port's front door and none importing JAX or the reference."""
-    assert len(BLOCKS) == 6
+    """Seven snippets (fleet, structure, churn, async, producers and
+    K-FAC, structure and a producer over p > 1 ranks, the serving tier
+    over p > 1 ranks), each on the port's front door and none importing
+    JAX or the reference."""
+    assert len(BLOCKS) == 7
     for block in BLOCKS:
         assert "from repro_torch import api" in block
         assert 'device="cpu"' in block

@@ -316,6 +316,43 @@ def test_plan_fleet_validation():
         plan.bucket_for(1 << 20)
 
 
+@pytest.mark.parametrize("manifest,text", [
+    ({256: 2, 128: 2}, "banded:16"), ({4096: 2, 2048: 4}, "banded:16"),
+    ({256: 2, 64: 2}, "block-sparse"), ({1024: 2, 512: 2}, "block-sparse")])
+def test_plan_fleet_threads_structure(manifest, text):
+    """tests/test_structure.py::test_plan_fleet_threads_structure against
+    the reference: the same buckets (orders, counts, capacities,
+    methods), the structure stamped on every "inv" bucket and on no
+    "rec" one, and each side's n0 its OWN ``serving_n0``: the
+    structured argmin prices with each package's default machine (the
+    port's H100 preset, the reference's calibrated TPU), whatever
+    machine the planner was given, so the two n0 may differ."""
+    from repro.core import tuning as jtuning
+    from repro.core.structure import FactorStructure as JStructure
+    from repro_torch.core import tuning
+    n = max(manifest)
+    st = api.FactorStructure.parse(text, n=n)
+    jst = JStructure.parse(text, n=n)
+    g, jg = api.plan_grid(1, 1), japi.plan_grid(1, 1)
+    kw = dict(k=8, dispatch_s=5e-5)
+    plan = api.plan_fleet(manifest, g, machine=cm.tpu_v5e(), structure=st,
+                          **kw)
+    jplan = japi.plan_fleet(manifest, jg, machine=jcm.tpu_v5e(),
+                            structure=jst, **kw)
+
+    def rows(p):
+        return [(b.n, b.orders, b.counts, b.capacity, b.method)
+                for b in p.buckets]
+    assert rows(plan) == rows(jplan)
+    for b, jb in zip(plan.buckets, jplan.buckets):
+        if b.method == "inv":
+            assert b.structure == st and jb.structure == jst
+            assert b.n0 == tuning.serving_n0(b.n, g, structure=st)
+            assert jb.n0 == jtuning.serving_n0(jb.n, jg, structure=jst)
+        else:
+            assert b.structure is None and jb.structure is None
+
+
 # ------------------------------ the fleet ------------------------------
 
 def _fleets(jref, manifest=None, precision="fp32", k=4, dispatch_s=5e-5):
