@@ -146,8 +146,8 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    s0 = n (one B1 launch) and s0 = n/8 (phase B's levels), within 10x
    of ``solve_triangular(L, I)``'s residual; each timed beside its
    library call.  Then KFAC-CA at qwen3-1.7b's widths on 2 units (the
-   reference's ``params["units"]`` tree, random weights, seeded
-   gradients, whiten): 3 steps, ``factor_banks_from_state`` (banks
+   ``params["units"]`` tree of the port's ``models.lm.init``, random
+   weights, seeded gradients, whiten): 3 steps, ``factor_banks_from_state`` (banks
    {1024: 4, 2048: 18, 6144: 6}), every damped factor held to
    ||L L^T - (M + lam I)|| / ||M + lam I|| in fp64 within 10x of
    ``torch.linalg.cholesky``'s on the same matrix, one wave per bank
@@ -262,13 +262,39 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    per rank, the async run's goodput, p50/p99, sheds, replans (kind,
    moved, opened, closed), the stream's ms and bytes per wave and its
    share of a sync wave.
-16. The card line, the kernels' JSON summary, then the last line
+16. The LM (``lm_phase``): qwen3-1.7b at full size (28 layers, d_model
+   2048, vocab 151936, tied embeddings, qk norm; 1.72e9 parameters,
+   random from a seeded generator, fp32), through the port's
+   ``models.lm``, ``train.serve_step`` and ``train.train_step``.
+   (a) Serving: batch 4, a 128-token prompt, 32 new tokens; in fp32
+   with TF32 off the last decode step's logits (through the KV cache)
+   against ``lm.forward`` on the same 159 tokens, rtol = atol = 2e-3
+   (the reference's bound, tests/test_models_smoke.py); then
+   ``greedy_generate`` in bf16 under sync-debug mode "error" (no host
+   sync in the steady decode loop), timed with CUDA events: tokens/s,
+   the prefill's ms (a one-token generation) and the ms per decode
+   step (the rest over T - 1 steps); and bf16 decode steps against a
+   32768-position cache (14 GiB at batch 4), beside the cache read's
+   bound, with the memory they allocate above what was held.  (b)
+   ``adamw`` (its defaults) at 28 layers, B = 2, S = 1024, remat, three
+   steps on one fixed batch: the loss finite and falling; s per step
+   and the peak of ``torch.cuda.max_memory_allocated``.  (c)
+   ``kfac_ca`` (the reference's defaults) at 2 layers, same B and S,
+   three steps: B1 launched in every step (counted from 0 around each),
+   the Kronecker orders {1024: 4, 2048: 18, 6144: 6}, the last step's
+   update of ``wq`` and ``down`` on the trainer's real gradients
+   against the fp64 ``eigh`` whitening within 5e-3 (phase 11's check),
+   the loss finite, B1 held against its plain version on the stacks the
+   first step handed it; s per step and B1 launches per step.  One
+   JSON line ``{"lm": ...}``; the models are freed after it.
+17. The card line, the kernels' JSON summary, then the last line
    ``{"ok": true, "device": {...}}``.  Each kernel's launches are those
    of its main path's run: B1 and B2 the inv configuration at the
    default n0, B3 the rec one, B4 the first structured one, B6 the rec
    churn phase, B5 the fleet phase; ``launches_distributed`` adds its
    launches in phases 12-15, summed over ranks, grids and cases, and
-   is above 0 for every kernel.  The kernel lines of phases 12-15 also
+   is above 0 for every kernel; ``launches_lm`` its launches in phase
+   16's kfac_ca steps (above 0 for B1).  The kernel lines of phases 12-15 also
    carry the ordered ``ops.gemm``'s launches per rank.
 """
 
@@ -350,10 +376,11 @@ TRAFFIC_GOODPUT = 0.95
 # ("inv", n0 = n/2, bf16_refine) and served at the preset's bound
 FACTOR_SHIFT = 1e-2
 FACTOR_RELRES = 1e-5
-# K-FAC (phase 11 b): qwen3-1.7b's widths (src/repro/configs/qwen3_1_7b.py)
-# at 2 of its 28 units, the reference's kfac_ca defaults (whiten,
-# max_dim 8192, update_freq 1), 3 steps before banking
-QWEN = dict(d_model=2048, n_heads=16, n_kv=8, head_dim=128, d_ff=6144)
+# K-FAC (phase 11 b): qwen3-1.7b (src/repro_torch/configs/qwen3_1_7b.py)
+# at 2 of its 28 units, the parameter tree the port's models.lm builds,
+# the reference's kfac_ca defaults (whiten, max_dim 8192, update_freq
+# 1), 3 steps before banking
+LM_ARCH = "qwen3-1.7b"
 KFAC_UNITS = 2
 KFAC_STEPS = 3
 KFAC_ORDERS = {1024: 4, 2048: 18, 6144: 6}
@@ -362,6 +389,21 @@ KFAC_DAMPING = 1e-3                 # kfac_ca's and the banking's default
 # reference's own test of it (tests/test_substrate.py)
 KFAC_WHITEN_TOL = 5e-3
 KFAC_WHITEN_PARAMS = (("attn", "wq"), ("mlp", "down"))
+# the LM (phase 16): qwen3-1.7b at full size, random weights from a
+# seeded generator.  Serving: batch 4, a 128-token prompt, 32 new tokens
+# (the decode against forward in fp32 at the reference's own bound,
+# tests/test_models_smoke.py; the timed generation in bf16).  Training:
+# B = 2, S = 1024, 3 steps on one fixed batch, adamw at all 28 layers
+# (remat), kfac_ca at KFAC_UNITS layers
+LM_SEED = 210
+LM_BATCH = 4
+LM_PROMPT = 128
+LM_NEW = 32
+LM_DECODE_TOL = 2e-3
+LM_LONG_CACHE = 32768              # the configs' decode_32k shape
+LM_TRAIN_BATCH = 2
+LM_TRAIN_SEQ = 1024
+LM_TRAIN_STEPS = 3
 # distributed (phase 12): the paper's grids, one gloo rank per process,
 # every rank on cuda:0; k = 64 right-hand sides (p | k for rec); the
 # reference's relres bounds (tests/test_api_solver.py), X against the
@@ -2660,26 +2702,51 @@ def producers_phase(api, grid, seed):
     return launches, rec
 
 
-def qwen_units(device, g) -> dict:
-    """``params["units"]`` of qwen3-1.7b as the reference's
-    ``models/lm.py`` builds it (``layers.init_attn``, ``init_mlp``,
-    the rmsnorms), stacked over KFAC_UNITS units, random from ``g``."""
-    u, d, hd = KFAC_UNITS, QWEN["d_model"], QWEN["head_dim"]
-    hq, hkv, f = QWEN["n_heads"] * hd, QWEN["n_kv"] * hd, QWEN["d_ff"]
+def kfac_params(device, g) -> dict:
+    """``params["units"]`` of qwen3-1.7b at KFAC_UNITS layers as the
+    port's ``models.lm.init`` builds it (stacked over the units), random
+    from ``g``; the embedding it also draws is dropped."""
+    import dataclasses
 
-    def dense(m, n):
-        return torch.randn((u, m, n), generator=g, device=device) * m ** -0.5
+    from repro_torch import configs
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(configs.get(LM_ARCH), n_layers=KFAC_UNITS)
+    return {"units": lm.init(cfg, g, device=device)["units"]}
 
-    def norm(m):
-        return torch.ones((u, m), device=device)
 
-    return {"units": {"b0": {
-        "ln1": norm(d), "ln2": norm(d),
-        "attn": {"wq": dense(d, hq), "wk": dense(d, hkv),
-                 "wv": dense(d, hkv), "wo": dense(hq, d),
-                 "qn": norm(hd), "kn": norm(hd)},
-        "mlp": {"gate": dense(d, f), "up": dense(d, f),
-                "down": dense(f, d)}}}}
+def kfac_whiten_check(before, after, gr, state) -> dict:
+    """A kfac_ca step's update of each KFAC_WHITEN_PARAMS tensor, both
+    units, against (A + lam I)^{-1/2} G in fp64 from eigh, on the
+    smaller side, A the EMA the step left in ``state``, G the step's
+    gradient ``gr``.  The grafting (and any clipping) scales the update
+    by one number for the stacked tensor, so the directions are
+    compared: ||u/||u|| - r/||r|| ||."""
+    out = {}
+    for group, name in KFAC_WHITEN_PARAMS:
+        old = before["units"]["b0"][group][name].double()
+        new = after["units"]["b0"][group][name].double()
+        G = gr["units"]["b0"][group][name].double()
+        Aema, Bema = state["kron"]["units"]["b0"][group][name]
+        transpose = G.shape[-2] > G.shape[-1]
+        M = (Bema if transpose else Aema).double()
+        d = M.shape[-1]
+        tr = torch.diagonal(M, dim1=-2, dim2=-1).sum(-1)
+        M = M + (KFAC_DAMPING * (tr / d + 1e-12))[..., None, None] \
+            * torch.eye(d, device=M.device, dtype=torch.float64)
+        w, V = torch.linalg.eigh(M)
+        root = (V * w.rsqrt()[..., None, :]) @ V.transpose(-2, -1)
+        ref = G @ root if transpose else root @ G
+        upd = old - new
+        err = torch.linalg.norm(upd / torch.linalg.norm(upd)
+                                - ref / torch.linalg.norm(ref)).item()
+        check(err <= KFAC_WHITEN_TOL,
+              f"kfac whiten {group}.{name}: update off the fp64 eigh "
+              f"reference by {err} > {KFAC_WHITEN_TOL}")
+        out[f"{group}.{name}"] = dict(
+            shape=list(G.shape), side="B" if transpose else "A",
+            direction_err=err, tol=KFAC_WHITEN_TOL,
+            cond=(w[..., -1] / w[..., 0]).max().item())
+    return out
 
 
 def kfac_phase(api, grid, seed):
@@ -2692,10 +2759,10 @@ def kfac_phase(api, grid, seed):
     kfac = importlib.import_module("repro_torch.optim.kfac_ca")
     device = grid.device
     g = torch.Generator(device=device).manual_seed(seed)
-    params = qwen_units(device, g)
+    params = kfac_params(device, g)
     opt = kfac.kfac_ca()
     state = opt.init(params)
-    rec, launches = {"units": KFAC_UNITS, "widths": QWEN}, {}
+    rec, launches = {"units": KFAC_UNITS, "arch": LM_ARCH}, {}
     t0 = time.perf_counter()
     marks = rec["marks_s"] = {}
 
@@ -2720,39 +2787,6 @@ def kfac_phase(api, grid, seed):
     # ~86k operators would take the host trace minutes), so its host time
     # is not in step_ms; the first keeps B1's inputs (a clone a launch)
     b1_inputs = B1Inputs()
-    def whiten_check(before, gr):
-        """The step's update of each KFAC_WHITEN_PARAMS tensor, both
-        units, against (A + lam I)^{-1/2} G in fp64 from eigh, on the
-        smaller side, A the EMA the step left in ``state``.  The grafting
-        scales the update by one number for the stacked tensor, so the
-        directions are compared: ||u/||u|| - r/||r|| ||."""
-        out = {}
-        for group, name in KFAC_WHITEN_PARAMS:
-            old = before["units"]["b0"][group][name].double()
-            new = params["units"]["b0"][group][name].double()
-            G = gr["units"]["b0"][group][name].double()
-            Aema, Bema = state["kron"]["units"]["b0"][group][name]
-            transpose = G.shape[-2] > G.shape[-1]
-            M = (Bema if transpose else Aema).double()
-            d = M.shape[-1]
-            tr = torch.diagonal(M, dim1=-2, dim2=-1).sum(-1)
-            M = M + (KFAC_DAMPING * (tr / d + 1e-12))[..., None, None] \
-                * torch.eye(d, device=device, dtype=torch.float64)
-            w, V = torch.linalg.eigh(M)
-            root = (V * w.rsqrt()[..., None, :]) @ V.transpose(-2, -1)
-            ref = G @ root if transpose else root @ G
-            upd = old - new
-            err = torch.linalg.norm(upd / torch.linalg.norm(upd)
-                                    - ref / torch.linalg.norm(ref)).item()
-            check(err <= KFAC_WHITEN_TOL,
-                  f"kfac whiten {group}.{name}: update off the fp64 eigh "
-                  f"reference by {err} > {KFAC_WHITEN_TOL}")
-            out[f"{group}.{name}"] = dict(
-                shape=list(G.shape), side="B" if transpose else "A",
-                direction_err=err, tol=KFAC_WHITEN_TOL,
-                cond=(w[..., -1] / w[..., 0]).max().item())
-        return out
-
     step_ms = []
     for i in range(KFAC_STEPS):
         last = i == KFAC_STEPS - 1
@@ -2862,7 +2896,7 @@ def kfac_phase(api, grid, seed):
     state_banked, params_before = state, params
     gr = grads()
     rec["step_ms"].append(step(gr))
-    rec["whiten"] = whiten_check(params_before, gr)
+    rec["whiten"] = kfac_whiten_check(params_before, params, gr, state)
     del params_before, gr
     rec["factors_refreshed"] = refactor(state, "refreshed")
     before = dict(session.BUILD_COUNTS)
@@ -2965,6 +2999,199 @@ def kfac_phase(api, grid, seed):
     print(json.dumps({"kfac": rec}), flush=True)
     del fleet, handles, params, state
     return launches, rec
+
+
+def lm_serve(cfg, params, device, g) -> dict:
+    """Phase 16 (a): fp32 decode through the cache against the full
+    forward at the last position, then the timed bf16 generation."""
+    from repro_torch.core import precision
+    from repro_torch.models import lm
+    from repro_torch.train import serve_step
+    B, P, T = LM_BATCH, LM_PROMPT, LM_NEW
+    prompt = torch.randint(0, cfg.vocab, (B, P), generator=g, device=device)
+    precision.pin_matmul_numerics()              # IEEE fp32: TF32 off
+    rec = dict(batch=B, prompt=P, new_tokens=T, tf32=bool(
+        torch.backends.cuda.matmul.allow_tf32))
+    cache = lm.init_cache(cfg, B, P + T, torch.float32, device=device)
+    logits, cache = lm.decode_step(params, cfg, prompt, cache,
+                                   dtype=torch.float32)
+    toks = [torch.argmax(logits[:, -1:], dim=-1)]
+    for _ in range(T - 1):
+        logits, cache = lm.decode_step(params, cfg, toks[-1], cache,
+                                       dtype=torch.float32)
+        toks.append(torch.argmax(logits[:, -1:], dim=-1))
+    # the cache holds the prompt and the first T - 1 generated tokens
+    seq = torch.cat([prompt] + toks[:-1], dim=1)
+    full, _ = lm.forward(params, cfg, seq, dtype=torch.float32,
+                         last_only=True)
+    # the padded vocab's -1e30 logits agree exactly; the real ones
+    got, want = (t[:, -1, :cfg.vocab].double() for t in (logits, full))
+    err = (got - want).abs()
+    ratio = (err / (LM_DECODE_TOL + LM_DECODE_TOL * want.abs())).max().item()
+    check(ratio <= 1.0, f"lm decode vs forward (fp32): off by {ratio} x "
+                        f"rtol = atol = {LM_DECODE_TOL}")
+    rec["fp32_decode_vs_forward"] = dict(
+        positions=P + T - 1, max_abs_err=err.max().item(),
+        max_abs_logit=want.abs().max().item(), worst_over_bound=ratio,
+        rtol=LM_DECODE_TOL, atol=LM_DECODE_TOL)
+    del cache, logits, full, got, want, err, toks, seq
+
+    def generate(n):
+        return serve_step.greedy_generate(cfg, params, prompt, n, P + T)
+
+    generate(T)                               # warm: allocator, handles
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ev[0].record()
+        out = generate(T)
+        ev[1].record()
+        first = generate(1)                   # the prefill alone
+        ev[2].record()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(tuple(out.shape) == (B, T) and int(out.max()) < cfg.vocab
+          and int(out.min()) >= 0, f"lm generate: tokens {out.shape}")
+    check(torch.equal(first, out[:, :1]), "lm generate: the prefill's "
+                                          "token differs between runs")
+    gen_ms, prefill_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    rec["bf16"] = dict(
+        generate_ms=gen_ms, tokens_per_s=B * T / (gen_ms / 1e3),
+        prefill_ms=prefill_ms,
+        ms_per_decode_step=(gen_ms - prefill_ms) / (T - 1),
+        sync_debug_mode="error",
+        long_cache=lm_long_cache_decode(cfg, params))
+    return rec
+
+
+def lm_long_cache_decode(cfg, params, steps: int = 4) -> dict:
+    """Decode steps against a bf16 cache of LM_LONG_CACHE positions.  A
+    step reads the whole cache (its position masks the read, it does
+    not shorten it), so the cache's bytes bound the step.  The cache is
+    written in place: the peak allocated over the steps, less what was
+    allocated before them, shows no copy of it."""
+    from repro_torch.models import lm
+    from repro_torch.optim.tree import leaves
+    dev = params["embed"].device
+    cache = lm.init_cache(cfg, LM_BATCH, LM_LONG_CACHE, device=dev)
+    cache_bytes = sum(t.numel() * t.element_size() for t in leaves(cache))
+    tok = torch.zeros((LM_BATCH, 1), dtype=torch.long, device=dev)
+    lm.decode_step(params, cfg, tok, cache)                # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(steps):
+        lm.decode_step(params, cfg, tok, cache)
+    ev[1].record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del cache
+    return dict(batch=LM_BATCH, positions=LM_LONG_CACHE,
+                cache_gib=cache_bytes / 2 ** 30,
+                ms_per_decode_step=ev[0].elapsed_time(ev[1]) / steps,
+                cache_read_bound_ms=cache_bytes / HBM_BYTES_PER_S * 1e3,
+                peak_above_start_gib=peak / 2 ** 30)
+
+
+def lm_train(cfg, opt, params, batch, steps, what) -> tuple:
+    """``steps`` train steps of ``opt`` through ``make_train_step``
+    (remat) on one fixed batch, each counted and timed.  Returns
+    (params, state, record, launches by step)."""
+    from repro_torch.train import train_step
+    step = train_step.make_train_step(cfg, opt, remat=True)
+    state = opt.init(params)
+    losses, secs, launches = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        (params, state, metrics), counts, ms = counted(
+            lambda: step(params, state, batch))
+        losses.append(metrics["loss"].item())
+        secs.append(ms / 1e3)
+        launches.append(counts)
+        check(np.isfinite(losses[-1]), f"lm {what} step {i + 1}: loss "
+                                       f"{losses[-1]}")
+    rec = dict(layers=cfg.n_layers, batch=LM_TRAIN_BATCH,
+               seq=LM_TRAIN_SEQ, remat=True, losses=losses,
+               s_per_step=secs,
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+               / 2 ** 30,
+               b1_launches_per_step=[c["tri_inv_blocks"] for c in launches])
+    return params, state, rec, launches
+
+
+def lm_phase(device, seed) -> dict:
+    """Phase 16: the dense LM end to end at qwen3-1.7b's full size:
+    (a) serving, (b) adamw training at 28 layers, (c) kfac_ca training
+    at KFAC_UNITS layers.  Returns the kernel launches of (c), summed
+    over its steps."""
+    import dataclasses
+    import importlib
+
+    from repro_torch import configs, optim
+    from repro_torch.data import synthetic
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import Optimizer
+    from repro_torch.optim.tree import leaves
+    kfac = importlib.import_module("repro_torch.optim.kfac_ca")
+    t0 = time.perf_counter()
+    cfg = configs.get(LM_ARCH)
+    g = torch.Generator(device=device).manual_seed(seed)
+    # the model is held here only until training takes it, so the first
+    # step's update can free the weights it replaces
+    model = {"params": lm.init(cfg, g, device=device)}
+    rec = dict(arch=LM_ARCH, layers=cfg.n_layers,
+               params=sum(t.numel() for t in leaves(model["params"])),
+               init_s=time.perf_counter() - t0)
+    rec["serve"] = lm_serve(cfg, model["params"], device, g)
+    rec["serve_s"] = time.perf_counter() - t0
+    batch = synthetic.host_batch(cfg, LM_TRAIN_SEQ, LM_TRAIN_BATCH, step=0)
+
+    _, _, rec["adamw"], _ = lm_train(cfg, optim.get("adamw"),
+                                     model.pop("params"), batch,
+                                     LM_TRAIN_STEPS, "adamw")
+    losses = rec["adamw"]["losses"]
+    check(losses[-1] < losses[0], f"lm adamw: the loss did not fall "
+                                  f"({losses})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["adamw_s"] = time.perf_counter() - t0
+
+    kcfg = dataclasses.replace(cfg, n_layers=KFAC_UNITS)
+    inner = optim.get("kfac_ca")
+    seen = {}
+
+    def update(grads, state, params):
+        seen.update(grads=grads, before=params)
+        return inner.update(grads, state, params)
+
+    b1_inputs = B1Inputs()
+    with b1_inputs("lm kfac steps"):
+        params, state, rec["kfac_ca"], launches = lm_train(
+            kcfg, Optimizer(inner.init, update), lm.init(kcfg, g,
+                                                         device=device),
+            batch, LM_TRAIN_STEPS, "kfac_ca")
+    for i, counts in enumerate(launches):
+        need(counts, ["tri_inv_blocks"], f"lm kfac_ca step {i + 1}")
+    counts = kfac._kron_order_counts(state)
+    check(counts == KFAC_ORDERS, f"lm kfac_ca: orders {counts}, want "
+                                 f"{KFAC_ORDERS}")
+    rec["kfac_ca"]["orders"] = {str(d): c for d, c in counts.items()}
+    rec["kfac_ca"]["whiten"] = kfac_whiten_check(
+        seen["before"], params, seen["grads"], state)
+    rec["kfac_ca"]["b1_vs_plain"] = b1_inputs.check()
+    del params, state, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["phase16_s"] = time.perf_counter() - t0
+    print(json.dumps({"lm": rec}), flush=True)
+    total = collections.Counter()
+    for c in launches:
+        total.update(c)
+    return dict(total)
 
 
 def dist_cases(p1: int, p2: int, n: int) -> list:
@@ -4716,6 +4943,10 @@ def main() -> int:
     lap(11)
     dist_launches = distributed_phase(card)               # phases 12-15
     lap(12)
+    lm_launches = lm_phase(device, seed=LM_SEED)              # phase 16
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap(16)
 
     kernels = []
     for name, method, source, replaces in (
@@ -4741,6 +4972,9 @@ def main() -> int:
                             f"path")
         check(dist_launches.get(name, 0) > 0,
               f"{name} never launched at p > 1 (phases 12-15)")
+        if name == "tri_inv_blocks":
+            check(lm_launches.get(name, 0) > 0,
+                  f"{name} never launched in the LM's kfac_ca steps")
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches,
                             max_abs_err=rec["max_abs_err"],
@@ -4748,14 +4982,16 @@ def main() -> int:
                             bound_ms=rec["bound_ms"],
                             bound_by=rec["bound_by"],
                             library_ms=rec["library_ms"],
-                            launches_distributed=dist_launches.get(name, 0)))
+                            launches_distributed=dist_launches.get(name, 0),
+                            launches_lm=lm_launches.get(name, 0)))
     print(json.dumps(dict(gemm_launches_distributed=dist_launches.get(
         "gemm", 0), note="the ordered ops.gemm (no TPU kernel's port), "
                          "phases 12-15, summed over ranks")))
     print(json.dumps(dict(phase_s={
         ("12-15" if k == 12 else str(k)): v for k, v in phase_s.items()},
         note="seconds from the script's start, by phase (1: the card and "
-             "the build; 12-15: the spawned ranks, split above)")))
+             "the build; 12-15: the spawned ranks, split above; 16: the "
+             "LM)")))
     print(json.dumps(dict(elapsed_s=time.perf_counter() - t_start)))
     print(card)
     print(json.dumps({"kernels": kernels}))

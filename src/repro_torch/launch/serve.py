@@ -56,8 +56,18 @@ steady state), and with ``--fleet-stats`` the fleet's stats table.
 offered, goodput, waves, p50/p99 against the SLO, violations, sheds at
 depth and at admission), the autoscaler's replans, and with
 ``--stats-json`` one JSON line of server, admission and autoscaler
-stats.  The ``lm`` workload of ``repro.launch.serve`` is not ported
-yet.
+stats.
+
+    # the LM: prefill + greedy decode of random prompts on one device
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \
+        --arch qwen3-1.7b [--smoke] --batch 4 --prompt-len 32 \
+        --new-tokens 16 [--device cpu]
+
+``lm`` takes the dense archs (``models.lm.NOT_PORTED`` names the ROADMAP
+item of each other kind), random weights from seed 0 and prompts from a
+seeded NumPy generator (embeddings for ``embed_inputs`` archs), and
+prints each sequence's first 12 tokens and the tokens per second;
+``--mesh single|multi`` waits for the multi-GPU port (ROADMAP A15h).
 
 Every trsm workload runs on a p1 x p1 x p2 grid (``--p1``/``--p2``,
 default 1 x 1 x 1).  With p = p1^2 p2 > 1 the CLI joins the world a
@@ -81,9 +91,6 @@ import time
 
 import numpy as np
 import torch
-
-# workload -> the ROADMAP item that ports it
-_NOT_PORTED = {"lm": "A15"}
 
 
 def _print_cache_stats():
@@ -492,6 +499,54 @@ def serve_trsm_traffic(args, grid):
         _print_cache_stats()
 
 
+def serve_lm(ap, args):
+    """Prefill + greedy decode of ``--batch`` random prompts."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.train import serve_step as ss
+    if not args.arch:
+        ap.error("--arch is required for the lm workload")
+    if args.mesh != "debug":
+        ap.error(f"--mesh {args.mesh} is not ported yet: production meshes "
+                 f"and sharding wait for ROADMAP A15h (launch/mesh.py, "
+                 f"models/sharding.py)")
+    if args.p1 * args.p1 * args.p2 != 1:
+        ap.error("the lm workload runs on one device (--p1 1 --p2 1)")
+    cfg = configs.get_smoke(args.arch) if args.smoke \
+        else configs.get(args.arch)
+    try:
+        lm.check_supported(cfg)
+    except NotImplementedError as e:
+        ap.error(str(e))
+    device = torch.device(args.device or "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        ap.error("no CUDA device: pass --device cpu")
+
+    B = args.batch
+    max_seq = args.prompt_len + args.new_tokens
+    params = lm.init(cfg, 0, device=device)
+
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                           (B, args.prompt_len)),
+                              device=device)
+    embeds = None
+    if cfg.embed_inputs:
+        # stub frontend: one embedding a position, prompt and decode
+        embeds = torch.as_tensor(rng.standard_normal(
+            (B, max_seq, cfg.d_model), np.float32), device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.time()
+    gen = ss.greedy_generate(cfg, params, prompts, args.new_tokens, max_seq,
+                             embeds=embeds).cpu().numpy()
+    dt = time.time() - t0
+    for b in range(B):
+        print(f"seq {b}: {gen[b, :12].tolist()}")
+    print(f"{B * args.new_tokens} tokens in {dt:.2f}s "
+          f"({B * args.new_tokens / dt:.1f} tok/s) on {device}")
+
+
 WORKLOADS = {"trsm": serve_trsm, "trsm-bank": serve_trsm_bank,
              "trsm-churn": serve_trsm_churn, "trsm-fleet": serve_trsm_fleet,
              "trsm-traffic": serve_trsm_traffic}
@@ -509,9 +564,20 @@ def _serve_rank(grid, args):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", default="trsm",
-                    choices=["trsm", "trsm-bank", "trsm-churn",
-                             "trsm-fleet", "trsm-traffic",
-                             *_NOT_PORTED])
+                    choices=["lm", "trsm", "trsm-bank", "trsm-churn",
+                             "trsm-fleet", "trsm-traffic"])
+    ap.add_argument("--arch", help="the lm workload's model "
+                                   "(repro_torch.configs.ARCH_IDS)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the arch's reduced config (lm)")
+    ap.add_argument("--mesh", default="debug",
+                    choices=["single", "multi", "debug"],
+                    help="lm: 'debug' is one device; the production "
+                         "meshes are not ported yet")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="prompts decoded together (lm)")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--n", type=int, default=256)
     ap.add_argument("--n0", type=int, default=None)
     ap.add_argument("--panel-k", type=int, default=16)
@@ -581,9 +647,8 @@ def main(argv=None):
                     help="every rank's device (default cuda:0; cuda:<local "
                          "rank> under a launcher with a card per rank)")
     args = ap.parse_args(argv)
-    if args.workload in _NOT_PORTED:
-        ap.error(f"workload {args.workload!r} is not ported yet (ROADMAP "
-                 f"{_NOT_PORTED[args.workload]})")
+    if args.workload == "lm":
+        return serve_lm(ap, args)
     if args.workload != "trsm" and args.method == "auto":
         ap.error("a bank takes --method inv or rec (auto depends on k)")
     if args.p1 < 1 or args.p2 < 1:

@@ -33,19 +33,26 @@ def tree_map(fn: Callable, tree, *rest, is_leaf: Callable | None = None):
                                is_leaf=is_leaf) for i, t in enumerate(tree))
 
 
-def leaves_with_path(tree, is_leaf: Callable | None = None,
-                     path: str = "") -> Iterator[tuple]:
-    """``(path, leaf)`` for every leaf, in flattening order; an empty
+def leaves_with_keys(tree, is_leaf: Callable | None = None,
+                     keys: tuple = ()) -> Iterator[tuple]:
+    """``(keys, leaf)`` for every leaf, in flattening order: ``keys``
+    the dict keys and list or tuple indices on the way down; an empty
     container has none."""
     if not _is_node(tree, is_leaf):
-        yield path, tree
+        yield keys, tree
         return
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from leaves_with_path(tree[k], is_leaf, f"{path}[{k!r}]")
-    else:
-        for i, t in enumerate(tree):
-            yield from leaves_with_path(t, is_leaf, f"{path}[{i}]")
+    items = ((k, tree[k]) for k in sorted(tree)) \
+        if isinstance(tree, dict) else enumerate(tree)
+    for k, t in items:
+        yield from leaves_with_keys(t, is_leaf, keys + (k,))
+
+
+def leaves_with_path(tree, is_leaf: Callable | None = None) \
+        -> Iterator[tuple]:
+    """``(path, leaf)`` for every leaf, in flattening order, the path
+    spelled as ``jax.tree_util.keystr`` spells it."""
+    for keys, leaf in leaves_with_keys(tree, is_leaf):
+        yield "".join(f"[{k!r}]" for k in keys), leaf
 
 
 def leaves(tree, is_leaf: Callable | None = None) -> list:

@@ -33,13 +33,15 @@ BLOCKS = _port_blocks()
 
 
 def test_port_section_keeps_its_snippets():
-    """Seven snippets (fleet, structure, churn, async, producers and
+    """Eight snippets (fleet, structure, churn, async, producers and
     K-FAC, structure and a producer over p > 1 ranks, the serving tier
-    over p > 1 ranks), each on the port's front door and none importing
-    JAX or the reference."""
-    assert len(BLOCKS) == 7
-    for block in BLOCKS:
+    over p > 1 ranks, each on the port's front door; the LM, on its
+    model), none importing JAX or the reference."""
+    assert len(BLOCKS) == 8
+    for block in BLOCKS[:7]:
         assert "from repro_torch import api" in block
+    assert "from repro_torch.models import lm" in BLOCKS[7]
+    for block in BLOCKS:
         assert 'device="cpu"' in block
         assert not re.search(r"^\s*(import jax|from jax|import repro\b"
                              r"|from repro[ .])", block, re.M)

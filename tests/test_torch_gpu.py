@@ -1540,3 +1540,67 @@ def test_distributed_selfcheck_runs_on_the_card(cuda):
     failed = [line for line in proc.stdout.splitlines() if "FAIL" in line]
     assert proc.returncode == 0 and "selfcheck: 0 failures" in proc.stdout, \
         "\n".join(failed) + f"\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}"
+
+
+@pytest.mark.gpu
+def test_lm_decode_matches_forward_at_full_width(cuda):
+    """qwen3-1.7b's full widths (d_model 2048, 16 heads over 8 KV heads,
+    head_dim 128, d_ff 6144, vocab 151936) at 2 layers, bf16: 12 tokens
+    decoded one by one through the cache, the last position's logits
+    against ``lm.forward`` on the same tokens within 2e-2 of the largest
+    logit (bf16), and the argmax the same at every sequence."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(configs.get("qwen3-1.7b"), n_layers=2)
+    params = lm.init(cfg, 0, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 12), generator=g, device=cuda)
+    full, _ = lm.forward(params, cfg, tokens, last_only=True)
+    cache = lm.init_cache(cfg, 2, 12, device=cuda)
+    for t in range(12):
+        last, cache = lm.decode_step(params, cfg, tokens[:, t:t + 1], cache)
+    got, want = last[:, 0].float(), full[:, 0].float()
+    scale = want[:, :cfg.vocab].abs().max()
+    assert ((got - want).abs()[:, :cfg.vocab] <= 2e-2 * scale).all()
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.gpu
+def test_lm_kfac_train_step_launches_tri_inv_blocks(cuda):
+    """One ``kfac_ca`` step of the qwen3 smoke model through
+    ``make_train_step`` on the card (fp32, TF32 off) launches B1, and
+    each parameter's move is within 1e-3 of its largest entry of the
+    same step's on the CPU, which launches nothing (a preconditioned
+    update's tolerance, tests/test_torch_optim.py: damped factors of
+    condition ~1e4 through 14 Denman-Beavers iterations)."""
+    from repro_torch import configs, optim
+    from repro_torch.data import synthetic
+    from repro_torch.models import lm
+    from repro_torch.optim.tree import leaves_with_path, tree_map
+    from repro_torch.train import train_step
+    cfg = configs.get_smoke("qwen3-1.7b")
+    batch = synthetic.host_batch(cfg, 16, 4, step=0)
+    params = lm.init(cfg, 0, device="cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        opt = optim.get("kfac_ca", lr=1e-2)
+        p = tree_map(lambda t: t.to(dev), params)
+        step = train_step.make_train_step(cfg, opt, dtype=torch.float32)
+        before = tri_inv_block.tri_inv_blocks.launches
+        p2, s2, m = step(p, opt.init(p), batch)
+        torch.cuda.synchronize()
+        out[str(dev)] = (p2, m, tri_inv_block.tri_inv_blocks.launches
+                         - before)
+    (pc, mc, nc), (pg, mg, ng) = out["cpu"], out[str(cuda)]
+    assert nc == 0 and ng > 0
+    assert abs(mg["loss"].item() - mc["loss"].item()) <= 1e-4 * abs(
+        mc["loss"].item())
+    for (path, a), (_, b), (_, p0) in zip(leaves_with_path(pg),
+                                          leaves_with_path(pc),
+                                          leaves_with_path(params)):
+        got, want = a.cpu() - p0, b - p0
+        slack = 2 * torch.finfo(torch.float32).eps * p0.abs().max()
+        assert (got - want).abs().max() <= 1e-3 * want.abs().max() + slack, \
+            path

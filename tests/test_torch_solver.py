@@ -206,8 +206,9 @@ def test_serve_cli_runs_on_the_cpu(capsys):
                 "--cache-stats"])
     out = capsys.readouterr().out
     assert "served 6 solve requests" in out and "hit_rate" in out
-    with pytest.raises(SystemExit):          # not ported yet (A15)
+    with pytest.raises(SystemExit):          # the lm workload needs --arch
         serve.main(["--workload", "lm", "--device", "cpu"])
+    assert "--arch is required" in capsys.readouterr().err
 
 
 def test_port_imports_neither_jax_nor_repro():
