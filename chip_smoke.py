@@ -276,7 +276,8 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    step (the rest over T - 1 steps); and bf16 decode steps against a
    32768-position cache (14 GiB at batch 4), beside the cache read's
    bound, with the memory they allocate above what was held.  (b)
-   ``adamw`` (its defaults) at 28 layers, B = 2, S = 1024, remat, three
+   ``adamw`` (its defaults) at 14 layers (the served model's first 14;
+   28 until phase 17 came), B = 2, S = 1024, remat, three
    steps on one fixed batch: the loss finite and falling; s per step
    and the peak of ``torch.cuda.max_memory_allocated``.  (c)
    ``kfac_ca`` (the reference's defaults) at 2 layers, same B and S,
@@ -287,15 +288,43 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    the loss finite, B1 held against its plain version on the stacks the
    first step handed it; s per step and B1 launches per step.  One
    JSON line ``{"lm": ...}``; the models are freed after it.
-17. The card line, the kernels' JSON summary, then the last line
+17. The other block families (``families_phase``) at their published
+   widths, random fp32 weights from a seeded generator, each freed
+   before the next.  (a) MoE: grok-1-314b at 1 of its 64 layers (d_model
+   6144, 8 experts top-2, expert width 32768, vocab 131072 untied; 6.53e9
+   parameters, 26.1 GB).  (b) recurrentgemma-2b at its 26 layers
+   (RG-LRU, local attention) and xlstm-1.3b at its 48 (7 mLSTM : 1
+   sLSTM).  Each: with TF32 off, the last fp32 decode step's logits
+   (a 16-token prefill and 4 steps through the caches; MoE at the
+   no-drop capacity, n_experts) against ``lm.forward``, rtol = atol =
+   2e-3; a short ``greedy_generate``; then, timed with CUDA events, a
+   bf16 prefill and 15 decode steps through ``make_decode_fn`` at batch
+   4 (prompts of 2048 tokens for grok-1, whose 8192 tokens route in two
+   MOE_GROUPs at capacity 1.25, and xlstm-1.3b, whose mLSTM runs two
+   chunks and sLSTM 2048 steps; 128 for recurrentgemma-2b): prefill ms,
+   ms per decode step, tokens/s, one more step's host syncs under
+   sync-debug "warn", peak memory.  (c) ``kfac_ca`` (the reference's
+   defaults but the training CLI's lr, 3e-4: at 1e-3 the RG-LRU's
+   largest ``lam`` passes 1 in two steps and its gate turns NaN, in the
+   reference too), B = 2, S = 1024, remat, 3 steps on one fixed batch:
+   recurrentgemma-2b at 3 layers (rec, rec, attn), xlstm-1.3b at 8 (7
+   mLSTM, 1 sLSTM), whisper-tiny whole (its encoder fed the synthetic
+   batch's frames): the loss falling, B1 launched in every step, s per
+   step, peak memory, B1 held against its plain version on the last
+   stacks each training handed it.  (d) whisper-tiny serving: 1500
+   frames encoded, 8 decode steps through its self-attention cache
+   against the full decode in fp32 (2e-3), one bf16 step through
+   ``make_decode_fn``.  One JSON line ``{"families": ...}``.
+18. The card line, the kernels' JSON summary, then the last line
    ``{"ok": true, "device": {...}}``.  Each kernel's launches are those
    of its main path's run: B1 and B2 the inv configuration at the
    default n0, B3 the rec one, B4 the first structured one, B6 the rec
    churn phase, B5 the fleet phase; ``launches_distributed`` adds its
    launches in phases 12-15, summed over ranks, grids and cases, and
    is above 0 for every kernel; ``launches_lm`` its launches in phase
-   16's kfac_ca steps (above 0 for B1).  The kernel lines of phases 12-15 also
-   carry the ordered ``ops.gemm``'s launches per rank.
+   16's kfac_ca steps and ``launches_families`` in phase 17's (above 0
+   for B1).  The kernel lines of phases 12-15 also carry the ordered
+   ``ops.gemm``'s launches per rank.
 """
 
 import collections
@@ -393,8 +422,8 @@ KFAC_WHITEN_PARAMS = (("attn", "wq"), ("mlp", "down"))
 # seeded generator.  Serving: batch 4, a 128-token prompt, 32 new tokens
 # (the decode against forward in fp32 at the reference's own bound,
 # tests/test_models_smoke.py; the timed generation in bf16).  Training:
-# B = 2, S = 1024, 3 steps on one fixed batch, adamw at all 28 layers
-# (remat), kfac_ca at KFAC_UNITS layers
+# B = 2, S = 1024, 3 steps on one fixed batch, adamw at LM_ADAMW_LAYERS
+# layers (remat), kfac_ca at KFAC_UNITS layers
 LM_SEED = 210
 LM_BATCH = 4
 LM_PROMPT = 128
@@ -404,6 +433,31 @@ LM_LONG_CACHE = 32768              # the configs' decode_32k shape
 LM_TRAIN_BATCH = 2
 LM_TRAIN_SEQ = 1024
 LM_TRAIN_STEPS = 3
+# adamw's depth in phase 16: 28 layers until phase 17 came, cut to half
+# to keep the script's time
+LM_ADAMW_LAYERS = 14
+# the other four block families (phase 17): the published widths, depth
+# cut where one card forces it.  Serving: decode against forward in fp32
+# (a 16-token prompt, 4 steps; MoE at the no-drop capacity, n_experts),
+# then a timed bf16 generation, batch 4, 16 new tokens.  Training:
+# kfac_ca (the reference's defaults but the training CLI's lr, 3e-4),
+# B = 2, S = 1024, 3 steps on one fixed batch, at the depth of one block
+# pattern's period.  At kfac_ca's default lr, 1e-3, two steps carry the
+# RG-LRU's largest lam (uniform on [0.9, 0.999)) past 1, where its gate
+# is NaN, in the reference as in the port (ROADMAP C)
+FAMILY_SEED = 220
+FAMILY_LR = 3e-4
+FAMILY_CHECK_PROMPT = 16
+FAMILY_CHECK_STEPS = 4
+FAMILY_NEW = 16
+# arch -> (layers served, prompt length of the timed generation); grok-1
+# at one layer is 6.53e9 fp32 parameters (26.1 GB), and 2 x 2048 x 4
+# tokens route in two MOE_GROUPs of 4096
+FAMILY_SERVE = {"grok-1-314b": (1, 2048), "recurrentgemma-2b": (26, 128),
+                "xlstm-1.3b": (48, 2048)}
+# arch -> layers trained (0: the whole model)
+FAMILY_TRAIN = {"recurrentgemma-2b": 3, "xlstm-1.3b": 8, "whisper-tiny": 0}
+WHISPER_CHECK_STEPS = 8
 # distributed (phase 12): the paper's grids, one gloo rank per process,
 # every rank on cuda:0; k = 64 right-hand sides (p | k for rec); the
 # reference's relres bounds (tests/test_api_solver.py), X against the
@@ -3125,9 +3179,9 @@ def lm_train(cfg, opt, params, batch, steps, what) -> tuple:
 
 def lm_phase(device, seed) -> dict:
     """Phase 16: the dense LM end to end at qwen3-1.7b's full size:
-    (a) serving, (b) adamw training at 28 layers, (c) kfac_ca training
-    at KFAC_UNITS layers.  Returns the kernel launches of (c), summed
-    over its steps."""
+    (a) serving, (b) adamw training at LM_ADAMW_LAYERS layers, (c)
+    kfac_ca training at KFAC_UNITS layers.  Returns the kernel launches
+    of (c), summed over its steps."""
     import dataclasses
     import importlib
 
@@ -3135,7 +3189,7 @@ def lm_phase(device, seed) -> dict:
     from repro_torch.data import synthetic
     from repro_torch.models import lm
     from repro_torch.optim.adamw import Optimizer
-    from repro_torch.optim.tree import leaves
+    from repro_torch.optim.tree import leaves, tree_map
     kfac = importlib.import_module("repro_torch.optim.kfac_ca")
     t0 = time.perf_counter()
     cfg = configs.get(LM_ARCH)
@@ -3150,9 +3204,14 @@ def lm_phase(device, seed) -> dict:
     rec["serve_s"] = time.perf_counter() - t0
     batch = synthetic.host_batch(cfg, LM_TRAIN_SEQ, LM_TRAIN_BATCH, step=0)
 
-    _, _, rec["adamw"], _ = lm_train(cfg, optim.get("adamw"),
-                                     model.pop("params"), batch,
-                                     LM_TRAIN_STEPS, "adamw")
+    # adamw on the first LM_ADAMW_LAYERS units of the served model
+    acfg = dataclasses.replace(cfg, n_layers=LM_ADAMW_LAYERS)
+    params = model.pop("params")
+    params["units"] = tree_map(lambda a: a[:LM_ADAMW_LAYERS].clone(),
+                               params["units"])
+    _, _, rec["adamw"], _ = lm_train(acfg, optim.get("adamw"), params,
+                                     batch, LM_TRAIN_STEPS, "adamw")
+    del params
     losses = rec["adamw"]["losses"]
     check(losses[-1] < losses[0], f"lm adamw: the loss did not fall "
                                   f"({losses})")
@@ -3191,6 +3250,190 @@ def lm_phase(device, seed) -> dict:
     total = collections.Counter()
     for c in launches:
         total.update(c)
+    return dict(total)
+
+
+def family_serve(cfg, params, device, g, prompt_len: int) -> dict:
+    """Phase 17 (a, b): the fp32 decode through the caches against the
+    full forward at the last position, then a bf16 generation through
+    ``make_decode_fn`` timed with CUDA events (the prefill, then the
+    steps), after a short ``greedy_generate`` that warms it.  A decode
+    step's host syncs are counted under sync-debug "warn"."""
+    import dataclasses
+    import warnings
+
+    from repro_torch.core import precision
+    from repro_torch.models import lm
+    from repro_torch.train import serve_step
+    precision.pin_matmul_numerics()              # IEEE fp32: TF32 off
+    B, P, T = LM_BATCH, FAMILY_CHECK_PROMPT, FAMILY_CHECK_STEPS
+    ccfg = dataclasses.replace(cfg, moe_capacity=float(cfg.n_experts)) \
+        if cfg.n_experts else cfg
+    seq = torch.randint(0, cfg.vocab, (B, P + T), generator=g,
+                        device=device)
+    cache = lm.init_cache(ccfg, B, P + T, torch.float32, device=device)
+    logits, cache = lm.decode_step(params, ccfg, seq[:, :P], cache,
+                                   dtype=torch.float32)
+    for t in range(P, P + T):
+        logits, cache = lm.decode_step(params, ccfg, seq[:, t:t + 1], cache,
+                                       dtype=torch.float32)
+    full, _ = lm.forward(params, ccfg, seq, dtype=torch.float32,
+                         last_only=True)
+    got, want = (t[:, -1, :cfg.vocab].double() for t in (logits, full))
+    err = (got - want).abs()
+    ratio = (err / (LM_DECODE_TOL + LM_DECODE_TOL * want.abs())).max().item()
+    check(ratio <= 1.0, f"{cfg.name} decode vs forward (fp32): off by "
+                        f"{ratio} x rtol = atol = {LM_DECODE_TOL}")
+    rec = dict(fp32_decode_vs_forward=dict(
+        positions=P + T,
+        moe_capacity=ccfg.moe_capacity if cfg.n_experts else None,
+        max_abs_err=err.max().item(),
+        max_abs_logit=want.abs().max().item(), worst_over_bound=ratio))
+    del cache, logits, full, got, want, err, seq
+
+    prompt = torch.randint(0, cfg.vocab, (B, prompt_len), generator=g,
+                           device=device)
+    warm = serve_step.greedy_generate(cfg, params, prompt[:, :8], 2, 9)
+    check(tuple(warm.shape) == (B, 2), f"{cfg.name} greedy_generate")
+    decode = serve_step.make_decode_fn(cfg)
+    cache = lm.init_cache(cfg, B, prompt_len + FAMILY_NEW, device=device)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    logits, cache = decode(params, cache, prompt)
+    toks = [torch.argmax(logits[:, -1:], dim=-1)]
+    ev[1].record()
+    for _ in range(FAMILY_NEW - 1):
+        logits, cache = decode(params, cache, toks[-1])
+        toks.append(torch.argmax(logits[:, -1:], dim=-1))
+    ev[2].record()
+    torch.cuda.synchronize()
+    out = torch.cat(toks, dim=1)
+    check(int(out.min()) >= 0 and int(out.max()) < cfg.vocab,
+          f"{cfg.name} generate: tokens out of the vocab")
+    syncs = 0
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            decode(params, cache, toks[-1])
+            torch.cuda.synchronize()
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    prefill_ms, steps_ms = ev[0].elapsed_time(ev[1]), \
+        ev[1].elapsed_time(ev[2])
+    rec["bf16"] = dict(
+        batch=B, prompt=prompt_len, new_tokens=FAMILY_NEW,
+        prefill_ms=prefill_ms,
+        ms_per_decode_step=steps_ms / (FAMILY_NEW - 1),
+        tokens_per_s=B * FAMILY_NEW / ((prefill_ms + steps_ms) / 1e3),
+        host_syncs_per_decode_step=syncs)
+    del cache
+    return rec
+
+
+def families_phase(device, seed) -> dict:
+    """Phase 17: the MoE, RG-LRU, xLSTM and encoder-decoder families at
+    their published widths: (a) grok-1 at one layer and (b)
+    recurrentgemma-2b and xlstm-1.3b at full depth serve (decode against
+    forward in fp32, a timed bf16 generation); (c) recurrentgemma-2b,
+    xlstm-1.3b (one period of their block patterns) and whisper-tiny
+    (whole) train with kfac_ca, B1 launched in every step; (d)
+    whisper-tiny serves: 1500 frames encoded, its decode step against
+    the full decode in fp32.  Returns the kernel launches of (c), summed
+    over its steps."""
+    import dataclasses
+
+    from repro_torch import configs, optim
+    from repro_torch.data import synthetic
+    from repro_torch.models import lm, whisper
+    from repro_torch.optim.tree import leaves
+    from repro_torch.train import serve_step
+    t0 = time.perf_counter()
+    g = torch.Generator(device=device).manual_seed(seed)
+    rec = {"serve": {}, "train": {}}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for arch, (layers, prompt_len) in FAMILY_SERVE.items():  # (a), (b)
+        cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
+        params = lm.init(cfg, g, device=device)
+        torch.cuda.reset_peak_memory_stats()
+        r = dict(layers=layers,
+                 params=sum(t.numel() for t in leaves(params)))
+        r.update(family_serve(cfg, params, device, g, prompt_len))
+        r["max_memory_allocated_gib"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+        r["s"] = time.perf_counter() - t0
+        rec["serve"][arch] = r
+        print(json.dumps({"family_serve": {arch: r}}), flush=True)
+        del params
+        free()
+
+    total = collections.Counter()
+    b1_inputs = B1Inputs()
+    for arch, layers in FAMILY_TRAIN.items():                  # (c)
+        cfg = configs.get(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        model = whisper if cfg.enc_dec else lm
+        batch = synthetic.host_batch(cfg, LM_TRAIN_SEQ, LM_TRAIN_BATCH,
+                                     step=0)
+        with b1_inputs(f"{arch} train"):
+            _, _, r, launches = lm_train(
+                cfg, optim.get("kfac_ca", lr=FAMILY_LR),
+                model.init(cfg, g, device=device), batch, LM_TRAIN_STEPS,
+                f"{arch} kfac_ca")
+        for i, counts in enumerate(launches):
+            need(counts, ["tri_inv_blocks"], f"{arch} kfac_ca step {i + 1}")
+            total.update(counts)
+        losses = r["losses"]
+        check(losses[-1] < losses[0], f"{arch} kfac_ca: the loss did not "
+                                      f"fall ({losses})")
+        r["s"] = time.perf_counter() - t0
+        r["lr"] = FAMILY_LR
+        rec["train"][arch] = r
+        print(json.dumps({"family_train": {arch: r}}), flush=True)
+        free()
+    rec["b1_vs_plain"] = b1_inputs.check()
+
+    cfg = configs.get("whisper-tiny")                          # (d)
+    params = whisper.init(cfg, g, device=device)
+    B, T = LM_TRAIN_BATCH, WHISPER_CHECK_STEPS
+    frames = torch.randn((B, cfg.enc_frames, cfg.d_model), generator=g,
+                         device=device)
+    tokens = torch.randint(0, cfg.vocab, (B, T), generator=g, device=device)
+    enc = whisper.encode(params, cfg, frames, torch.float32)
+    check(tuple(enc.shape) == (B, cfg.enc_frames, cfg.d_model)
+          and bool(torch.isfinite(enc).all()), "whisper encode")
+    full, _ = whisper.decode(params, cfg, tokens, enc, dtype=torch.float32)
+    cache = whisper.init_cache(cfg, B, T, torch.float32, device=device)
+    for t in range(T):
+        last, cache = whisper.decode(params, cfg, tokens[:, t:t + 1], enc,
+                                     cache=cache, dtype=torch.float32)
+    got, want = (x[:, -1, :cfg.vocab].double() for x in (last, full))
+    err = (got - want).abs()
+    ratio = (err / (LM_DECODE_TOL + LM_DECODE_TOL * want.abs())).max().item()
+    check(ratio <= 1.0, f"whisper decode vs full decode (fp32): off by "
+                        f"{ratio} x rtol = atol = {LM_DECODE_TOL}")
+    decode = serve_step.make_decode_fn(cfg)          # bf16, the default
+    cache = whisper.init_cache(cfg, B, T, device=device)
+    enc16 = whisper.encode(params, cfg, frames)
+    logits, cache = decode(params, cache, tokens[:, :1], enc16)
+    check(logits.dtype == torch.bfloat16 and bool(
+        torch.isfinite(logits[..., :cfg.vocab]).all()),
+        "whisper make_decode_fn step (bf16)")
+    rec["whisper_serve"] = dict(
+        frames=cfg.enc_frames, positions=T, max_abs_err=err.max().item(),
+        max_abs_logit=want.abs().max().item(), worst_over_bound=ratio)
+    del params, frames, enc, enc16, full, cache, last, logits
+    free()
+    rec["phase17_s"] = time.perf_counter() - t0
+    print(json.dumps({"families": {k: rec[k] for k in (
+        "b1_vs_plain", "whisper_serve", "phase17_s")}}), flush=True)
     return dict(total)
 
 
@@ -4947,6 +5190,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lap(16)
+    family_launches = families_phase(device, seed=FAMILY_SEED)  # phase 17
+    lap(17)
 
     kernels = []
     for name, method, source, replaces in (
@@ -4975,6 +5220,8 @@ def main() -> int:
         if name == "tri_inv_blocks":
             check(lm_launches.get(name, 0) > 0,
                   f"{name} never launched in the LM's kfac_ca steps")
+            check(family_launches.get(name, 0) > 0,
+                  f"{name} never launched in phase 17's kfac_ca steps")
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches,
                             max_abs_err=rec["max_abs_err"],
@@ -4983,7 +5230,9 @@ def main() -> int:
                             bound_by=rec["bound_by"],
                             library_ms=rec["library_ms"],
                             launches_distributed=dist_launches.get(name, 0),
-                            launches_lm=lm_launches.get(name, 0)))
+                            launches_lm=lm_launches.get(name, 0),
+                            launches_families=family_launches.get(name,
+                                                                  0)))
     print(json.dumps(dict(gemm_launches_distributed=dist_launches.get(
         "gemm", 0), note="the ordered ops.gemm (no TPU kernel's port), "
                          "phases 12-15, summed over ranks")))
@@ -4991,7 +5240,7 @@ def main() -> int:
         ("12-15" if k == 12 else str(k)): v for k, v in phase_s.items()},
         note="seconds from the script's start, by phase (1: the card and "
              "the build; 12-15: the spawned ranks, split above; 16: the "
-             "LM)")))
+             "dense LM; 17: the other families)")))
     print(json.dumps(dict(elapsed_s=time.perf_counter() - t_start)))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -63,11 +63,15 @@ stats.
         --arch qwen3-1.7b [--smoke] --batch 4 --prompt-len 32 \
         --new-tokens 16 [--device cpu]
 
-``lm`` takes the dense archs (``models.lm.NOT_PORTED`` names the ROADMAP
-item of each other kind), random weights from seed 0 and prompts from a
-seeded NumPy generator (embeddings for ``embed_inputs`` archs), and
-prints each sequence's first 12 tokens and the tokens per second;
-``--mesh single|multi`` waits for the multi-GPU port (ROADMAP A15h).
+``lm`` takes every decoder-only arch (dense, MoE, RG-LRU, xLSTM),
+random weights from seed 0 and prompts from a seeded NumPy generator
+(embeddings for ``embed_inputs`` archs), and prints each sequence's
+first 12 tokens and the tokens per second; ``--mesh single|multi``
+waits for the multi-GPU port (ROADMAP A15h).  It refuses whisper-tiny,
+as the reference's CLI cannot serve it either (its enc-dec decode
+takes the encoder states, which the workload has no input for; ROADMAP
+C): the encoder-decoder serves through
+``train.serve_step.make_decode_fn``.
 
 Every trsm workload runs on a p1 x p1 x p2 grid (``--p1``/``--p2``,
 default 1 x 1 x 1).  With p = p1^2 p2 > 1 the CLI joins the world a
@@ -514,10 +518,12 @@ def serve_lm(ap, args):
         ap.error("the lm workload runs on one device (--p1 1 --p2 1)")
     cfg = configs.get_smoke(args.arch) if args.smoke \
         else configs.get(args.arch)
-    try:
-        lm.check_supported(cfg)
-    except NotImplementedError as e:
-        ap.error(str(e))
+    if cfg.enc_dec:
+        ap.error(f"--arch {args.arch} is an encoder-decoder: the lm workload "
+                 f"serves decoder-only archs, and the reference's CLI fails "
+                 f"on it too (its decode step takes the encoder states; "
+                 f"ROADMAP C); serve it through "
+                 f"repro_torch.train.serve_step.make_decode_fn")
     device = torch.device(args.device or "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         ap.error("no CUDA device: pass --device cpu")

@@ -13,9 +13,10 @@ run resumed from its latest complete checkpoint (``--resume auto``, the
 default) continues bit-exactly.  Prints the loss every 10 steps and at
 the last; on the card also seconds per step, peak memory and the
 ``tri_inv_blocks`` (B1) launches per step, which every ``kfac_ca``
-step makes.  ``--mesh single|multi`` and ``--compress`` wait for the
-multi-GPU port (ROADMAP A15h); the MoE, recurrent and enc-dec archs
-for their blocks (``models.lm.NOT_PORTED``).
+step makes.  Every arch trains: the decoder-only ones through
+``models.lm``, whisper-tiny (enc-dec, its batches carrying encoder
+frames) through ``models.whisper``.  ``--mesh single|multi`` and
+``--compress`` wait for the multi-GPU port (ROADMAP A15h).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import torch
 from repro_torch import configs, optim
 from repro_torch.configs import SHAPES
 from repro_torch.data import synthetic
-from repro_torch.models import lm
+from repro_torch.models import lm, whisper
 from repro_torch.train import checkpoint as ckpt, ft
 from repro_torch.train import train_step as ts
 
@@ -79,10 +80,6 @@ def main(argv=None):
                  "compression waits for ROADMAP A15h (train/compress.py)")
     cfg = configs.get_smoke(args.arch) if args.smoke \
         else configs.get(args.arch)
-    try:
-        lm.check_supported(cfg)
-    except NotImplementedError as e:
-        ap.error(str(e))
     device = torch.device(args.device or "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         ap.error("no CUDA device: pass --device cpu")
@@ -94,7 +91,8 @@ def main(argv=None):
           f"opt={args.optimizer}")
 
     opt = optim.get(args.optimizer, lr=args.lr)
-    params = lm.init(cfg, 0, device=device)
+    init = whisper.init if cfg.enc_dec else lm.init
+    params = init(cfg, 0, device=device)
     opt_state = opt.init(params)
     step_fn = ts.make_train_step(cfg, opt, microbatches=args.microbatches,
                                  remat=not args.smoke)

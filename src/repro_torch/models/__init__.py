@@ -1,10 +1,12 @@
-"""The model zoo's dense family (the counterpart of ``repro.models``):
-pytree-functional decoder-only LMs whose blocks are all attention with
-a dense MLP.
+"""The model zoo (the counterpart of ``repro.models``): pytree-functional
+implementations of the ten architectures (dense / MoE / hybrid-recurrent
+/ SSM / VLM-backbone / enc-dec audio backbone) on one device.
 
 Entry points:
     lm.init(cfg, key, device=...)       parameter tree (fp32)
     lm.forward(params, cfg, tokens)     logits (train/prefill)
     lm.decode_step(params, cfg, ...)    decode with caches
     lm.init_cache(cfg, batch, seq)      decode caches
+    whisper.init / encode / decode / init_cache / loss_fn
+                                        the encoder-decoder
 """

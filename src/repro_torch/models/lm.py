@@ -1,5 +1,5 @@
-"""The decoder-only LM, dense family (the counterpart of
-``repro.models.lm``).
+"""The decoder-only LM covering the dense / MoE / hybrid / SSM /
+VLM-backbone families (the counterpart of ``repro.models.lm``).
 
 Layers are organized as repeating *units* (cfg.block_pattern) whose
 parameters are stacked over axis 0, as the reference stacks them for
@@ -14,10 +14,9 @@ line up.  The stack is a loop over units on views of each stacked leaf
 (``torch.utils.checkpoint``).
 
 Decode caches are stacked over units the same way, and a decode step
-writes each unit's K/V through its view of the stacked cache in place:
-nothing is copied or re-stacked.  Block kinds and
-features not ported yet raise ``NotImplementedError`` naming their
-ROADMAP item.
+writes each unit's K/V and recurrent states through its view of the
+stacked cache in place: nothing is copied or re-stacked.  The
+encoder-decoder (whisper) is ``models.whisper``.
 """
 
 from __future__ import annotations
@@ -28,37 +27,6 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.optim.tree import tree_map
-
-# block kind or feature -> (the ROADMAP item that ports it, what it is)
-NOT_PORTED = {"rec": ("A15f", "RG-LRU blocks"),
-              "mlstm": ("A15g", "mLSTM blocks"),
-              "slstm": ("A15g", "sLSTM blocks"),
-              "moe": ("A15e", "MoE blocks"),
-              "enc_dec": ("A15d", "encoder-decoder models (whisper)")}
-
-
-def _refuse(what: str, name: str):
-    item, desc = NOT_PORTED[what]
-    raise NotImplementedError(
-        f"{name}: {desc} are not ported yet (ROADMAP {item})")
-
-
-def _check_kind(kind: str, cfg: ModelConfig) -> None:
-    if kind != "attn":
-        if kind in NOT_PORTED:
-            _refuse(kind, cfg.name)
-        raise ValueError(kind)
-    if cfg.n_experts:
-        _refuse("moe", cfg.name)
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless every block of ``cfg`` is a
-    dense attention block of a decoder-only model."""
-    if cfg.enc_dec:
-        _refuse("enc_dec", cfg.name)
-    for kind in cfg.block_pattern:
-        _check_kind(kind, cfg)
 
 
 # ----------------------------- layout -----------------------------
@@ -73,15 +41,31 @@ def pattern_layout(cfg: ModelConfig):
 
 def _init_block(gen, kind: str, cfg: ModelConfig, *, lead=(),
                 device="cpu"):
-    _check_kind(kind, cfg)
     d = cfg.d_model
     kw = dict(lead=lead, device=device)
-    p = {"ln1": L.init_rmsnorm(d, **kw),
-         "attn": L.init_attn(gen, cfg, **kw),
-         "ln2": L.init_rmsnorm(d, **kw)}
-    if cfg.d_ff:
-        p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, **kw)
-    return p
+    if kind == "attn":
+        p = {"ln1": L.init_rmsnorm(d, **kw),
+             "attn": L.init_attn(gen, cfg, **kw),
+             "ln2": L.init_rmsnorm(d, **kw)}
+        if cfg.n_experts:
+            p["moe"] = L.init_moe(gen, cfg, **kw)
+            if cfg.dense_residual:
+                p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, **kw)
+        elif cfg.d_ff:
+            p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, **kw)
+        return p
+    if kind == "rec":
+        return {"ln1": L.init_rmsnorm(d, **kw),
+                "rec": L.init_rec(gen, cfg, **kw),
+                "ln2": L.init_rmsnorm(d, **kw),
+                "mlp": L.init_mlp(gen, d, cfg.d_ff, **kw)}
+    if kind == "mlstm":
+        return {"ln1": L.init_rmsnorm(d, **kw),
+                "mix": L.init_mlstm(gen, cfg, **kw)}
+    if kind == "slstm":
+        return {"ln1": L.init_rmsnorm(d, **kw),
+                "mix": L.init_slstm(gen, cfg, **kw)}
+    raise ValueError(kind)
 
 
 def _generator(key, device) -> torch.Generator | None:
@@ -96,9 +80,10 @@ def _generator(key, device) -> torch.Generator | None:
 def init(cfg: ModelConfig, key=0, *, device="cuda") -> dict:
     """The parameter tree, fp32, drawn from ``key`` (an int seed or a
     ``torch.Generator`` on ``device``) at the reference's scales: the
-    embedding (and an untied head) 0.02, dense weights 1/sqrt(fan_in),
+    embedding (and an untied head) 0.02, dense weights 1/sqrt(fan_in)
+    (an expert's 1/sqrt(d_model), its down projection
+    1/sqrt(moe_d_ff)), the RG-LRU's ``lam`` uniform on [0.9, 0.999),
     norms ones.  ``device="meta"`` gives the shapes without memory."""
-    check_supported(cfg)
     gen = _generator(key, device)
     pat, n_units, tail = pattern_layout(cfg)
     vp = cfg.vocab_padded
@@ -122,31 +107,56 @@ def init(cfg: ModelConfig, key=0, *, device="cuda") -> dict:
 
 def _block_apply(kind: str, p, x, cfg: ModelConfig, *, positions,
                  cache=None):
-    _check_kind(kind, cfg)
+    """Returns (x, aux); a cache is written in place."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    window = cfg.local_window if cfg.family == "hybrid" else 0
-    h, c = L.attn_apply(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
-                        cfg, positions=positions,
-                        cache=cache["attn"] if cache else None,
-                        window=window, norm_eps=cfg.norm_eps)
-    x = x + h
-    if cfg.d_ff:
+    if kind == "attn":
+        window = cfg.local_window if cfg.family == "hybrid" else 0
+        h, _ = L.attn_apply(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
+                            cfg, positions=positions,
+                            cache=cache["attn"] if cache else None,
+                            window=window, norm_eps=cfg.norm_eps)
+        x = x + h
+        hin = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        if cfg.n_experts:
+            y, aux = L.moe_apply(p["moe"], hin, cfg)
+            if cfg.dense_residual:
+                y = y + L.mlp_apply(p["mlp"], hin)
+            x = x + y
+        elif cfg.d_ff:
+            x = x + L.mlp_apply(p["mlp"], hin)
+    elif kind == "rec":
+        h, _ = L.rec_apply(p["rec"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
+                           cfg, cache=cache["rec"] if cache else None)
+        x = x + h
         x = x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
-    return x, ({"attn": c} if cache else None), aux
+    elif kind in ("mlstm", "slstm"):
+        apply = L.mlstm_apply if kind == "mlstm" else L.slstm_apply
+        h, _ = apply(p["mix"], L.rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
+                     cache=cache["mix"] if cache else None)
+        x = x + h
+    else:
+        raise ValueError(kind)
+    return x, aux
 
 
 def _init_block_cache(kind: str, cfg: ModelConfig, batch: int,
                       max_seq: int, dtype, *, lead=(), device="cpu"):
-    _check_kind(kind, cfg)
-    window = cfg.local_window if cfg.family == "hybrid" else 0
-    return {"attn": L.init_attn_cache(cfg, batch, max_seq, dtype,
-                                      window=window, lead=lead,
-                                      device=device)}
+    kw = dict(lead=lead, device=device)
+    if kind == "attn":
+        window = cfg.local_window if cfg.family == "hybrid" else 0
+        return {"attn": L.init_attn_cache(cfg, batch, max_seq, dtype,
+                                          window=window, **kw)}
+    if kind == "rec":
+        return {"rec": L.init_rec_cache(cfg, batch, **kw)}
+    if kind == "mlstm":
+        return {"mix": L.init_mlstm_cache(cfg, batch, **kw)}
+    if kind == "slstm":
+        return {"mix": L.init_slstm_cache(cfg, batch, **kw)}
+    raise ValueError(kind)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, *, device="cuda") -> dict:
-    check_supported(cfg)
     pat, n_units, tail = pattern_layout(cfg)
     cache: dict = {}
     if n_units:
@@ -185,8 +195,8 @@ def _run_stack(params, cfg, x, positions, cache=None, remat=False):
         aux_sum = None
         for i, kind in enumerate(pat):
             bc = uc[f"b{i}"] if uc is not None else None
-            x, _, aux = _block_apply(kind, up[f"b{i}"], x, cfg,
-                                     positions=positions, cache=bc)
+            x, aux = _block_apply(kind, up[f"b{i}"], x, cfg,
+                                  positions=positions, cache=bc)
             aux_sum = aux if aux_sum is None else aux_sum + aux
         return x, aux_sum
 
@@ -203,8 +213,8 @@ def _run_stack(params, cfg, x, positions, cache=None, remat=False):
 
     for i in range(tail):
         bc = cache["tail"][i] if cache else None
-        x, _, aux = _block_apply(pat[i], params["tail"][i], x, cfg,
-                                 positions=positions, cache=bc)
+        x, aux = _block_apply(pat[i], params["tail"][i], x, cfg,
+                              positions=positions, cache=bc)
         aux_total = aux_total + aux
 
     return x, cache or None, aux_total
@@ -228,7 +238,6 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
     tokens: (B, S) integers, or embeds: (B, S, D) for stub-frontend
     archs.  positions: (B, S) or (3, B, S) for M-RoPE; defaults to
     arange.  last_only: emit logits only for the final position."""
-    check_supported(cfg)
     x = _embed(params, tokens, embeds, dtype)
     B, S = x.shape[:2]
     if positions is None:
@@ -260,7 +269,6 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, *, embeds=None,
     the caller's, written in place (K/V at its position, the position
     advanced) and returned.  Nothing here waits on the host: the
     position is read from the cache on the device."""
-    check_supported(cfg)
     x = _embed(params, tokens, embeds, dtype)
     B, S = x.shape[:2]
     pos = _decode_positions(cfg, cache, B, S)
@@ -316,8 +324,8 @@ def _find_attn_pos(tree):
 
 def loss_fn(params, cfg: ModelConfig, batch, *, remat=False,
             dtype=torch.bfloat16, aux_weight: float = 0.01):
-    """Next-token cross entropy in fp32 (+ the aux loss, zero for dense
-    blocks).  batch: dict with tokens (B, S) and labels (B, S) (already
+    """Next-token cross entropy in fp32 (+ the MoE aux loss, summed over
+    the blocks; zero without experts).  batch: dict with tokens (B, S) and labels (B, S) (already
     shifted), optional embeds and mask.  The label's logit is gathered,
     where the reference reduces a one-hot mask for its partitioner."""
     logits, aux = forward(params, cfg, batch.get("tokens"),

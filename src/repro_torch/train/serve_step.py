@@ -14,13 +14,17 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.models import lm
+from repro_torch.models import lm, whisper
 
 
 def make_decode_fn(cfg: ModelConfig):
     """Returns a decode fn with the exact positional signature for the
-    config: (params, cache, tokens[, embeds])."""
-    lm.check_supported(cfg)
+    config: (params, cache, tokens[, embeds | enc_states])."""
+    if cfg.enc_dec:
+        def fn(params, cache, tokens, enc_states):
+            return whisper.decode(params, cfg, tokens, enc_states,
+                                  cache=cache)
+        return fn
     if cfg.embed_inputs:
         def fn(params, cache, tokens, embeds):
             return lm.decode_step(params, cfg, tokens, cache,
@@ -34,10 +38,10 @@ def make_decode_fn(cfg: ModelConfig):
 
 def greedy_generate(cfg: ModelConfig, params, prompt, max_new: int,
                     max_seq: int, *, embeds=None):
-    """Prefill then greedy decode on ``prompt``'s device: (B, max_new)
-    tokens.  ``embeds`` (B, >= S + max_new - 1, D): the stub frontend's
-    inputs of an ``embed_inputs`` config, one a position, the prompt's
-    first."""
+    """Prefill then greedy decode of a decoder-only model on
+    ``prompt``'s device: (B, max_new) tokens.  ``embeds`` (B, >= S +
+    max_new - 1, D): the stub frontend's inputs of an ``embed_inputs``
+    config, one a position, the prompt's first."""
     B, S = prompt.shape
     # Cache capacity check: prefill appends S positions, then each of
     # the max_new - 1 decode steps appends one more (the final token is

@@ -9,14 +9,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.models import lm
+from repro_torch.models import lm, whisper
 from repro_torch.optim.adamw import Optimizer
 from repro_torch.optim.tree import leaves, tree_map
 
 
 def loss_for(cfg: ModelConfig):
-    lm.check_supported(cfg)
-    return lm.loss_fn
+    return whisper.loss_fn if cfg.enc_dec else lm.loss_fn
 
 
 def _value_and_grad(loss_of, params, batch):
@@ -48,6 +47,8 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
     loss_fn = loss_for(cfg)
 
     def loss_of(p, b):
+        if cfg.enc_dec:     # each layer is rematerialized regardless
+            return loss_fn(p, cfg, b, dtype=dtype)
         return loss_fn(p, cfg, b, remat=remat, dtype=dtype)
 
     def step_fn(params, opt_state, batch):

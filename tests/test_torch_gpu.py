@@ -1575,12 +1575,24 @@ def test_lm_kfac_train_step_launches_tri_inv_blocks(cuda):
     same step's on the CPU, which launches nothing (a preconditioned
     update's tolerance, tests/test_torch_optim.py: damped factors of
     condition ~1e4 through 14 Denman-Beavers iterations)."""
+    _kfac_step_on_the_card_and_the_cpu("qwen3-1.7b", cuda)
+
+
+@pytest.mark.gpu
+def test_recurrent_kfac_train_step_launches_tri_inv_blocks(cuda):
+    """As the qwen3 one, on recurrentgemma-2b's smoke model (RG-LRU
+    blocks and a local-attention block, their stacked weights
+    preconditioned together)."""
+    _kfac_step_on_the_card_and_the_cpu("recurrentgemma-2b", cuda)
+
+
+def _kfac_step_on_the_card_and_the_cpu(arch, cuda):
     from repro_torch import configs, optim
     from repro_torch.data import synthetic
     from repro_torch.models import lm
     from repro_torch.optim.tree import leaves_with_path, tree_map
     from repro_torch.train import train_step
-    cfg = configs.get_smoke("qwen3-1.7b")
+    cfg = configs.get_smoke(arch)
     batch = synthetic.host_batch(cfg, 16, 4, step=0)
     params = lm.init(cfg, 0, device="cpu")
     out = {}
@@ -1604,3 +1616,46 @@ def test_lm_kfac_train_step_launches_tri_inv_blocks(cuda):
         slack = 2 * torch.finfo(torch.float32).eps * p0.abs().max()
         assert (got - want).abs().max() <= 1e-3 * want.abs().max() + slack, \
             path
+
+
+@pytest.mark.gpu
+def test_moe_grouped_forward_matches_the_cpu(cuda, monkeypatch):
+    """grok-1's smoke MoE block with ``MOE_GROUP`` patched to 16: 64
+    tokens routed in 4 groups, each with its own capacity at the
+    default 1.25 (an expert overflows and drops tokens), fp32, TF32
+    off: every group's experts the CPU's exactly (the stable sort
+    orders ties alike on both devices), y and aux within 1e-5 of their
+    largest entries."""
+    from repro_torch import configs
+    from repro_torch.core import precision
+    from repro_torch.models import layers
+    precision.pin_matmul_numerics()
+    cfg = configs.get_smoke("grok-1-314b")
+    g = torch.Generator().manual_seed(3)
+    p = layers.init_moe(g, cfg)
+    x = torch.randn((2, 32, cfg.d_model), generator=g)
+    monkeypatch.setattr(layers, "MOE_GROUP", 16)
+    top_k, picked = layers._top_k, {}
+
+    def record(dev):
+        def fn(gates, k):
+            vals, idx = top_k(gates, k)
+            picked.setdefault(dev, []).append(idx.cpu())
+            return vals, idx
+        return fn
+
+    out = {}
+    for dev in ("cpu", cuda):
+        monkeypatch.setattr(layers, "_top_k", record(str(dev)))
+        y, aux = layers.moe_apply({k: v.to(dev) for k, v in p.items()},
+                                  x.to(dev), cfg)
+        out[str(dev)] = (y.cpu(), aux.cpu())
+    (yc, ac), (yg, ag) = out["cpu"], out[str(cuda)]
+    assert len(picked["cpu"]) == 4
+    for a, b in zip(picked["cpu"], picked[str(cuda)]):
+        assert torch.equal(a, b)
+    cap = int(cfg.moe_capacity * cfg.topk * 16 / cfg.n_experts)
+    assert max(torch.bincount(e.flatten()).max().item()
+               for e in picked["cpu"]) > cap
+    assert (yg - yc).abs().max() <= 1e-5 * yc.abs().max()
+    assert abs(ag.item() - ac.item()) <= 1e-5 * abs(ac.item())

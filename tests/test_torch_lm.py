@@ -42,13 +42,26 @@ BF16_TOL = 2e-2
 DECODE_TOL = 2e-3
 DENSE = ["qwen3-1.7b", "granite-8b", "smollm-360m", "llama3-405b",
          "qwen2-vl-72b"]
-# arch -> the ROADMAP item its blocks wait for
-UNPORTED = {"grok-1-314b": "A15e", "arctic-480b": "A15e",
-            "recurrentgemma-2b": "A15f", "xlstm-1.3b": "A15g",
-            "whisper-tiny": "A15d"}
+# the other families, held against the reference in
+# tests/test_torch_moe.py, test_torch_recurrent.py, test_torch_whisper.py
+FAMILIES = ["grok-1-314b", "arctic-480b", "recurrentgemma-2b", "xlstm-1.3b",
+            "whisper-tiny"]
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TDT_TOL = {"float32": TOL, "bfloat16": BF16_TOL}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's tests.  They run thousands of
+    small CPU ops (the plain K-FAC inverses, the recurrences); beside
+    other test processes on the same cores, an OpenMP team waits at
+    every op for its descheduled threads, which made the kfac_ca steps
+    here tens of times slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _np(x):
@@ -414,21 +427,32 @@ def test_decode_matches_own_forward(arch):
         [8] * cfg.n_layers
 
 
-def test_decode_writes_the_cache_in_place():
-    """A decode step writes K/V into the caller's cache and advances its
-    position: the same tensors come back, written where the step's
-    positions are and nowhere else, and none is copied."""
-    _, cfg, _, params = _pair("qwen3-1.7b")
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "recurrentgemma-2b",
+                                  "xlstm-1.3b"])
+def test_decode_writes_the_cache_in_place(arch):
+    """A decode step writes into the caller's cache: the same tensors
+    come back, none copied.  Attention: K/V written where the step's
+    positions are and nowhere else, the position advanced.  RG-LRU
+    (h, conv) and xLSTM (mLSTM C, n; sLSTM c, n, h, m): every state
+    moved off its initial value."""
+    _, cfg, _, params = _pair(arch)
     cache = lm.init_cache(cfg, 2, 8, dtype=torch.float32, device="cpu")
+    before = {p: t.clone() for p, t in leaves_with_path(cache)}
     ptrs = [t.data_ptr() for t in leaves(cache)]
     tokens = torch.zeros((2, 3), dtype=torch.long)
     _, out = lm.decode_step(params, cfg, tokens, cache, dtype=torch.float32)
     assert out is cache and [t.data_ptr() for t in leaves(out)] == ptrs
-    attn = cache["units"]["b0"]["attn"]
-    assert attn["pos"].tolist() == [3] * cfg.n_layers
-    for kv in (attn["k"], attn["v"]):
-        assert kv[:, :, :3].abs().amax(dim=(1, 3, 4)).gt(0).all()
-        assert not kv[:, :, 3:].any()
+    for i, kind in enumerate(cfg.block_pattern):
+        block = cache["units"][f"b{i}"]
+        if kind == "attn":
+            attn = block["attn"]
+            assert attn["pos"].tolist() == [3] * len(attn["pos"])
+            for kv in (attn["k"], attn["v"]):
+                assert kv[:, :, :3].abs().amax(dim=(1, 3, 4)).gt(0).all()
+                assert not kv[:, :, 3:].any()
+    moved = [p for p, t in leaves_with_path(cache)
+             if not torch.equal(t, before[p])]
+    assert moved == list(before)
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -556,23 +580,41 @@ def test_padded_vocab_is_masked():
     assert_close(_np(got), _np(want), TOL)
 
 
-# ---------------------------- not ported ----------------------------
+# ------------------------- the other families -------------------------
 
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_kinds_name_their_roadmap_item(arch):
-    cfg = configs.get_smoke(arch)
-    item = f"ROADMAP {UNPORTED[arch]}"
-    for call in (lambda: lm.init(cfg, 0, device="cpu"),
-                 lambda: lm.init_cache(cfg, 1, 4, device="cpu"),
-                 lambda: lm.forward({}, cfg, torch.zeros((1, 2))),
-                 lambda: train_step.loss_for(cfg),
-                 lambda: ss.make_decode_fn(cfg)):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
-    for kind in set(cfg.block_pattern) - {"attn"}:
-        with pytest.raises(NotImplementedError, match=item):
-            lm._block_apply(kind, {}, torch.zeros((1, 1, cfg.d_model)), cfg,
-                            positions=torch.zeros((1, 1)))
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_every_family_builds_and_runs_through_the_entry_points(arch):
+    """The full config's tree on the meta device against the
+    reference's ``jax.eval_shape`` of its ``init`` (paths, shapes,
+    dtypes); the smoke config's decode cache against the reference's
+    (paths and shapes; the RG-LRU's conv state fp32, see
+    ``layers.init_rec_cache``); ``loss_for`` the model's loss, and
+    ``make_decode_fn`` a step through the cache."""
+    from repro.models import whisper as jwhisper
+    from repro_torch.models import whisper
+    jcfg, cfg = jconfigs.get(arch), configs.get(arch)
+    model, jmodel = (whisper, jwhisper) if cfg.enc_dec else (lm, jlm)
+    shapes = jax.eval_shape(lambda: jmodel.init(jcfg, jax.random.key(0)))
+    want = [(jax.tree_util.keystr(p), tuple(s.shape), str(s.dtype))
+            for p, s in jax.tree_util.tree_leaves_with_path(shapes)]
+    tree = model.init(cfg, 0, device="meta")
+    got = [(p, tuple(t.shape), str(t.dtype).removeprefix("torch."))
+           for p, t in leaves_with_path(tree)]
+    assert got == want
+    jcfg, cfg = jconfigs.get_smoke(arch), configs.get_smoke(arch)
+    jc = jax.tree_util.tree_leaves_with_path(
+        jax.eval_shape(lambda: jmodel.init_cache(jcfg, 2, 4)))
+    cache = model.init_cache(cfg, 2, 4, device="cpu")
+    assert [(p, tuple(t.shape)) for p, t in leaves_with_path(cache)] == \
+        [(jax.tree_util.keystr(p), tuple(s.shape)) for p, s in jc]
+    assert train_step.loss_for(cfg) is model.loss_fn
+    params = model.init(cfg, 0, device="cpu")
+    args = (torch.zeros((2, 1), dtype=torch.long),)
+    if cfg.enc_dec:
+        args += (torch.zeros((2, cfg.enc_frames, cfg.d_model)),)
+    logits, out = ss.make_decode_fn(cfg)(params, cache, *args)
+    assert out is cache and logits.shape == (2, 1, cfg.vocab_padded)
+    assert torch.isfinite(logits[..., :cfg.vocab]).all()
 
 
 def _chip_smoke():
