@@ -306,7 +306,7 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    sync-debug "warn", peak memory.  (c) ``kfac_ca`` (the reference's
    defaults but the training CLI's lr, 3e-4: at 1e-3 the RG-LRU's
    largest ``lam`` passes 1 in two steps and its gate turns NaN, in the
-   reference too), B = 2, S = 1024, remat, 3 steps on one fixed batch:
+   reference too), B = 2, S = 1024, remat, 2 steps on one fixed batch:
    recurrentgemma-2b at 3 layers (rec, rec, attn), xlstm-1.3b at 8 (7
    mLSTM, 1 sLSTM), whisper-tiny whole (its encoder fed the synthetic
    batch's frames): the loss falling, B1 launched in every step, s per
@@ -315,22 +315,51 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    frames encoded, 8 decode steps through its self-attention cache
    against the full decode in fp32 (2e-3), one bf16 step through
    ``make_decode_fn``.  One JSON line ``{"families": ...}``.
-18. The card line, the kernels' JSON summary, then the last line
+18. The LM on a mesh (``mesh_phase``): four gloo ranks sharing cuda:0
+   (``core.world.spawn_ranks``, ``mesh_rank`` in each) on the (2, 2)
+   ("data", "model") debug mesh, every parameter, moment and cache
+   stored as ``models.sharding``'s specs place it; qwen3-1.7b at its
+   published width and 2 layers.  (a) ``jit_train_step``, B = 2 (a
+   sequence a data rank), S = 1024, remat: one fp32 adamw step against
+   the same step run by rank 0 alone (loss and every updated leaf
+   within 1e-4), then two timed bf16 steps each of adamw and kfac_ca at
+   lr 3e-4, B1 launched in every rank's every kfac_ca step and held
+   against its plain version on the stacks rank 0's steps gave it; (f)
+   the fp32 step's parameters saved from (2, 2), restored onto (1, 4)
+   and gathered, bit for bit; (b) ``jit_decode_step``, batch 4, a
+   128-token prompt and 16 new tokens, fp32 against rank 0's
+   ``lm.decode_step`` on the same tokens (2e-3), each call timed;
+   (c) recurrentgemma-2b at its published width and 2 layers, one fp32
+   adamw step (S = 128, one microbatch) against rank 0's, on the (1, 4)
+   mesh (on (2, 2) the four ranks' pieces and gathered copies exceed
+   the card); (d)
+   ``pipeline_apply`` over a ("pipe",) mesh of 4 at d = 2048, 8
+   microbatches, against the sequential composition (1e-5); (e)
+   ``psum_compressed`` over a ("pod",) mesh of 4 on a 2048 x 2048
+   gradient (relative error under 0.05) and stochastic rounding's
+   mean.  One ``{"mesh": ...}`` line a
+   part with every rank's s (host clock to a synchronize), peak GiB, B1
+   launches, MB staged through the host and, for a profiled step, the
+   kernel share of its wall; then ``{"mesh_kernels": ...}``.
+19. The card line, the kernels' JSON summary, then the last line
    ``{"ok": true, "device": {...}}``.  Each kernel's launches are those
    of its main path's run: B1 and B2 the inv configuration at the
    default n0, B3 the rec one, B4 the first structured one, B6 the rec
    churn phase, B5 the fleet phase; ``launches_distributed`` adds its
    launches in phases 12-15, summed over ranks, grids and cases, and
    is above 0 for every kernel; ``launches_lm`` its launches in phase
-   16's kfac_ca steps and ``launches_families`` in phase 17's (above 0
+   16's kfac_ca steps, ``launches_families`` in phase 17's and
+   ``launches_sharded`` in phase 18's, summed over its ranks (above 0
    for B1).  The kernel lines of phases 12-15 also carry the ordered
    ``ops.gemm``'s launches per rank.
 """
 
 import collections
+import contextlib
 import gc
 import json
 import os
+import resource
 import subprocess
 import sys
 import time
@@ -441,7 +470,7 @@ LM_ADAMW_LAYERS = 14
 # (a 16-token prompt, 4 steps; MoE at the no-drop capacity, n_experts),
 # then a timed bf16 generation, batch 4, 16 new tokens.  Training:
 # kfac_ca (the reference's defaults but the training CLI's lr, 3e-4),
-# B = 2, S = 1024, 3 steps on one fixed batch, at the depth of one block
+# B = 2, S = 1024, 2 steps on one fixed batch, at the depth of one block
 # pattern's period.  At kfac_ca's default lr, 1e-3, two steps carry the
 # RG-LRU's largest lam (uniform on [0.9, 0.999)) past 1, where its gate
 # is NaN, in the reference as in the port (ROADMAP C)
@@ -455,8 +484,11 @@ FAMILY_NEW = 16
 # tokens route in two MOE_GROUPs of 4096
 FAMILY_SERVE = {"grok-1-314b": (1, 2048), "recurrentgemma-2b": (26, 128),
                 "xlstm-1.3b": (48, 2048)}
-# arch -> layers trained (0: the whole model)
+# arch -> layers trained (0: the whole model), in FAMILY_TRAIN_STEPS
+# steps (3 until phase 18 came: two keep every check and the script's
+# time)
 FAMILY_TRAIN = {"recurrentgemma-2b": 3, "xlstm-1.3b": 8, "whisper-tiny": 0}
+FAMILY_TRAIN_STEPS = 2
 WHISPER_CHECK_STEPS = 8
 # distributed (phase 12): the paper's grids, one gloo rank per process,
 # every rank on cuda:0; k = 64 right-hand sides (p | k for rec); the
@@ -468,6 +500,38 @@ DIST_SEED = 160
 DIST_RELRES = {"float64": 1e-11, "float32": 1e-5}
 DIST_AGREE = {"float64": 1e-10, "float32": 1e-4}
 DIST_MM3D_TOL = 1e-12
+# the LM on a mesh (phase 18): four gloo ranks sharing cuda:0 on the
+# (2, 2) ("data", "model") debug mesh.  qwen3-1.7b at its published width
+# and 2 of its 28 layers (0.41e9 fp32 parameters, 1.65 GB: a whole
+# gather is 1.65 GB a rank).  (a) B = 2 (a sequence a data rank: two
+# microbatches), S = 1024, remat; one fp32 step against one rank's, then
+# timed bf16 steps of adamw and of kfac_ca at lr 3e-4; (b) batch 4 (two
+# rows a data rank), a 128-token prompt, 16 new tokens; (c)
+# recurrentgemma-2b at its published width, 2 layers, one fp32 adamw
+# step (S = 128) against one rank's, on (1, 4): its untied 256000-word
+# embedding and head are 5.2 of its 6.0 GB, and on (2, 2) each rank held
+# ~20.7 GB at the backward (8.7 GB of parameter and moment pieces, the
+# gathered parameters and their gradients), 4 x that over the card's
+# 80 GB; on (1, 4) the pieces are a quarter and, one microbatch, every
+# rank holds one gradient tree: ~16 GB; (d) pipeline_apply over a
+# ("pipe",) mesh of 4 at d = 2048, 8 microbatches of 16 rows; (e)
+# psum_compressed over a ("pod",) mesh of 4 on a 2048 x 2048 gradient;
+# (f) (a)'s parameters saved from (2, 2) and restored onto (1, 4)
+MESH_WORLD = 4
+MESH_SEED = 230
+MESH_LAYERS = 2
+MESH_TRAIN_BATCH = 2
+MESH_TRAIN_SEQ = 1024
+MESH_MICRO = 2
+MESH_LR = 3e-4
+MESH_STEPS = 2
+MESH_AGREE = 1e-4               # the fp32 step against one rank's
+MESH_SERVE = (4, 128, 16)       # batch, prompt, new tokens
+MESH_RG = ("recurrentgemma-2b", 2, 128)   # arch, layers, S
+MESH_PIPE = (8, 16, 2048)       # microbatches, rows, width
+MESH_PIPE_TOL = 1e-5
+MESH_COMPRESS = 2048
+MESH_COMPRESS_TOL = 0.05
 # phase 13: the front door over the same ranks (Solver, FactorBank,
 # capacity banks, every preset) at n = 8192, one panel of k = 16
 FRONT_K = 16
@@ -3385,7 +3449,7 @@ def families_phase(device, seed) -> dict:
         with b1_inputs(f"{arch} train"):
             _, _, r, launches = lm_train(
                 cfg, optim.get("kfac_ca", lr=FAMILY_LR),
-                model.init(cfg, g, device=device), batch, LM_TRAIN_STEPS,
+                model.init(cfg, g, device=device), batch, FAMILY_TRAIN_STEPS,
                 f"{arch} kfac_ca")
         for i, counts in enumerate(launches):
             need(counts, ["tri_inv_blocks"], f"{arch} kfac_ca step {i + 1}")
@@ -5091,6 +5155,352 @@ def distributed_phase(card: str) -> dict:
     return dict(totals)
 
 
+def mesh_measured(mesh, fn, profile: bool = False) -> tuple:
+    """(fn's result, this rank's record of it): host seconds to a
+    synchronize, peak GiB allocated, B1 launches, MB staged through the
+    host on ``mesh``; with ``profile`` the run is under the profiler
+    (``dist_device_ms``: device ms, busy and kernel share of the wall;
+    the seconds its wall, without the trace's processing)."""
+    from repro_torch.kernels import tri_inv_block
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    staged, b1 = mesh.staged_bytes, tri_inv_block.tri_inv_blocks.launches
+    box = {}
+    t = time.perf_counter()
+    if profile:
+        prof = dist_device_ms(lambda: box.update(out=fn()))
+    else:
+        box["out"], prof = fn(), None
+        torch.cuda.synchronize()
+    rec = dict(s=prof["wall_ms"] / 1e3 if prof is not None
+               else time.perf_counter() - t,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               b1_launches=tri_inv_block.tri_inv_blocks.launches - b1,
+               staged_mb=(mesh.staged_bytes - staged) / 1e6)
+    if prof is not None:
+        rec.update({k: prof[k] for k in ("kernel_ms", "copy_ms", "wall_ms",
+                                         "busy_share", "kernel_share")})
+    return box["out"], rec
+
+
+def mesh_close(got, want) -> float:
+    """The worst leaf's max |got - want| over its largest |want| (two
+    trees of one structure)."""
+    from repro_torch.optim.tree import leaves
+    return max(errors(a, b)[1] for a, b in zip(leaves(got), leaves(want)))
+
+
+def mesh_train_check(device, mesh, cfg, params, batch, what,
+                     microbatches: int = MESH_MICRO) -> dict:
+    """One fp32 adamw ``jit_train_step`` on ``mesh`` against the same
+    step run by rank 0 alone (``make_train_step``), from the same
+    parameters and batch: the loss within MESH_AGREE relative and every
+    updated leaf within MESH_AGREE of its largest entry.  Frees
+    ``params`` (a dict holding the whole tree under "p").  Returns the
+    record and this rank's pieces of the updated parameters, on the
+    host (whole trees stay on the card, but rank 0's own step's
+    parameters: four ranks' host copies once took the machine's
+    memory)."""
+    import torch.distributed as dist
+
+    from repro_torch import optim
+    from repro_torch.models import sharding as sr
+    from repro_torch.optim.tree import tree_map
+    from repro_torch.train import train_step
+    opt = optim.get("adamw", lr=MESH_LR)
+    whole = params.pop("p")
+    like = tree_map(lambda v: v.to("meta"), whole)
+    ps, os_, bs = train_step.shardings_for(cfg, mesh, like, opt.init(like),
+                                           batch)
+    step = train_step.jit_train_step(cfg, mesh, opt, like, opt.init(like),
+                                     batch, microbatches=microbatches,
+                                     remat=True, dtype=torch.float32)
+    p = sr.shard(whole, ps)
+    o = opt.init(p)       # adamw's zero moments, stored as the parameters
+    # rank 0 keeps the whole tree on the host for its own step
+    whole = tree_map(lambda v: v.cpu(), whole) if dist.get_rank() == 0 \
+        else None
+    gc.collect()
+    torch.cuda.empty_cache()
+    (p, o, m), rec = mesh_measured(mesh, lambda: step(
+        p, o, sr.shard(batch, bs)), profile=True)
+    got = sr.gather(p, ps)                # collective; rank 0 keeps it
+    if dist.get_rank():
+        got = None
+    kept = tree_map(lambda v: v.cpu(), p)
+    rec.update(loss=m["loss"].item())
+    del p, o, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if dist.get_rank() == 0:
+        whole = tree_map(lambda v: v.to(device), whole)
+        one = train_step.make_train_step(cfg, opt, microbatches=microbatches,
+                                         remat=True, dtype=torch.float32)
+        w, _, m1 = one(whole, opt.init(whole), batch)
+        rec.update(one_rank_loss=m1["loss"].item(),
+                   leaf_err=mesh_close(got, w))
+        del w, whole, got
+        rec["loss_err"] = abs(rec["loss"] - rec["one_rank_loss"]) / abs(
+            rec["one_rank_loss"])
+        check(rec["loss_err"] <= MESH_AGREE and rec["leaf_err"]
+              <= MESH_AGREE, f"phase 18 {what}: the sharded fp32 step is off "
+              f"one rank's by {rec['loss_err']} (loss), {rec['leaf_err']} "
+              f"(worst leaf) > {MESH_AGREE}")
+    dist.barrier()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, kept
+
+
+def mesh_rank(device, seed: int, ckpt_dir: str) -> dict:
+    """Phase 18 in one rank (see ``mesh_phase``).  Returns this rank's
+    records by part; rank 0's carry the checks against one rank's runs
+    and B1 against its plain version on the stacks the kfac_ca steps
+    gave it."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import configs, optim
+    from repro_torch.core import precision
+    from repro_torch.data import synthetic
+    from repro_torch.core.comm import make_named_mesh
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm
+    from repro_torch.models import sharding as sr
+    from repro_torch.optim.tree import leaves, tree_map
+    from repro_torch.train import checkpoint, compress, serve_step
+    from repro_torch.train import train_step
+    from repro_torch.train.pipeline import pipeline_apply
+    # four ranks' peaks add up close to the card's memory: segments that
+    # grow in place leave no cached block that fits nothing
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    torch.cuda.set_device(device)
+    precision.pin_matmul_numerics()              # IEEE fp32: TF32 off
+    rank = dist.get_rank()
+    t0 = time.perf_counter()
+    mesh = make_debug_mesh(2, 2)
+    g = torch.Generator(device=device).manual_seed(seed)   # same in all
+    rec = {}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def done(part):
+        if rank == 0:
+            print(json.dumps({"mesh_rank0": dict(
+                part=part, s=time.perf_counter() - t0, record=rec.get(
+                    part))}), flush=True)
+
+    # (a) train: the fp32 check, then (f) on its parameters
+    cfg = dataclasses.replace(configs.get(LM_ARCH), n_layers=MESH_LAYERS)
+    batch = synthetic.host_batch(cfg, MESH_TRAIN_SEQ, MESH_TRAIN_BATCH,
+                                 step=0)
+    rec["fp32_check"], pieces = mesh_train_check(
+        device, mesh, cfg, {"p": lm.init(cfg, g, device=device)}, batch,
+        "qwen3-1.7b")
+    like = lm.init(cfg, device="meta")
+    sh22 = sr.param_shardings(cfg, like, mesh)
+    sh14 = sr.param_shardings(cfg, like, make_debug_mesh(1, 4))
+    pieces = tree_map(lambda v: v.to(device), pieces)
+
+    def reshard():
+        checkpoint.save(ckpt_dir, 1, {"params": pieces},
+                        shardings={"params": sh22})
+        back, _ = checkpoint.restore(ckpt_dir, 1, {"params": like},
+                                     shardings={"params": sh14},
+                                     device=device)
+        return sr.gather(back["params"], sh14)
+    back, rec["reshard"] = mesh_measured(mesh, reshard)
+    before = sr.gather(pieces, sh22)
+    rec["reshard"]["bit_equal"] = all(
+        torch.equal(a, b) for a, b in zip(leaves(back), leaves(before)))
+    check(rec["reshard"]["bit_equal"], "phase 18 (f): the parameters "
+                                       "restored onto (1, 4) differ")
+    del back, before, pieces
+    free()
+    done("fp32_check")
+    done("reshard")
+
+    # (a) timed bf16 steps, adamw then kfac_ca
+    b1_inputs = B1Inputs()
+    for name in ("adamw", "kfac_ca"):
+        opt = optim.get(name, lr=MESH_LR)
+        whole = lm.init(cfg, g, device=device)
+        state = opt.init(whole)
+        ps, os_, bs = train_step.shardings_for(cfg, mesh, whole, state,
+                                               batch)
+        step = train_step.jit_train_step(cfg, mesh, opt, whole, state,
+                                         batch, microbatches=MESH_MICRO,
+                                         remat=True)
+        p, o = sr.shard(whole, ps), sr.shard(state, os_)
+        del whole, state
+        free()
+        b = sr.shard(batch, bs)
+        steps = []
+        reset_counts()
+        with (b1_inputs(f"mesh {name} steps") if rank == 0 and
+              name == "kfac_ca" else contextlib.nullcontext()):
+            for i in range(MESH_STEPS):
+                # the profiler's processing of a kfac_ca step's ~20k
+                # launches takes longer than the step: adamw's alone
+                (p, o, m), r = mesh_measured(
+                    mesh, lambda: step(p, o, b),
+                    profile=name == "adamw" and i == MESH_STEPS - 1)
+                r["loss"] = m["loss"].item()
+                check(np.isfinite(r["loss"]), f"phase 18 {name} step "
+                                              f"{i + 1}: loss {r['loss']}")
+                if name == "kfac_ca":
+                    check(r["b1_launches"] > 0, f"phase 18 kfac_ca step "
+                                                f"{i + 1}: B1 launched 0 "
+                                                f"times in rank {rank}")
+                steps.append(r)
+        rec[name] = dict(steps=steps, launches=read_counts())
+        del p, o, b, step
+        free()
+        done(name)
+    if rank == 0:
+        rec["b1_vs_plain"] = b1_inputs.check()
+    dist.barrier()
+
+    # (b) serve: fp32 against one rank's decode
+    B, P, T = MESH_SERVE
+    params = lm.init(cfg, g, device=device)
+    prompt = torch.randint(0, cfg.vocab, (B, P), generator=g, device=device)
+    rows = serve_step.rows(mesh, B)
+
+    def generate():
+        cache = lm.init_cache(cfg, B, P + T, torch.float32, device=device)
+        decode = serve_step.jit_decode_step(cfg, mesh, params, cache, B,
+                                            dtype=torch.float32)
+        ps, cs = serve_step.serve_shardings(cfg, mesh, params, cache)
+        p, c = sr.shard(params, ps), sr.shard(cache, cs)
+        toks, last, times = [sr.piece(prompt, rows)], [], []
+        for _ in range(T):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, c = decode(p, c, toks[-1])
+            toks.append(torch.argmax(logits[:, -1:], dim=-1))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            last.append(sr.whole(logits[:, -1], rows).cpu())
+        return [sr.whole(t, rows) for t in toks], last, times
+
+    (toks, last, times), rec["serve"] = mesh_measured(mesh, generate)
+    rec["serve"].update(prefill_s=times[0], s_per_decode_step=float(
+        np.median(times[1:])), tokens_per_s=B * T / sum(times))
+    if rank == 0:
+        cache = lm.init_cache(cfg, B, P + T, torch.float32, device=device)
+        ratio = 0.0
+        for t, got in enumerate(last):
+            want, cache = lm.decode_step(params, cfg, toks[t], cache,
+                                         dtype=torch.float32)
+            want = want[:, -1].double().cpu()
+            err = (got.double() - want).abs()
+            ratio = max(ratio, (err / (LM_DECODE_TOL + LM_DECODE_TOL
+                                       * want.abs())).max().item())
+        rec["serve"]["worst_over_bound"] = ratio
+        check(ratio <= 1.0, f"phase 18 (b): the sharded fp32 decode is off "
+                            f"one rank's by {ratio} x rtol = atol = "
+                            f"{LM_DECODE_TOL}")
+        del cache
+    dist.barrier()
+    del params, toks, last
+    free()
+    done("serve")
+
+    # (c) recurrentgemma-2b: one fp32 adamw step against one rank's
+    arch, layers, seq = MESH_RG
+    rcfg = dataclasses.replace(configs.get(arch), n_layers=layers)
+    rec["recurrent_fp32_check"], _ = mesh_train_check(
+        device, make_debug_mesh(1, 4), rcfg,
+        {"p": lm.init(rcfg, g, device=device)},
+        synthetic.host_batch(rcfg, seq, MESH_TRAIN_BATCH, step=0), arch,
+        microbatches=1)
+    free()
+    done("recurrent_fp32_check")
+
+    # (d) the pipeline against the sequential composition
+    M, R, d = MESH_PIPE
+    pipe = make_named_mesh((MESH_WORLD,), ("pipe",))
+    Ws = torch.randn((MESH_WORLD, d, d), generator=g, device=device) \
+        / d ** 0.5
+    bs = 0.1 * torch.randn((MESH_WORLD, d), generator=g, device=device)
+    x = torch.randn((M, R, d), generator=g, device=device)
+    stages = sr.NamedSharding(pipe, sr.P("pipe"))
+    out, rec["pipeline"] = mesh_measured(pipe, lambda: pipeline_apply(
+        lambda p, h: torch.tanh(h @ p[0] + p[1]),
+        (sr.piece(Ws, stages), sr.piece(bs, stages)), x, mesh=pipe))
+    ref = x
+    for s in range(MESH_WORLD):
+        ref = torch.tanh(ref @ Ws[s] + bs[s])
+    rec["pipeline"]["max_abs_err"] = (out - ref).abs().max().item()
+    check(rec["pipeline"]["max_abs_err"] <= MESH_PIPE_TOL,
+          f"phase 18 (d): pipeline off the sequential composition by "
+          f"{rec['pipeline']['max_abs_err']} > {MESH_PIPE_TOL}")
+
+    # (e) int8 compression
+    from repro_torch.core import comm
+    pod = make_named_mesh((MESH_WORLD,), ("pod",))
+    grad = torch.randn((MESH_COMPRESS, MESH_COMPRESS), generator=g,
+                       device=device)
+    draws = torch.Generator(device=device).manual_seed(seed + 1 + rank)
+
+    def compressed():
+        with comm.on_mesh(pod):
+            return compress.psum_compressed(grad, "pod", draws)
+    out, rec["compress"] = mesh_measured(pod, compressed)
+    want = grad * MESH_WORLD
+    rec["compress"]["rel_err"] = ((out - want).abs().max()
+                                  / want.abs().max()).item()
+    mean = compress._stochastic_round(
+        torch.full((256, 64), 0.3, device=device), draws).mean().item()
+    rec["compress"]["rounding_mean"] = mean
+    check(rec["compress"]["rel_err"] < MESH_COMPRESS_TOL
+          and abs(mean - 0.3) < 0.02,
+          f"phase 18 (e): compressed sum off by {rec['compress']['rel_err']}"
+          f" (< {MESH_COMPRESS_TOL}), rounding mean {mean} (0.3 +- 0.02)")
+    rec["seconds"] = time.perf_counter() - t0
+    rec["host_peak_gib"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    return rec
+
+
+def mesh_phase(card: str) -> dict:
+    """Phase 18: the LM on a mesh of four gloo ranks sharing cuda:0
+    (``mesh_rank`` in each; the constants' comment says what runs).
+    Prints one JSON line a part with every rank's record, and returns
+    {kernel: launches} of the kfac_ca steps, summed over ranks."""
+    import tempfile
+
+    from repro_torch.core import world
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        ranks = world.spawn_ranks(MESH_WORLD, "cuda:0", mesh_rank,
+                                  MESH_SEED, ckpt_dir)
+    for part in ("fp32_check", "reshard", "adamw", "kfac_ca", "serve",
+                 "recurrent_fp32_check", "pipeline", "compress"):
+        print(json.dumps({"mesh": dict(
+            part=part, card=card, mesh=dict(
+                pipeline="(4,) pipe", compress="(4,) pod",
+                recurrent_fp32_check="(1, 4) data x model").get(
+                    part, "(2, 2) data x model"),
+            ranks=[r[part] for r in ranks])}), flush=True)
+    total = collections.Counter()
+    for r in ranks:
+        total.update(r["kfac_ca"]["launches"])
+    print(json.dumps({"mesh_kernels": dict(
+        b1_vs_plain=ranks[0]["b1_vs_plain"],
+        launches_sharded=dict(total),
+        seconds_per_rank=[r["seconds"] for r in ranks],
+        host_peak_gib_per_rank=[r["host_peak_gib"] for r in ranks],
+        phase18_s=time.perf_counter() - t0)}), flush=True)
+    return dict(total)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -5191,7 +5601,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap(16)
     family_launches = families_phase(device, seed=FAMILY_SEED)  # phase 17
+    gc.collect()
+    torch.cuda.empty_cache()
     lap(17)
+    mesh_launches = mesh_phase(card)                           # phase 18
+    lap(18)
 
     kernels = []
     for name, method, source, replaces in (
@@ -5222,6 +5636,9 @@ def main() -> int:
                   f"{name} never launched in the LM's kfac_ca steps")
             check(family_launches.get(name, 0) > 0,
                   f"{name} never launched in phase 17's kfac_ca steps")
+            check(mesh_launches.get(name, 0) > 0,
+                  f"{name} never launched in phase 18's sharded kfac_ca "
+                  f"steps")
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches,
                             max_abs_err=rec["max_abs_err"],
@@ -5232,7 +5649,8 @@ def main() -> int:
                             launches_distributed=dist_launches.get(name, 0),
                             launches_lm=lm_launches.get(name, 0),
                             launches_families=family_launches.get(name,
-                                                                  0)))
+                                                                  0),
+                            launches_sharded=mesh_launches.get(name, 0)))
     print(json.dumps(dict(gemm_launches_distributed=dist_launches.get(
         "gemm", 0), note="the ordered ops.gemm (no TPU kernel's port), "
                          "phases 12-15, summed over ranks")))
@@ -5240,7 +5658,8 @@ def main() -> int:
         ("12-15" if k == 12 else str(k)): v for k, v in phase_s.items()},
         note="seconds from the script's start, by phase (1: the card and "
              "the build; 12-15: the spawned ranks, split above; 16: the "
-             "dense LM; 17: the other families)")))
+             "dense LM; 17: the other families; 18: the LM on a mesh of "
+             "four ranks)")))
     print(json.dumps(dict(elapsed_s=time.perf_counter() - t_start)))
     print(card)
     print(json.dumps({"kernels": kernels}))

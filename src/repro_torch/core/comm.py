@@ -1,11 +1,13 @@
 """Collectives on ``torch.distributed`` with the reference's cost
 accounting (the counterpart of ``repro.core.comm``).
 
-One process runs each rank of the p1 x p1 x p2 mesh ("x", "y", "z").
-The port's counterpart of a ``shard_map`` body is a plain function on
-this rank's local piece, run in every rank; it names mesh axes as the
-reference does, and :func:`on_mesh` binds those names to the
-:class:`Mesh` of the program being run.
+One process runs each rank of the p1 x p1 x p2 mesh ("x", "y", "z"),
+or of a mesh with named axes of any shape (the LM's ("data", "model"),
+("pod", "data", "model"), ("pipe",)).  The port's counterpart of a
+``shard_map`` body is a plain function on this rank's local piece, run
+in every rank; it names mesh axes as the reference does, and
+:func:`on_mesh` binds those names to the :class:`Mesh` of the program
+being run.
 
 Every wrapper (a) issues the collective on the axis's process group
 and (b), when a :class:`CostTrace` is active, records the paper's
@@ -228,28 +230,42 @@ _GROUP_AXES = (("x",), ("y",), ("z",), ("x", "y"), MESH_AXES)
 
 @dataclasses.dataclass(eq=False)
 class Mesh:
-    """The ("x", "y", "z") process mesh of shape (p1, p1, p2), from this
-    rank's side: its coordinates and, for each axis group it may name,
-    the process group it belongs to and that group's global ranks.
-    Compared by identity, so a grid holding it keys its own programs."""
-    p1: int
-    p2: int
-    rank: int
+    """A mesh of processes with named axes, from this rank's side: its
+    coordinates and, for each axis group it may name, the process group
+    it belongs to and that group's global ranks.  Ranks are numbered
+    row-major over the axes (the TRSM grids' ("x", "y", "z") mesh of
+    shape (p1, p1, p2) is :func:`make_mesh`'s; the LM's named meshes
+    are :func:`make_named_mesh`'s).  An abstract mesh (``rank`` None)
+    has names and sizes only, for sharding rules.  Compared by
+    identity, so a grid holding it keys its own programs."""
+    names: tuple
+    dims: tuple
+    rank: int | None
     groups: dict                 # axes tuple -> (ProcessGroup, ranks)
     staged_bytes: int = 0        # host copies of gloo-staged tensors
     timeout: object = None       # the groups' collective timeout, or None
 
     @property
+    def axis_names(self) -> tuple:
+        return self.names
+
+    @property
+    def shape(self) -> dict:
+        """{axis name: size}, as ``jax.sharding.Mesh.shape``."""
+        return dict(zip(self.names, self.dims))
+
+    @property
     def coords(self) -> tuple:
-        return coords_of(self.rank, self.p1, self.p2)
+        return coords_in(self.rank, self.dims)
 
     def size(self, axes: tuple) -> int:
-        dims = dict(x=self.p1, y=self.p1, z=self.p2)
+        dims = self.shape
         return math.prod(dims[a] for a in axes)
 
     def index(self, axes: tuple) -> int:
-        c = dict(zip(MESH_AXES, self.coords))
-        dims = dict(x=self.p1, y=self.p1, z=self.p2)
+        """This rank's index along ``axes``, row-major in their order."""
+        c = dict(zip(self.names, self.coords))
+        dims = self.shape
         i = 0
         for a in axes:
             i = i * dims[a] + c[a]
@@ -259,8 +275,8 @@ class Mesh:
         try:
             return self.groups[axes]
         except KeyError:
-            raise ValueError(f"no process group for axes {axes}: the mesh "
-                             f"builds {_GROUP_AXES}") from None
+            raise ValueError(f"no process group for axes {axes} on the "
+                             f"mesh {self.shape}") from None
 
     def staged(self, group, t: torch.Tensor) -> bool:
         """Whether ``t`` goes through the host on ``group``: a CUDA
@@ -268,57 +284,105 @@ class Mesh:
         return t.is_cuda and dist.get_backend(group[0]) == "gloo"
 
 
+def coords_in(rank: int, dims: tuple) -> tuple:
+    """The row-major coordinates of ``rank`` on a mesh of shape
+    ``dims``."""
+    out = []
+    for d in reversed(dims):
+        out.append(rank % d)
+        rank //= d
+    return tuple(reversed(out))
+
+
 _MESHES: dict = {}
 
 
-def make_mesh(p1: int, p2: int, timeout=None) -> Mesh:
-    """This rank's :class:`Mesh` in the initialized default process
-    group, whose world size must be p1 * p1 * p2.  Every rank creates
-    every group, in the same order (``new_group`` is collective over the
-    world), and keeps those it belongs to; an axis of size 1 gets none.
-    Memoized per world, so every grid of a run shares one mesh.
-    ``timeout`` (a ``timedelta``) bounds each collective of the new
-    groups; a group does not inherit the world's (``new_group``
-    defaults to the backend's, 30 minutes).
-
-    The groups are explicit ``new_group`` calls rather than
-    ``init_device_mesh``: the mesh's tuple axes (("x", "y"), the whole
-    mesh) would need its private ``_flatten``, and its device type
-    would tie the groups to a card, which several ranks may share."""
+def _build(names: tuple, dims: tuple, group_axes, timeout, what: str):
+    """This rank's mesh of shape ``dims`` in the initialized default
+    process group (or a mesh of one rank without one).  Every rank
+    creates every group, in the same order (``new_group`` is collective
+    over the world), and keeps those it belongs to; the group of every
+    axis together is the world, and an axis group of size 1 gets none.
+    Memoized per world."""
+    p = math.prod(dims)
     if not (dist.is_available() and dist.is_initialized()):
+        if p == 1:
+            return Mesh(names, dims, 0, {}, timeout=timeout)
         raise RuntimeError(
-            f"a {p1} x {p1} x {p2} grid spans {p1 * p1 * p2} processes: "
-            f"call torch.distributed.init_process_group (world size "
-            f"{p1 * p1 * p2}) in each of them first")
-    p = p1 * p1 * p2
+            f"{what} spans {p} processes: call "
+            f"torch.distributed.init_process_group (world size {p}) in "
+            f"each of them first")
     if dist.get_world_size() != p:
-        raise RuntimeError(f"a {p1} x {p1} x {p2} grid needs a world of "
-                           f"{p} processes, got {dist.get_world_size()}")
-    key = (p1, p2, id(dist.group.WORLD))
+        raise RuntimeError(f"{what} needs a world of {p} processes, got "
+                           f"{dist.get_world_size()}")
+    key = (names, dims, id(dist.group.WORLD))
     if key not in _MESHES:
         rank = dist.get_rank()
-        dims = dict(x=p1, y=p1, z=p2)
+        size = dict(zip(names, dims))
         groups = {}
-        for axes in _GROUP_AXES:
-            if math.prod(dims[a] for a in axes) == 1:
+        for axes in group_axes:
+            if math.prod(size[a] for a in axes) == 1:
                 continue
-            others = [a for a in MESH_AXES if a not in axes]
-            for fixed in itertools.product(*(range(dims[a])
+            others = [a for a in names if a not in axes]
+            for fixed in itertools.product(*(range(size[a])
                                              for a in others)):
                 ranks = []
-                for idx in itertools.product(*(range(dims[a])
+                for idx in itertools.product(*(range(size[a])
                                                for a in axes)):
                     c = dict(zip(others, fixed))
                     c.update(zip(axes, idx))
-                    ranks.append(rank_of(c["x"], c["y"], c["z"], p1, p2))
-                if axes == MESH_AXES:
+                    r = 0
+                    for a in names:
+                        r = r * size[a] + c[a]
+                    ranks.append(r)
+                if axes == names:
                     grp = dist.group.WORLD
                 else:
                     grp = dist.new_group(ranks, timeout=timeout)
                 if rank in ranks:
                     groups[axes] = (grp, ranks)
-        _MESHES[key] = Mesh(p1, p2, rank, groups, timeout=timeout)
+        _MESHES[key] = Mesh(names, dims, rank, groups, timeout=timeout)
     return _MESHES[key]
+
+
+def make_mesh(p1: int, p2: int, timeout=None) -> Mesh:
+    """This rank's ("x", "y", "z") :class:`Mesh` of shape (p1, p1, p2)
+    in the initialized default process group, whose world size must be
+    p1 * p1 * p2, with the axis groups the TRSM programs name.  Every
+    grid of a run shares one mesh.  ``timeout`` (a ``timedelta``)
+    bounds each collective of the new groups; a group does not inherit
+    the world's (``new_group`` defaults to the backend's, 30 minutes).
+
+    The groups are explicit ``new_group`` calls rather than
+    ``init_device_mesh``: the mesh's tuple axes (("x", "y"), the whole
+    mesh) would need its private ``_flatten``, and its device type
+    would tie the groups to a card, which several ranks may share."""
+    return _build(MESH_AXES, (p1, p1, p2), _GROUP_AXES, timeout,
+                  f"a {p1} x {p1} x {p2} grid")
+
+
+def make_named_mesh(dims, names, timeout=None) -> Mesh:
+    """This rank's :class:`Mesh` of shape ``dims`` with axes ``names``
+    (``jax.make_mesh``'s arguments, ranks row-major) over the whole
+    world, with a group for every axis and every run of axes in mesh
+    order (a sharding's tuple entry, such as ("pod", "data")).  Without
+    an initialized process group only a mesh of one rank is made.
+    ``timeout`` as for :func:`make_mesh`."""
+    dims, names = tuple(int(d) for d in dims), tuple(names)
+    if len(dims) != len(names) or len(set(names)) != len(names):
+        raise ValueError(f"mesh shape {dims} and axes {names} do not "
+                         f"match")
+    subsets = [tuple(a for a, keep in zip(names, bits) if keep)
+               for bits in itertools.product((False, True),
+                                             repeat=len(names))]
+    return _build(names, dims, [s for s in subsets if s], timeout,
+                  f"a {dims} {names} mesh")
+
+
+def abstract_mesh(dims, names) -> Mesh:
+    """A mesh of shape ``dims`` with axes ``names`` and no processes:
+    what the sharding rules read (``jax.sharding.AbstractMesh``)."""
+    return Mesh(tuple(names), tuple(int(d) for d in dims), None, {})
 
 
 def current_mesh() -> Mesh:
@@ -398,7 +462,7 @@ def _gather(x, axes, axis, tiled, async_op):
     return _exchange(axes, x, make_out, call, fixup, async_op)
 
 
-def _psum(x, axes):
+def _psum(x, axes, op=dist.ReduceOp.SUM):
     if current_mesh().size(axes) == 1:
         return x
 
@@ -406,7 +470,7 @@ def _psum(x, axes):
         return src.clone()               # all_reduce works in place
 
     def call(out, src, group, a):
-        return dist.all_reduce(out, group=group, async_op=a)
+        return dist.all_reduce(out, op=op, group=group, async_op=a)
     return _exchange(axes, x, make_out, call, lambda r: r, False)
 
 
@@ -440,6 +504,17 @@ def psum(x, axis_name):
     _rec("allreduce", axis_name, p, n,
          s=2 * _lg(p), w=2 * n * _ind(p), f=n * _ind(p))
     return _psum(x, axes)
+
+
+def pmax(x, axis_name):
+    """The elementwise maximum over ``axis_name``, priced as
+    :func:`psum`'s allreduce."""
+    axes = _axes(axis_name)
+    p = axis_size(axes)
+    n = _size(x)
+    _rec("allreduce", axis_name, p, n,
+         s=2 * _lg(p), w=2 * n * _ind(p), f=n * _ind(p))
+    return _psum(x, axes, dist.ReduceOp.MAX)
 
 
 def psum_scatter(x, axis_name, *, scatter_dimension: int = 0,

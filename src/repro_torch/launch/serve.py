@@ -58,16 +58,18 @@ depth and at admission), the autoscaler's replans, and with
 ``--stats-json`` one JSON line of server, admission and autoscaler
 stats.
 
-    # the LM: prefill + greedy decode of random prompts on one device
+    # the LM: prefill + greedy decode of random prompts on a mesh of the
+    # world's ranks (this process, or torchrun's world)
     PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \
         --arch qwen3-1.7b [--smoke] --batch 4 --prompt-len 32 \
-        --new-tokens 16 [--device cpu]
+        --new-tokens 16 [--mesh debug|single|multi] [--device cpu]
 
 ``lm`` takes every decoder-only arch (dense, MoE, RG-LRU, xLSTM),
 random weights from seed 0 and prompts from a seeded NumPy generator
 (embeddings for ``embed_inputs`` archs), and prints each sequence's
-first 12 tokens and the tokens per second; ``--mesh single|multi``
-waits for the multi-GPU port (ROADMAP A15h).  It refuses whisper-tiny,
+first 12 tokens and the tokens per second, through
+``train.serve_step.jit_decode_step`` on ``--mesh`` (``serve_lm``).  It
+refuses whisper-tiny,
 as the reference's CLI cannot serve it either (its enc-dec decode
 takes the encoder states, which the workload has no input for; ROADMAP
 C): the encoder-decoder serves through
@@ -504,18 +506,23 @@ def serve_trsm_traffic(args, grid):
 
 
 def serve_lm(ap, args):
-    """Prefill + greedy decode of ``--batch`` random prompts."""
+    """Prefill + greedy decode of ``--batch`` random prompts through
+    ``serve_step.jit_decode_step`` on a mesh of the world's ranks (as
+    ``launch.train`` builds it: the launcher's world under torchrun,
+    else this process; ``--mesh debug|single|multi``).  Each rank
+    decodes its rows of the batch and holds its pieces of the
+    parameters and caches; rank 0 prints."""
     from repro_torch import configs
+    from repro_torch.core import world
+    from repro_torch.launch import mesh as meshlib
     from repro_torch.models import lm
+    from repro_torch.models import sharding
     from repro_torch.train import serve_step as ss
     if not args.arch:
         ap.error("--arch is required for the lm workload")
-    if args.mesh != "debug":
-        ap.error(f"--mesh {args.mesh} is not ported yet: production meshes "
-                 f"and sharding wait for ROADMAP A15h (launch/mesh.py, "
-                 f"models/sharding.py)")
     if args.p1 * args.p1 * args.p2 != 1:
-        ap.error("the lm workload runs on one device (--p1 1 --p2 1)")
+        ap.error("the lm workload runs on --mesh, not on a TRSM grid "
+                 "(--p1 1 --p2 1)")
     cfg = configs.get_smoke(args.arch) if args.smoke \
         else configs.get(args.arch)
     if cfg.enc_dec:
@@ -524,33 +531,58 @@ def serve_lm(ap, args):
                  f"on it too (its decode step takes the encoder states; "
                  f"ROADMAP C); serve it through "
                  f"repro_torch.train.serve_step.make_decode_fn")
-    device = torch.device(args.device or "cuda")
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device or "cuda").type == "cuda" \
+            and not torch.cuda.is_available():
         ap.error("no CUDA device: pass --device cpu")
+    device = torch.device(world.join_world(args.device) if world.launched()
+                          else args.device or "cuda")
+    try:
+        mesh = meshlib.from_flag(args.mesh)
+    except RuntimeError as e:
+        ap.error(f"--mesh {args.mesh}: {e}")
 
     B = args.batch
     max_seq = args.prompt_len + args.new_tokens
     params = lm.init(cfg, 0, device=device)
+    cache = lm.init_cache(cfg, B, max_seq, device=device)
+    decode = ss.jit_decode_step(cfg, mesh, params, cache, B)
+    ps, cs = ss.serve_shardings(cfg, mesh, params, cache)
+    rows = ss.rows(mesh, B)
+    params, cache = sharding.shard(params, ps), sharding.shard(cache, cs)
 
     rng = np.random.default_rng(0)
-    prompts = torch.as_tensor(rng.integers(0, cfg.vocab,
-                                           (B, args.prompt_len)),
-                              device=device)
-    embeds = None
+    prompts = sharding.piece(torch.as_tensor(
+        rng.integers(0, cfg.vocab, (B, args.prompt_len)), device=device),
+        rows)
+    extra = []
     if cfg.embed_inputs:
         # stub frontend: one embedding a position, prompt and decode
-        embeds = torch.as_tensor(rng.standard_normal(
-            (B, max_seq, cfg.d_model), np.float32), device=device)
+        extra = [sharding.piece(torch.as_tensor(rng.standard_normal(
+            (B, max_seq, cfg.d_model), np.float32), device=device), rows)]
+
+    def at(t, k):
+        return [e[:, t:t + k] for e in extra]
+
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.time()
-    gen = ss.greedy_generate(cfg, params, prompts, args.new_tokens, max_seq,
-                             embeds=embeds).cpu().numpy()
+    # prefill IS a decode step with S = prompt length (same code path)
+    logits, cache = decode(params, cache, prompts, *at(0, args.prompt_len))
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    out = [tok]
+    for t in range(args.new_tokens - 1):
+        logits, cache = decode(params, cache, tok,
+                               *at(args.prompt_len + t, 1))
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        out.append(tok)
+    gen = sharding.whole(torch.cat(out, dim=1), rows).cpu().numpy()
     dt = time.time() - t0
-    for b in range(B):
-        print(f"seq {b}: {gen[b, :12].tolist()}")
-    print(f"{B * args.new_tokens} tokens in {dt:.2f}s "
-          f"({B * args.new_tokens / dt:.1f} tok/s) on {device}")
+    if mesh.rank == 0:
+        for b in range(B):
+            print(f"seq {b}: {gen[b, :12].tolist()}")
+        print(f"{B * args.new_tokens} tokens in {dt:.2f}s "
+              f"({B * args.new_tokens / dt:.1f} tok/s) on {device}, mesh "
+              f"{mesh.shape}")
 
 
 WORKLOADS = {"trsm": serve_trsm, "trsm-bank": serve_trsm_bank,
@@ -578,8 +610,9 @@ def main(argv=None):
                     help="the arch's reduced config (lm)")
     ap.add_argument("--mesh", default="debug",
                     choices=["single", "multi", "debug"],
-                    help="lm: 'debug' is one device; the production "
-                         "meshes are not ported yet")
+                    help="lm: the mesh of the world's ranks; 'debug' "
+                         "fits any world, 'single'/'multi' need 256/512 "
+                         "ranks")
     ap.add_argument("--batch", type=int, default=4,
                     help="prompts decoded together (lm)")
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -1,7 +1,8 @@
-"""Training CLI (the counterpart of ``repro.launch.train``, one device).
+"""Training CLI (the counterpart of ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
         [--shape train_4k] [--smoke] [--steps N] [--optimizer adamw|kfac_ca] \
+        [--mesh debug|single|multi] [--compress] \
         [--batch B] [--seq S] [--microbatches M] [--lr LR] \
         [--ckpt DIR] [--ckpt-every K] [--resume auto|none] [--device cpu]
 
@@ -15,8 +16,18 @@ the last; on the card also seconds per step, peak memory and the
 ``tri_inv_blocks`` (B1) launches per step, which every ``kfac_ca``
 step makes.  Every arch trains: the decoder-only ones through
 ``models.lm``, whisper-tiny (enc-dec, its batches carrying encoder
-frames) through ``models.whisper``.  ``--mesh single|multi`` and
-``--compress`` wait for the multi-GPU port (ROADMAP A15h).
+frames) through ``models.whisper``.
+
+The step is ``train_step.jit_train_step`` on a mesh of the world's
+ranks: under torchrun (``WORLD_SIZE``/``RANK`` set) the world the
+launcher started (``core.world.join_world``: NCCL with a card per rank,
+else gloo), otherwise this one process.  ``--mesh debug`` (the default)
+is ``make_debug_mesh(max(n // 4, 1), min(4, n))`` over n ranks, as the
+reference builds it over its devices; ``single`` and ``multi`` are the
+production meshes of 256 and 512 ranks.  Each rank holds its pieces of
+the parameters, optimizer state and batch rows, and rank 0 prints and
+writes the checkpoints.  ``--compress`` passes ``compress_grads``
+(the identity on the step's gradients, as in the reference).
 """
 
 from __future__ import annotations
@@ -31,8 +42,11 @@ import torch
 
 from repro_torch import configs, optim
 from repro_torch.configs import SHAPES
+from repro_torch.core import world
 from repro_torch.data import synthetic
+from repro_torch.launch import mesh as meshlib
 from repro_torch.models import lm, whisper
+from repro_torch.models import sharding
 from repro_torch.train import checkpoint as ckpt, ft
 from repro_torch.train import train_step as ts
 
@@ -71,43 +85,54 @@ def main(argv=None):
 
     if args.arch not in configs.ARCH_IDS:
         ap.error(f"--arch {args.arch} has no config in repro_torch.configs")
-    if args.mesh != "debug":
-        ap.error(f"--mesh {args.mesh} is not ported yet: production meshes "
-                 f"and sharding wait for ROADMAP A15h (launch/mesh.py, "
-                 f"models/sharding.py)")
-    if args.compress:
-        ap.error("--compress is not ported yet: cross-pod gradient "
-                 "compression waits for ROADMAP A15h (train/compress.py)")
+    if torch.device(args.device or "cuda").type == "cuda" \
+            and not torch.cuda.is_available():
+        ap.error("no CUDA device: pass --device cpu")
+    device = torch.device(world.join_world(args.device) if world.launched()
+                          else args.device or "cuda")
+    try:
+        mesh = meshlib.from_flag(args.mesh)
+    except RuntimeError as e:
+        ap.error(f"--mesh {args.mesh}: {e}")
+    lead = mesh.rank == 0
     cfg = configs.get_smoke(args.arch) if args.smoke \
         else configs.get(args.arch)
-    device = torch.device(args.device or "cuda")
-    if device.type == "cuda" and not torch.cuda.is_available():
-        ap.error("no CUDA device: pass --device cpu")
     sh = SHAPES[args.shape]
     B = args.batch or (4 if args.smoke else sh.global_batch)
     S = args.seq or (64 if args.smoke else sh.seq_len)
     on_card = device.type == "cuda"
-    print(f"device={device} arch={cfg.name} B={B} S={S} "
-          f"opt={args.optimizer}")
+    say = print if lead else (lambda *a, **k: None)
+    say(f"device={device} mesh={mesh.shape} arch={cfg.name} B={B} S={S} "
+        f"opt={args.optimizer}")
 
     opt = optim.get(args.optimizer, lr=args.lr)
     init = whisper.init if cfg.enc_dec else lm.init
     params = init(cfg, 0, device=device)
     opt_state = opt.init(params)
-    step_fn = ts.make_train_step(cfg, opt, microbatches=args.microbatches,
-                                 remat=not args.smoke)
+    batch0 = synthetic.host_batch(cfg, S, B, 0)
+    step_fn = ts.jit_train_step(cfg, mesh, opt, params, opt_state, batch0,
+                                microbatches=args.microbatches,
+                                remat=not args.smoke,
+                                compress_grads=args.compress)
+    ps, os_, _ = ts.shardings_for(cfg, mesh, params, opt_state, batch0)
+    shardings = {"p": ps, "o": os_}
+    params, opt_state = sharding.shard(params, ps), \
+        sharding.shard(opt_state, os_)
 
     start = 0
     if args.resume == "auto" and ckpt.latest_step(args.ckpt) is not None:
         restored, start = ckpt.restore(
             args.ckpt, ckpt.latest_step(args.ckpt),
-            {"p": params, "o": opt_state})
+            {"p": init(cfg, device="meta"), "o": opt.init(init(
+                cfg, device="meta"))}, shardings=shardings, device=device)
         params, opt_state = restored["p"], restored["o"]
-        print(f"resumed from step {start}")
+        say(f"resumed from step {start}")
 
     mon = ft.StepMonitor(n_hosts=1)
-    hb = ft.Heartbeat(args.ckpt, host=0)
-    pf = synthetic.Prefetcher(cfg, S, B, start_step=start)
+    hb = ft.Heartbeat(args.ckpt, host=mesh.rank)
+    host, n_hosts = sharding.data_split(mesh, B)
+    pf = synthetic.Prefetcher(cfg, S, B, start_step=start, host=host,
+                              n_hosts=n_hosts)
     times, b1 = [], []
     saving, saved = None, None      # the async save's thread, its step
     if on_card:
@@ -126,15 +151,15 @@ def main(argv=None):
             mon.record(0, dt)
             hb.beat(i)
             if i % 10 == 0 or i == args.steps - 1:
-                print(f"step {i:5d} loss {float(metrics['loss']):.4f} "
-                      f"{dt * 1e3:.0f}ms"
-                      + (" STRAGGLER" if mon.stragglers() else ""))
+                say(f"step {i:5d} loss {float(metrics['loss']):.4f} "
+                    f"{dt * 1e3:.0f}ms"
+                    + (" STRAGGLER" if mon.stragglers() else ""))
             if (i + 1) % args.ckpt_every == 0:
                 if saving is not None:      # one save of a step at a time
                     saving.join()
                 saving = ckpt.save(args.ckpt, i + 1,
                                    {"p": params, "o": opt_state},
-                                   blocking=False)
+                                   blocking=False, shardings=shardings)
                 saved = i + 1
     finally:
         pf.close()
@@ -142,13 +167,14 @@ def main(argv=None):
             saving.join()
     if on_card and times:
         steady = times[1:] or times
-        print(f"{len(times)} steps: {statistics.median(steady):.3f} s/step "
+        say(f"{len(times)} steps: {statistics.median(steady):.3f} s/step "
               f"(median after the first, {times[0]:.3f} s the first), peak "
               f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB "
               f"allocated, tri_inv_blocks {b1[-1]} launches/step")
     if saved != args.steps:
-        ckpt.save(args.ckpt, args.steps, {"p": params, "o": opt_state})
-    print("done")
+        ckpt.save(args.ckpt, args.steps, {"p": params, "o": opt_state},
+                  shardings=shardings)
+    say("done")
 
 
 if __name__ == "__main__":

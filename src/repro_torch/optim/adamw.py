@@ -21,6 +21,11 @@ class Optimizer:
     init: Callable
     # (grads, state, params) -> (new_params, new_state, metrics)
     update: Callable
+    # the parameters ``update`` needs whole, judged on the whole
+    # parameter; it updates every other leaf elementwise given the whole
+    # gradient's global norm (``update(..., gnorm=)``), so the sharded
+    # train step hands it those as this rank's shards (ZeRO)
+    needs_whole: Callable = lambda p: True
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -34,8 +39,11 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm, norm=None):
+    """``grads`` scaled to a global norm of at most ``max_norm``, and the
+    norm; ``norm``: the norm, where ``grads`` is a piece of the tree it
+    was taken of."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
@@ -47,7 +55,11 @@ def _first_device(tree) -> torch.device:
 
 def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0,
           clip_norm=1.0, moment_dtype=torch.float32):
-    """lr may be a float or a schedule fn(step) -> lr."""
+    """lr may be a float or a schedule fn(step) -> lr.  ``update(grads,
+    state, params, gnorm=None)``: ``gnorm`` is the global norm of the
+    whole gradient, where ``grads``, ``state`` and ``params`` are one
+    rank's shards of their trees (the rest of the update is
+    elementwise)."""
     lr_fn = lr if callable(lr) else (lambda _: lr)
     moment_dtype = as_torch_dtype(moment_dtype)
 
@@ -58,11 +70,11 @@ def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0,
                 "step": torch.zeros((), dtype=torch.int32,
                                     device=_first_device(params))}
 
-    def update(grads, state, params):
+    def update(grads, state, params, gnorm=None):
         step = state["step"] + 1
         if clip_norm:
-            grads, gnorm = clip_by_global_norm(grads, clip_norm)
-        else:
+            grads, gnorm = clip_by_global_norm(grads, clip_norm, gnorm)
+        elif gnorm is None:
             gnorm = global_norm(grads)
         lr_t = lr_fn(step)
         bc1 = 1 - torch.pow(b1, step.to(torch.float32))
@@ -86,4 +98,4 @@ def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0,
         return new_params, {"m": new_m, "v": new_v, "step": step}, \
             {"grad_norm": gnorm, "lr": lr_t}
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, needs_whole=lambda p: False)

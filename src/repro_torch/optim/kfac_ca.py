@@ -320,7 +320,11 @@ def kfac_ca(lr=1e-3, ema=0.95, damping=1e-3, max_dim=8192, min_dim=8,
     """Optimizer factory.  ``update_freq``: refresh the factor EMAs
     every k steps (stale preconditioner in between).  ``mode``:
     "whiten" (default, one-sided) | "two_sided" | "inverse" (ablations).
-    fp32 GEMMs run in IEEE fp32 (TF32 off)."""
+    fp32 GEMMs run in IEEE fp32 (TF32 off).  ``update(grads, state,
+    params, gnorm=None)``: the preconditioned parameters (those with
+    Kronecker factors) come whole, the others may be one rank's shards
+    given the whole gradient's global norm ``gnorm`` (their update is
+    adam's, elementwise)."""
     lr_fn = lr if callable(lr) else (lambda _: lr)
     inner = adamw(lr=lr_fn, clip_norm=0.0, **adam_kw)
 
@@ -349,21 +353,21 @@ def kfac_ca(lr=1e-3, ema=0.95, damping=1e-3, max_dim=8192, min_dim=8,
                 "kron": tree_map(fstate, params),
                 "step": torch.zeros_like(adam_state["step"])}
 
-    def update(grads, state, params):
+    def update(grads, state, params, gnorm=None):
         preclib.pin_matmul_numerics()
         step = state["step"] + 1
         if clip_norm:
-            grads, gnorm = clip_by_global_norm(grads, clip_norm)
-        else:
+            grads, gnorm = clip_by_global_norm(grads, clip_norm, gnorm)
+        elif gnorm is None:
             gnorm = global_norm(grads)
         # the adam pass is the grafting baseline for every tensor
         adam_params, adam_state, _ = inner.update(grads, state["adam"],
-                                                  params)
+                                                  params, gnorm=gnorm)
         lr_t = lr_fn(step)
         do_refresh = (step % update_freq) == 0
 
         def upd(p, g, kron, a_new):
-            if not eligible(p):
+            if not kron:                # not preconditioned (init's rule)
                 return a_new, kron
             gf = g.to(torch.float32)
             A, B = kron
@@ -386,4 +390,4 @@ def kfac_ca(lr=1e-3, ema=0.95, damping=1e-3, max_dim=8192, min_dim=8,
         new_state = {"adam": adam_state, "kron": new_kron, "step": step}
         return new_params, new_state, {"grad_norm": gnorm, "lr": lr_t}
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, needs_whole=eligible)

@@ -33,6 +33,20 @@ def tree_map(fn: Callable, tree, *rest, is_leaf: Callable | None = None):
                                is_leaf=is_leaf) for i, t in enumerate(tree))
 
 
+def tree_map_with_keys(fn: Callable, tree,
+                       is_leaf: Callable | None = None, keys: tuple = ()):
+    """``fn(keys, leaf)`` over the leaves of ``tree`` (``keys`` as
+    :func:`leaves_with_keys` gives them), in its structure: the
+    reference's ``jax.tree_util.tree_map_with_path``."""
+    if not _is_node(tree, is_leaf):
+        return fn(keys, tree)
+    if isinstance(tree, dict):
+        return {k: tree_map_with_keys(fn, tree[k], is_leaf, keys + (k,))
+                for k in sorted(tree)}
+    return type(tree)(tree_map_with_keys(fn, t, is_leaf, keys + (i,))
+                      for i, t in enumerate(tree))
+
+
 def leaves_with_keys(tree, is_leaf: Callable | None = None,
                      keys: tuple = ()) -> Iterator[tuple]:
     """``(keys, leaf)`` for every leaf, in flattening order: ``keys``

@@ -9,6 +9,12 @@ is fsynced and renamed first), so a crash mid-save never yields a
 restorable-but-corrupt state; ``latest_step`` only ever returns
 complete checkpoints.  Either package restores the other's checkpoints
 bit for bit.  bfloat16 leaves are stored as their uint16 bits.
+
+Sharded state (each rank holding its pieces, ``models.sharding``):
+``save(..., shardings=)`` gathers every leaf whole and rank 0 writes
+the same format; ``restore(..., shardings=)`` cuts each rank's piece
+for a target mesh, which may have another shape than the one that
+saved (elastic resharding).
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.models import sharding as shard_rules
 from repro_torch.optim.tree import leaves_with_keys, tree_map
 
 
@@ -40,12 +47,28 @@ def _flatten(tree) -> dict:
             for keys, leaf in leaves_with_keys(tree)}
 
 
-def save(ckpt_dir: str, step: int, state: dict, *, blocking: bool = True):
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_available() and \
+        dist.is_initialized() else 0
+
+
+def save(ckpt_dir: str, step: int, state: dict, *, blocking: bool = True,
+         shardings=None):
     """state: a nested container of tensors (params, opt_state, ...).
     With ``blocking=False`` the copy to the host and the write run on a
     thread, which is returned; the state must not be modified in place
-    until it has been joined."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    until it has been joined.  ``shardings``: a matching tree of
+    ``NamedSharding`` when ``state`` holds this rank's pieces; every
+    rank of the mesh calls ``save``, the leaves are gathered whole,
+    rank 0 writes (the others return None), and a blocking save
+    returns once the checkpoint is complete on every rank."""
+    writer = True
+    if shardings is not None:
+        state = shard_rules.gather(state, shardings)
+        writer = _rank() == 0
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
 
     def _write():
@@ -72,11 +95,22 @@ def save(ckpt_dir: str, step: int, state: dict, *, blocking: bool = True):
         os.replace(mtmp, os.path.join(path, "manifest.json"))
 
     if blocking:
-        _write()
+        if writer:
+            _write()
+        if shardings is not None:
+            _barrier()
+        return None
+    if not writer:
         return None
     t = threading.Thread(target=_write, daemon=True)
     t.start()
     return t
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
 
 
 def latest_step(ckpt_dir: str) -> int | None:
@@ -92,18 +126,22 @@ def latest_step(ckpt_dir: str) -> int | None:
     return best
 
 
-def restore(ckpt_dir: str, step: int, like, *, device=None):
+def restore(ckpt_dir: str, step: int, like, *, shardings=None,
+            device=None):
     """Restore into the structure of ``like`` (a nested container of
-    tensors, meta tensors included): each leaf comes back with the
-    stored dtype and bits, on ``device`` (default: the like leaf's, the
-    CPU for a meta leaf).  Returns (tree, step)."""
+    tensors, meta tensors included, of the global shapes): each leaf
+    comes back with the stored dtype and bits, on ``device`` (default:
+    the like leaf's, the CPU for a meta leaf).  ``shardings``: a
+    matching tree of ``NamedSharding`` for the TARGET mesh; each leaf
+    then comes back as this rank's piece (elastic reshard-on-load).
+    Returns (tree, step)."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     data = np.load(os.path.join(path, "host0.npz"))
     arrays = iter([data[_key(keys)] for keys, _ in leaves_with_keys(like)])
 
-    def load(leaf):
+    def load(leaf, sh):
         arr = next(arrays)
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"checkpoint leaf of shape {arr.shape} for a "
@@ -111,8 +149,13 @@ def restore(ckpt_dir: str, step: int, like, *, device=None):
         t = torch.from_numpy(arr.copy())
         if leaf.dtype == torch.bfloat16 and arr.dtype == np.uint16:
             t = t.view(torch.bfloat16)
+        if sh is not None:
+            t = shard_rules.piece(t, sh)
         dev = device if device is not None else (
             "cpu" if leaf.device.type == "meta" else leaf.device)
         return t.to(dev)
 
-    return tree_map(load, like), manifest["step"]
+    if shardings is None:
+        return tree_map(lambda leaf: load(leaf, None), like), \
+            manifest["step"]
+    return tree_map(load, like, shardings), manifest["step"]

@@ -1659,3 +1659,57 @@ def test_moe_grouped_forward_matches_the_cpu(cuda, monkeypatch):
                for e in picked["cpu"]) > cap
     assert (yg - yc).abs().max() <= 1e-5 * yc.abs().max()
     assert abs(ag.item() - ac.item()) <= 1e-5 * abs(ac.item())
+
+
+def _mesh_kfac(device):
+    """One fp32 kfac_ca ``jit_train_step`` of the qwen3 smoke model in
+    this rank of a (2, 1) ("data", "model") mesh (a microbatch a data
+    rank), and the same step run by this rank alone: (B1 launches in the
+    sharded step, the worst leaf's error over its largest entry, the
+    two losses)."""
+    from repro_torch import configs, optim
+    from repro_torch.core import precision
+    from repro_torch.data import synthetic
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm
+    from repro_torch.models import sharding as sr
+    from repro_torch.optim.tree import leaves
+    from repro_torch.train import train_step
+    precision.pin_matmul_numerics()
+    cfg = configs.get_smoke("qwen3-1.7b")
+    mesh = make_debug_mesh(2, 1)
+    params = lm.init(cfg, 0, device=device)
+    opt = optim.get("kfac_ca", lr=1e-2)
+    state = opt.init(params)
+    batch = synthetic.host_batch(cfg, 16, 4, step=0)
+    kw = dict(microbatches=2, dtype=torch.float32)
+    step = train_step.jit_train_step(cfg, mesh, opt, params, state, batch,
+                                     **kw)
+    ps, os_, bs = train_step.shardings_for(cfg, mesh, params, state, batch)
+    before = tri_inv_block.tri_inv_blocks.launches
+    p, _, m = step(sr.shard(params, ps), sr.shard(state, os_),
+                   sr.shard(batch, bs))
+    torch.cuda.synchronize()
+    launches = tri_inv_block.tri_inv_blocks.launches - before
+    got = sr.gather(p, ps)
+    want, _, m1 = train_step.make_train_step(cfg, opt, **kw)(params, state,
+                                                            batch)
+    err = max(((a - b).abs().max() / b.abs().max()).item()
+              for a, b in zip(leaves(got), leaves(want)))
+    return launches, err, m["loss"].item(), m1["loss"].item()
+
+
+@pytest.mark.gpu
+def test_sharded_kfac_train_step_on_two_ranks(cuda):
+    """A kfac_ca ``jit_train_step`` on two gloo ranks sharing the card
+    (the smoke qwen3-1.7b, fp32, TF32 off, its parameters and adam
+    moments stored in halves over "data"): B1 launched in both ranks,
+    and the updated parameters and the loss within 1e-5 of one rank's
+    step (every rank computes the same K-FAC update on the gathered
+    gradients)."""
+    from repro_torch.core import world
+    for launches, err, loss, one in world.spawn_ranks(2, "cuda:0",
+                                                      _mesh_kfac):
+        assert launches > 0
+        assert err <= 1e-5
+        assert abs(loss - one) <= 1e-5 * abs(one)
