@@ -341,7 +341,32 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    part with every rank's s (host clock to a synchronize), peak GiB, B1
    launches, MB staged through the host and, for a profiled step, the
    kernel share of its wall; then ``{"mesh_kernels": ...}``.
-19. The card line, the kernels' JSON summary, then the last line
+19. The analysis layer and the examples (``analysis_phase``).  (a)
+   The roofline: qwen3-1.7b at its published width and 28 layers, bf16
+   weights, one device: a prefill (batch 1, a 4096-token prompt, the
+   last position's logits) and a decode step (batch 4 against a
+   32768-position cache), each with the flops ``FlopCounterMode``
+   counts on the card beside ``roofline.model.forward_flops`` (inside
+   the reference's 0.6-1.6 band), ``cell_model``'s compute and memory
+   times on the H100 peaks, the bound of the work the step needs (the
+   weights and a decode step's cache read once, its new position and
+   the logits written once, the last position's logits only), the
+   median CUDA-event ms of 5 runs after a warmup, each bound's share
+   of it and the card's name and power limit.  (b) A calibration fitted from the card's rows
+   (``cost_model.fit_calibration``, each row weighted by its time):
+   the steady sweep (``Solver.solve``, p = 1, planned n0) at n in
+   {4096, 8192}, k in {16, 64, 256}, host clock to a synchronize, with
+   the port's steady S/W/F (S = W = 0 at p = 1: g only), and phase 12's
+   host-staged one-shot cases with their traced S/W/F (a and b); the
+   machine is named for gloo staging through host memory; (a, b, g,
+   dispatch_s) and the median relative error of the nominal and the
+   fitted machine; nothing written to the port's calibration file and
+   ``tuning.default_machine()`` still ``cost_model.h100()``.  (c)
+   ``examples/torch_quickstart.py`` in this process and
+   ``examples/torch_trsm_demo.py`` (8 gloo ranks sharing cuda:0), each
+   within its error bounds, B1, B2 and B3 launched (counted from 0
+   around each example).
+20. The card line, the kernels' JSON summary, then the last line
    ``{"ok": true, "device": {...}}``.  Each kernel's launches are those
    of its main path's run: B1 and B2 the inv configuration at the
    default n0, B3 the rec one, B4 the first structured one, B6 the rec
@@ -350,7 +375,8 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    is above 0 for every kernel; ``launches_lm`` its launches in phase
    16's kfac_ca steps, ``launches_families`` in phase 17's and
    ``launches_sharded`` in phase 18's, summed over its ranks (above 0
-   for B1).  The kernel lines of phases 12-15 also carry the ordered
+   for B1), ``launches_examples`` in phase 19's examples (above 0 for
+   B1, B2 and B3).  The kernel lines of phases 12-15 also carry the ordered
    ``ops.gemm``'s launches per rank.
 """
 
@@ -582,6 +608,18 @@ SERVE_MORE_KERNELS = ("trmm_masked", "trsm_substitution",
 # among them: every bucket the H100 planner makes here has m = 2 < p,
 # whose phase 1 (the doubling) runs a padded admission on B1
 SERVE_KERNELS = SERVE_SYNC_KERNELS + SERVE_MORE_KERNELS
+
+# phase 19: the analysis layer and the examples on the card
+ROOF_SEED = 240
+ROOF_PREFILL = (1, 4096)        # batch, prompt
+ROOF_DECODE = (4, LM_LONG_CACHE)   # batch, cache positions (phase 16's)
+ROOF_REPS = 5
+ROOF_BAND = (0.6, 1.6)          # counted / analytic flops, the reference's
+CAL_SEED = 250
+CAL_NS = (4096, 8192)
+CAL_KS = (16, 64, 256)
+CAL_REPS = 10
+EXAMPLE_KERNELS = ("tri_inv_blocks", "trmm", "trsm_substitution")
 
 
 class SmokeFailure(RuntimeError):
@@ -5024,7 +5062,7 @@ def serve_report(ranks, gname: str, totals) -> None:
         seconds=[a["seconds"] for a in asy])}), flush=True)
 
 
-def distributed_phase(card: str) -> dict:
+def distributed_phase(card: str, staged_rows: list) -> dict:
     """Phases 12-15: It-Inv, rec, the one-shot ``core.trsm``, the 3D
     product and the inversion, then the front door (``front_rank``),
     then structure and the producers (``front_rank`` on
@@ -5037,7 +5075,9 @@ def distributed_phase(card: str) -> dict:
     memory (staged) while every kernel launch runs on the card: this
     checks the algorithms and their kernels, not an interconnect.  Any
     rank's failure fails the phase.  Returns {kernel: launches}, summed
-    over ranks, grids, cases and the four phases."""
+    over ranks, grids, cases and the four phases, and appends each
+    phase-12 case's traced S, W, F and slowest rank's host-staged
+    seconds to ``staged_rows`` (phase 19's calibration rows)."""
     from repro_torch.core import selfcheck
     t0 = time.perf_counter()
     print(json.dumps(dict(distributed=dict(
@@ -5103,6 +5143,10 @@ def distributed_phase(card: str) -> dict:
                                               for r in ranks]
                 row["top_rank0"] = rec["profile"]["top"]
             print(json.dumps({"distributed_case": row}), flush=True)
+            staged_rows.append(dict(
+                grid=gname, case=label, s=row["cost"]["s"],
+                w=row["cost"]["w"], f=row["cost"]["f"],
+                measured_s=max(row["host_staged_seconds"])))
         for name in ("tri_inv_blocks", "trmm", "trsm_substitution"):
             check(name in vs_plain, f"phase 12 {gname}: {name} was held "
                                     f"against its plain version on no input")
@@ -5501,6 +5545,238 @@ def mesh_phase(card: str) -> dict:
     return dict(total)
 
 
+def step_bytes(params, cache=None, positions: int = 1) -> int:
+    """The bytes a step must move at the least, its output apart: the
+    weights read once and, for a decode step, the cache read once and
+    its one new position written (a ``positions``-deep cache)."""
+    from repro_torch.optim.tree import leaves
+    n = sum(t.nbytes for t in leaves(params))
+    if cache is not None:
+        c = sum(t.nbytes for t in leaves(cache)
+                if isinstance(t, torch.Tensor))
+        n += c + c // positions
+    return n
+
+
+def roofline_run(what: str, fn, cfg, sh, card: str, need_bytes: int) -> dict:
+    """One step of the full-width model against the H100 roofline:
+    flops that ``FlopCounterMode`` counts in it on the card beside
+    ``roofline.model.forward_flops`` (inside the reference's 0.6-1.6
+    band), ``cell_model``'s terms on one device, and the step's median
+    CUDA-event ms after a warmup.  ``cell_model`` charges what the
+    reference's model charges (a decode step's cache read and written
+    whole, a prefill's logits at every position); the step's own bound
+    is the work it needs: ``need_bytes`` (:func:`step_bytes`) and its
+    logits written once, the analytic flops with the logits of the last
+    position only.  The measured share is that bound's time over the
+    measured; ``model_share`` is ``cell_model``'s."""
+    from repro_torch.roofline import analysis
+    from repro_torch.roofline import model as rmodel
+    logits = fn()[0]                                      # warm
+    torch.cuda.synchronize()
+    flops = analysis.counted_flops(fn)
+    tokens = sh.global_batch * (1 if sh.kind == "decode" else sh.seq_len)
+    fwd = rmodel.forward_flops(cfg, sh, tokens)
+    check(ROOF_BAND[0] < flops / fwd < ROOF_BAND[1],
+          f"roofline {what}: counted flops {flops:.4g} are "
+          f"{flops / fwd:.3f}x the analytic {fwd:.4g}")
+    cm = rmodel.cell_model(cfg, sh, {"data": 1})
+    need_flops = fwd - 2.0 * (tokens - logits.shape[0]) * cfg.d_model \
+        * cfg.vocab
+    need_bytes += logits.nbytes
+    need_ms = max(need_flops / analysis.PEAK_FLOPS,
+                  need_bytes / analysis.HBM_BW) * 1e3
+    times = []
+    for _ in range(ROOF_REPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        times.append(ev[0].elapsed_time(ev[1]))
+    ms = float(np.median(times))
+    bound_ms = max(cm.t_compute, cm.t_memory, cm.t_collective) * 1e3
+    return dict(run=what, batch=sh.global_batch, seq=sh.seq_len,
+                counted_flops=flops, forward_flops=fwd,
+                counted_over_analytic=flops / fwd,
+                t_compute_ms=cm.t_compute * 1e3,
+                t_memory_ms=cm.t_memory * 1e3, bound_ms=bound_ms,
+                bottleneck=cm.bottleneck, need_flops=need_flops,
+                need_bytes=need_bytes, need_bound_ms=need_ms,
+                need_bound_by="operations" if need_flops
+                / analysis.PEAK_FLOPS > need_bytes / analysis.HBM_BW
+                else "bytes", ms=ms, ms_runs=times,
+                roofline_share=need_ms / ms, model_share=bound_ms / ms,
+                mfu=cm.model_flops / (ms / 1e3) / analysis.PEAK_FLOPS,
+                peaks=dict(flops=analysis.PEAK_FLOPS, hbm=analysis.HBM_BW),
+                card=card)
+
+
+def roofline_part(device, card: str) -> list:
+    """Phase 19 (a): qwen3-1.7b at its published width, all 28 layers,
+    bf16 weights and compute on one device: a prefill of
+    ROOF_PREFILL's batch and prompt (``lm.forward``, the last
+    position's logits, as the dry run's prefill cell) and a decode step
+    at ROOF_DECODE's batch against a cache of as many positions
+    (phase 16's shape: the step reads the whole cache)."""
+    from repro_torch import configs
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import lm
+    from repro_torch.optim.tree import tree_map
+    cfg = configs.get(LM_ARCH)
+    g = torch.Generator(device=device).manual_seed(ROOF_SEED)
+    params = tree_map(lambda t: t.to(torch.bfloat16),
+                      lm.init(cfg, g, device=device))
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16 = torch.bfloat16
+    B, S = ROOF_PREFILL
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=g, device=device)
+    recs = [roofline_run(
+        "prefill", lambda: lm.forward(params, cfg, tokens, dtype=bf16,
+                                      last_only=True),
+        cfg, ShapeConfig("prefill", S, B, "prefill"), card,
+        step_bytes(params))]
+    B, C = ROOF_DECODE
+    cache = lm.init_cache(cfg, B, C, dtype=bf16, device=device)
+    tok = torch.zeros((B, 1), dtype=torch.long, device=device)
+    recs.append(roofline_run(
+        "decode", lambda: lm.decode_step(params, cfg, tok, cache,
+                                         dtype=bf16),
+        cfg, ShapeConfig("decode", C, B, "decode"), card,
+        step_bytes(params, cache, C)))
+    del params, cache
+    for rec in recs:
+        print(json.dumps({"roofline": rec}), flush=True)
+    return recs
+
+
+def calibration_part(api, device, staged_rows: list) -> dict:
+    """Phase 19 (b): the machine fitted from the card's rows.  The
+    steady sweep (``Solver.solve``, p = 1, the planned n0) at CAL_NS x
+    CAL_KS, timed host clock to a synchronize, each row's S/W/F the
+    port's steady cost (S = W = 0 at p = 1: these rows identify g), and
+    phase 12's host-staged one-shot cases with their traced S/W/F (a
+    and b).  The fit weights each row by its time (least squares on
+    relative residuals: the rows span ms to s).  The machine is named
+    for what it measured, gloo staging through host memory; nothing is
+    written to the port's calibration file."""
+    import dataclasses
+    from repro_torch.core import cost_model as cm, tuning
+    check(len(staged_rows) > 0, "calibration: phase 12 left no rows")
+    grid = api.make_trsm_mesh(1, 1)
+    g = torch.Generator(device=device).manual_seed(CAL_SEED)
+    rows, dispatch = [], []
+    for n in CAL_NS:
+        L = torch.randn((n, n), generator=g, device=device).tril_()
+        L.diagonal().add_(n)
+        for k in CAL_KS:
+            solver = api.Solver.from_factor(L, grid, method="inv",
+                                            k_hint=k)
+            n0 = solver.spec_for(k).n0
+            B = torch.randn((n, k), generator=g, device=device)
+            solver.solve(B)
+            torch.cuda.synchronize()
+            for _ in range(CAL_REPS):                 # host dispatch
+                t = time.perf_counter()
+                solver.solve(B)
+                dispatch.append(time.perf_counter() - t)
+                torch.cuda.synchronize()
+            c = cm.it_inv_trsm_steady_cost(n, k, n0, 1, 1)
+            rows.append(dict(grid="1x1x1", case=f"steady n={n} k={k} "
+                             f"n0={n0}", s=c.s, w=c.w, f=c.f,
+                             measured_s=host_ms(lambda: solver.solve(B),
+                                                CAL_REPS) / 1e3))
+            del solver
+        del L
+    rows += staged_rows
+    base = dataclasses.replace(cm.h100(), name="h100-gloo-host-staged")
+    weighted = [dict(s=r["s"] / r["measured_s"], w=r["w"] / r["measured_s"],
+                     f=r["f"] / r["measured_s"], measured_s=1.0)
+                for r in rows]
+    cal = cm.fit_calibration(weighted, base,
+                             dispatch_s=float(np.median(dispatch)))
+    fitted = cal.apply(base)
+
+    def med_err(m):
+        return float(np.median([abs(cm.Cost(r["s"], r["w"], r["f"]).time(m)
+                                    - r["measured_s"]) / r["measured_s"]
+                                for r in rows]))
+    check(fitted.launch == base.launch, "calibration dropped the launch term")
+    check(tuning.calibration() is None and tuning.default_machine()
+          == cm.h100(), "calibration: the default machine moved")
+    check(not cm.CALIBRATION_PATH.exists(),
+          f"calibration: {cm.CALIBRATION_PATH} exists")
+    rec = dict(machine=fitted.name, a=cal.a, b=cal.b, g=cal.g,
+               dispatch_s=cal.dispatch_s, alpha=fitted.alpha,
+               beta=fitted.beta, gamma=fitted.gamma, rows=len(rows),
+               steady_rows=len(rows) - len(staged_rows),
+               staged_rows=len(staged_rows),
+               median_rel_err_nominal=med_err(base),
+               median_rel_err_fitted=med_err(fitted),
+               table=[dict(r, nominal_s=cm.Cost(r["s"], r["w"], r["f"]).time(
+                   base), fitted_s=cm.Cost(r["s"], r["w"], r["f"]).time(
+                       fitted)) for r in rows])
+    print(json.dumps({"calibration": rec}), flush=True)
+    return rec
+
+
+def examples_part(device) -> dict:
+    """Phase 19 (c): ``examples/torch_quickstart.py`` in this process
+    and ``examples/torch_trsm_demo.py``, whose 8 ranks are gloo ranks
+    sharing cuda:0, each under its own error bounds; B1, B2 and B3
+    launched by them, counted from 0 around each (the demo's in its
+    ranks, summed)."""
+    import importlib
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    out, totals = {}, collections.Counter()
+    for name in ("torch_quickstart", "torch_trsm_demo"):
+        mod = importlib.import_module(name)
+        t = time.perf_counter()
+        torch.cuda.synchronize()
+        reset_counts()
+        rec = mod.run("cuda")
+        torch.cuda.synchronize()
+        here = read_counts()
+        check(rec["ok"], f"{name}: an error missed its bound: "
+                         f"{rec['errors']} against {rec['bounds']}")
+        launches = {"tri_inv_blocks": rec["launches"]["B1"],
+                    "trmm": rec["launches"]["B2"],
+                    "trsm_substitution": rec["launches"]["B3"]}
+        if name == "torch_quickstart":   # this process: the counters agree
+            check(all(here[k] == v for k, v in launches.items()),
+                  f"{name}: launches {launches} against the counters "
+                  f"{here}")
+        totals.update(launches)
+        out[name] = dict(errors=rec["errors"], bounds=rec["bounds"],
+                         launches=launches, seconds=time.perf_counter() - t)
+        print(json.dumps({"example": dict(name=name, **out[name])}),
+              flush=True)
+    for name in EXAMPLE_KERNELS:
+        check(totals[name] > 0, f"{name} never launched by the examples")
+    return dict(totals)
+
+
+def analysis_phase(api, device, card: str, staged_rows: list) -> dict:
+    """Phase 19: (a) the roofline of the full-width qwen3-1.7b on the
+    card, (b) the calibration fitted from the card's rows (``staged_rows``
+    phase 12's), (c) the examples.  Returns {kernel: launches} of (c)."""
+    t = time.perf_counter()
+    roofline_part(device, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ta = time.perf_counter()
+    calibration_part(api, device, staged_rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tb = time.perf_counter()
+    launches = examples_part(device)
+    print(json.dumps(dict(phase19_s=dict(
+        roofline=ta - t, calibration=tb - ta,
+        examples=time.perf_counter() - tb))), flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -5594,7 +5870,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lap(11)
-    dist_launches = distributed_phase(card)               # phases 12-15
+    staged_rows = []
+    dist_launches = distributed_phase(card, staged_rows)  # phases 12-15
     lap(12)
     lm_launches = lm_phase(device, seed=LM_SEED)              # phase 16
     gc.collect()
@@ -5606,6 +5883,11 @@ def main() -> int:
     lap(17)
     mesh_launches = mesh_phase(card)                           # phase 18
     lap(18)
+    example_launches = analysis_phase(api, device, card,      # phase 19
+                                      staged_rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap(19)
 
     kernels = []
     for name, method, source, replaces in (
@@ -5650,7 +5932,9 @@ def main() -> int:
                             launches_lm=lm_launches.get(name, 0),
                             launches_families=family_launches.get(name,
                                                                   0),
-                            launches_sharded=mesh_launches.get(name, 0)))
+                            launches_sharded=mesh_launches.get(name, 0),
+                            launches_examples=example_launches.get(name,
+                                                                   0)))
     print(json.dumps(dict(gemm_launches_distributed=dist_launches.get(
         "gemm", 0), note="the ordered ops.gemm (no TPU kernel's port), "
                          "phases 12-15, summed over ranks")))
@@ -5659,7 +5943,8 @@ def main() -> int:
         note="seconds from the script's start, by phase (1: the card and "
              "the build; 12-15: the spawned ranks, split above; 16: the "
              "dense LM; 17: the other families; 18: the LM on a mesh of "
-             "four ranks)")))
+             "four ranks; 19: the roofline, the calibration, the "
+             "examples)")))
     print(json.dumps(dict(elapsed_s=time.perf_counter() - t_start)))
     print(card)
     print(json.dumps({"kernels": kernels}))

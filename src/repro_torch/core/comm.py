@@ -13,7 +13,9 @@ Every wrapper (a) issues the collective on the axis's process group
 and (b), when a :class:`CostTrace` is active, records the paper's
 alpha-beta-gamma cost of the call from static shapes (Sec. II-C1
 closed forms), once, where the call starts.  Recording happens during
-a real run: a program's trace is the costs of the collectives it ran.
+a run: a program's trace is the costs of the collectives it ran.
+:func:`traced_cost` runs one rank of a program on meta tensors over an
+abstract mesh, which records the same costs and exchanges nothing.
 
 Cost conventions (paper Sec. II-C1, words = elements):
     allgather(n_total, p):      S = log p,   W = n_total * 1_p
@@ -77,6 +79,7 @@ class Record:
     f: float          # flop contribution
     mult: float       # loop multiplier in effect
     label: str = ""   # the enclosing :func:`labelled` scope ("" outside)
+    itemsize: int = 0  # bytes of one word of the operand
 
 
 @dataclasses.dataclass
@@ -199,12 +202,12 @@ def _size(x: torch.Tensor) -> int:
     return int(math.prod(x.shape[_LEAD.get():]))
 
 
-def _rec(op, axis, p, words, s, w, f):
+def _rec(op, axis, x, p, words, s, w, f):
     t = _ACTIVE.get()
     if t is not None:
         name = ",".join(axis) if isinstance(axis, (tuple, list)) else str(axis)
         t.records.append(Record(op, name, p, words, s, w, f, _MULT.get(),
-                                _LABEL.get()))
+                                _LABEL.get(), x.element_size()))
 
 
 # ---------------------------------- mesh ----------------------------------
@@ -236,14 +239,17 @@ class Mesh:
     row-major over the axes (the TRSM grids' ("x", "y", "z") mesh of
     shape (p1, p1, p2) is :func:`make_mesh`'s; the LM's named meshes
     are :func:`make_named_mesh`'s).  An abstract mesh (``rank`` None)
-    has names and sizes only, for sharding rules.  Compared by
-    identity, so a grid holding it keys its own programs."""
+    has names and sizes only, for sharding rules; given a rank
+    (:meth:`at`) it runs one rank's program on meta tensors with no
+    exchange, for :func:`traced_cost`.  Compared by identity, so a grid
+    holding it keys its own programs."""
     names: tuple
     dims: tuple
     rank: int | None
     groups: dict                 # axes tuple -> (ProcessGroup, ranks)
     staged_bytes: int = 0        # host copies of gloo-staged tensors
     timeout: object = None       # the groups' collective timeout, or None
+    abstract: bool = False       # no processes: nothing is exchanged
 
     @property
     def axis_names(self) -> tuple:
@@ -257,6 +263,14 @@ class Mesh:
     @property
     def coords(self) -> tuple:
         return coords_in(self.rank, self.dims)
+
+    def at(self, rank: int) -> "Mesh":
+        """This abstract mesh seen from ``rank``."""
+        if not self.abstract:
+            raise ValueError("only an abstract mesh takes another rank")
+        if not 0 <= rank < math.prod(self.dims):
+            raise ValueError(f"rank {rank} is not on the mesh {self.shape}")
+        return dataclasses.replace(self, rank=rank)
 
     def size(self, axes: tuple) -> int:
         dims = self.shape
@@ -379,10 +393,13 @@ def make_named_mesh(dims, names, timeout=None) -> Mesh:
                   f"a {dims} {names} mesh")
 
 
-def abstract_mesh(dims, names) -> Mesh:
+def abstract_mesh(dims, names, rank: int | None = None) -> Mesh:
     """A mesh of shape ``dims`` with axes ``names`` and no processes:
-    what the sharding rules read (``jax.sharding.AbstractMesh``)."""
-    return Mesh(tuple(names), tuple(int(d) for d in dims), None, {})
+    what the sharding rules read (``jax.sharding.AbstractMesh``), and,
+    seen from a ``rank``, what :func:`traced_cost` runs a body on."""
+    mesh = Mesh(tuple(names), tuple(int(d) for d in dims), None, {},
+                abstract=True)
+    return mesh if rank is None else mesh.at(rank)
 
 
 def current_mesh() -> Mesh:
@@ -411,6 +428,14 @@ def axis_index(axis_name) -> int:
 def _exchange(axes: tuple, x: torch.Tensor, make_out, call, fixup,
               async_op: bool):
     mesh = current_mesh()
+    if mesh.abstract:
+        # one rank's run on an abstract mesh: the result's shape, no
+        # exchange (the cost was recorded by the caller)
+        if x.device.type != "meta":
+            raise ValueError(f"a collective on an abstract mesh takes meta "
+                             f"tensors, got one on {x.device}")
+        res = fixup(make_out(x.contiguous()))
+        return _ready(res) if async_op else res
     grp = mesh.group(axes)
     dev = x.device
     staged = mesh.staged(grp, x)
@@ -492,7 +517,7 @@ def all_gather(x, axis_name, *, axis: int = 0, tiled: bool = False):
     axes = _axes(axis_name)
     p = axis_size(axes)
     n_total = _size(x) * p
-    _rec("allgather", axis_name, p, n_total,
+    _rec("allgather", axis_name, x, p, n_total,
          s=_lg(p), w=n_total * _ind(p), f=0.0)
     return _gather(x, axes, axis, tiled, False)
 
@@ -501,7 +526,7 @@ def psum(x, axis_name):
     axes = _axes(axis_name)
     p = axis_size(axes)
     n = _size(x)
-    _rec("allreduce", axis_name, p, n,
+    _rec("allreduce", axis_name, x, p, n,
          s=2 * _lg(p), w=2 * n * _ind(p), f=n * _ind(p))
     return _psum(x, axes)
 
@@ -512,7 +537,7 @@ def pmax(x, axis_name):
     axes = _axes(axis_name)
     p = axis_size(axes)
     n = _size(x)
-    _rec("allreduce", axis_name, p, n,
+    _rec("allreduce", axis_name, x, p, n,
          s=2 * _lg(p), w=2 * n * _ind(p), f=n * _ind(p))
     return _psum(x, axes, dist.ReduceOp.MAX)
 
@@ -522,7 +547,7 @@ def psum_scatter(x, axis_name, *, scatter_dimension: int = 0,
     axes = _axes(axis_name)
     p = axis_size(axes)
     n_total = _size(x)          # input holds the full (pre-scatter) array
-    _rec("reduce-scatter", axis_name, p, n_total,
+    _rec("reduce-scatter", axis_name, x, p, n_total,
          s=_lg(p), w=n_total * _ind(p), f=n_total * _ind(p))
     d = scatter_dimension + _LEAD.get()
     if p == 1:
@@ -552,7 +577,7 @@ def all_to_all(x, axis_name, *, split_axis: int, concat_axis: int,
     axes = _axes(axis_name)
     p = axis_size(axes)
     n_local = _size(x)
-    _rec("alltoall", axis_name, p, n_local,
+    _rec("alltoall", axis_name, x, p, n_local,
          s=_lg(p), w=n_local * _lg(p) / 2.0, f=0.0)
     if p == 1:
         return x
@@ -579,10 +604,10 @@ def _permute(x, axes, perm, async_op):
     src = [s for s, d in perm if d == me]
     if dst == [me] and src == [me]:
         return _ready(x) if async_op else x
-    ranks = mesh.group(axes)[1]
 
     def peer(j):
-        return dict(group_peer=j) if _GROUP_PEER else dict(peer=ranks[j])
+        return dict(group_peer=j) if _GROUP_PEER \
+            else dict(peer=mesh.group(axes)[1][j])
 
     def make_out(s):
         return torch.zeros_like(s)
@@ -607,7 +632,7 @@ def ppermute(x, axis_name, perm: Sequence[tuple[int, int]]):
     axes = _axes(axis_name)
     p = axis_size(axes)
     n_local = _size(x)
-    _rec("permute", axis_name, p, n_local, s=1.0, w=n_local, f=0.0)
+    _rec("permute", axis_name, x, p, n_local, s=1.0, w=n_local, f=0.0)
     return _permute(x, axes, perm, False)
 
 
@@ -623,7 +648,7 @@ def all_gather_start(x, axis_name, *, axis: int = 0, tiled: bool = False):
     axes = _axes(axis_name)
     p = axis_size(axes)
     n_total = _size(x) * p
-    _rec("allgather", axis_name, p, n_total,
+    _rec("allgather", axis_name, x, p, n_total,
          s=_lg(p), w=n_total * _ind(p), f=0.0)
     return _gather(x, axes, axis, tiled, True)
 
@@ -638,7 +663,7 @@ def ppermute_start(x, axis_name, perm: Sequence[tuple[int, int]]):
     axes = _axes(axis_name)
     p = axis_size(axes)
     n_local = _size(x)
-    _rec("permute", axis_name, p, n_local, s=1.0, w=n_local, f=0.0)
+    _rec("permute", axis_name, x, p, n_local, s=1.0, w=n_local, f=0.0)
     return _permute(x, axes, perm, True)
 
 
@@ -654,7 +679,7 @@ def bcast_from(x, axis_name, root: int = 0):
     axes = _axes(axis_name)
     p = axis_size(axes)
     n = _size(x)
-    _rec("bcast", axis_name, p, n,
+    _rec("bcast", axis_name, x, p, n,
          s=2 * _lg(p), w=2 * n * _ind(p), f=0.0)
     masked = x if axis_index(axes) == root else torch.zeros_like(x)
     return _psum(masked, axes)
@@ -665,3 +690,27 @@ def gather_all_unrecorded(x: torch.Tensor) -> torch.Tensor:
     and no cost recorded (a layout change, as the reference's
     resharding of a program's output is not a collective of it)."""
     return _gather(x, MESH_AXES, 0, False, False)
+
+
+# ------------------------------ trace helpers ------------------------------
+
+def traced_cost(fn, *args, mesh: Mesh | None = None, rank: int = 0,
+                **kwargs) -> CostTrace:
+    """The collective costs of one rank's run of ``fn(*args, **kwargs)``
+    on an abstract mesh: the counterpart of the reference's trace on
+    abstract values.  ``args`` are meta tensors, so nothing is computed;
+    each collective records its closed form as in a real run and
+    returns a meta tensor of its result's shape, and each kernel
+    wrapper returns an empty meta result without a launch.
+
+    ``mesh`` (:func:`abstract_mesh`) binds the axis names of a shard
+    body, seen from ``rank``; a program built on an abstract grid
+    (``grid.abstract_grid``) binds its own mesh and rank.  A body that
+    branches on :func:`axis_index` records that rank's branch: every
+    TRSM program records the same trace on every rank (the selfchecks
+    hold it), so one rank's trace is the program's."""
+    bound = contextlib.nullcontext() if mesh is None \
+        else on_mesh(mesh.at(rank))
+    with trace() as t, bound:
+        fn(*args, **kwargs)
+    return t

@@ -10,14 +10,15 @@ three critical-path counts:
 
 ``Machine`` instantiates the model with hardware constants.  The port
 plans with :func:`h100` unless the caller passes a machine (Sec. VIII:
-"the exact choice is machine dependent"); the TPU preset stays so that
-plans can be compared with the reference's for the same machine.  The
-reference's measured calibration is TPU data and is not ported.  Only
-what the port's planners and its control plane price is here (the
-admission controller's :func:`queue_wait_estimate` included), and the
-Sec. III MM costs the distributed product is held to; the Sec. IX table
-comes with the slice that uses it.  A
-non-dense ``structure=`` (a
+"the exact choice is machine dependent"); the TPU presets stay so that
+plans can be compared with the reference's for the same machine.  A
+:class:`Calibration` rescales a machine from measured rows
+(:func:`fit_calibration`); :func:`load_calibration` reads the port's
+own file (:data:`CALIBRATION_PATH`), never the reference's TPU
+calibration.  The planners' closed forms, the control plane's
+:func:`queue_wait_estimate`, the Sec. III MM costs the distributed
+product is held to, and the Sec. IX table (:func:`paper_table_row`)
+are here.  A non-dense ``structure=`` (a
 :class:`~repro_torch.core.structure.FactorStructure`) prices the blocks
 the structured programs execute (DESIGN.md Sec. 14).
 """
@@ -25,7 +26,10 @@ the structured programs execute (DESIGN.md Sec. 14).
 from __future__ import annotations
 
 import dataclasses
+import functools
+import json
 import math
+import pathlib
 
 
 def lg(x: float) -> float:
@@ -166,6 +170,94 @@ def h100(dtype_bytes: int = 4) -> Machine:
         gamma=1.0 / 67e12,
         launch=5e-6,
     )
+
+
+def tpu_v5e_dcn(dtype_bytes: int = 2) -> Machine:
+    """Cross-pod (DCN) network: ~50us collective setup, ~25 GB/s/host.
+    The high-alpha regime where the paper's latency-avoiding trade pays
+    off even for square (n = k) solves."""
+    return Machine(
+        name="tpu_v5e_dcn",
+        alpha=5e-5,
+        beta=dtype_bytes / 25e9,
+        gamma=1.0 / 197e12,
+    )
+
+
+# --------------------- measured-cost calibration ---------------------
+
+@dataclasses.dataclass(frozen=True)
+class Calibration:
+    """A fitted per-:class:`Machine` correction (DESIGN.md Sec. 16).
+
+    The closed forms predict in model units (messages, words, flops
+    times nominal constants); measured times differ by per-term
+    factors (dispatch per collective, achieved vs peak bandwidth and
+    flops).  ``(a, b, g)`` rescale (alpha, beta, gamma), fitted by least
+    squares (:func:`fit_calibration`); ``dispatch_s`` is the measured
+    per-program host dispatch, in the same units as the calibrated
+    steady costs.  ``launch`` is carried over unscaled: no row of the
+    fit separates it."""
+    a: float = 1.0
+    b: float = 1.0
+    g: float = 1.0
+    dispatch_s: float | None = None
+
+    def apply(self, m: Machine) -> Machine:
+        return Machine(name=m.name + "+cal", alpha=m.alpha * self.a,
+                       beta=m.beta * self.b, gamma=m.gamma * self.g,
+                       launch=m.launch)
+
+
+def fit_calibration(rows, machine: Machine,
+                    dispatch_s: float | None = None) -> Calibration:
+    """Least-squares fit of the (a, b, g) rescale from measured rows.
+
+    Each row needs model counts ``s``/``w``/``f`` and a wall-clock
+    ``measured_s``; the fit solves ``min || A x - t ||`` with
+    ``A[i] = [alpha*s_i, beta*w_i, gamma*f_i]`` (``numpy.linalg.lstsq``)
+    and clips the scales positive: a negative term rate is never
+    physical, it only means the rows did not separate that term."""
+    import numpy as np
+    A = np.array([[machine.alpha * r["s"], machine.beta * r["w"],
+                   machine.gamma * r["f"]] for r in rows], dtype=float)
+    t = np.array([r["measured_s"] for r in rows], dtype=float)
+    x, *_ = np.linalg.lstsq(A, t, rcond=None)
+    x = np.clip(x, 1e-9, None)
+    return Calibration(a=float(x[0]), b=float(x[1]), g=float(x[2]),
+                       dispatch_s=dispatch_s)
+
+
+# the port's calibration file: a ``{"calibration": {"a", "b", "g",
+# "dispatch_s"}}`` object fitted on the card; none is committed yet
+CALIBRATION_PATH = pathlib.Path(__file__).with_name("h100_calibration.json")
+
+
+def load_calibration(path=None) -> Calibration | None:
+    """Load a calibration, by default the port's (:data:`CALIBRATION_PATH`;
+    the reference's ``benchmarks/BENCH_overlap.json`` rescales a TPU
+    machine from CPU hosts and is never read).  None when the file is
+    missing, unreadable or has no calibration block: planners then
+    price with the nominal machine.  Cached per path."""
+    p = pathlib.Path(path) if path is not None else CALIBRATION_PATH
+    return _load_calibration_cached(str(p))
+
+
+@functools.lru_cache(maxsize=8)
+def _load_calibration_cached(path: str) -> Calibration | None:
+    p = pathlib.Path(path)
+    if not p.is_file():
+        return None
+    try:
+        cal = json.loads(p.read_text()).get("calibration")
+        if not cal:
+            return None
+        ds = cal.get("dispatch_s")
+        return Calibration(a=float(cal["a"]), b=float(cal["b"]),
+                           g=float(cal["g"]),
+                           dispatch_s=None if ds is None else float(ds))
+    except (ValueError, KeyError, TypeError, AttributeError, OSError):
+        return None
 
 
 # --------------------- collectives (Sec. II-C1) ---------------------
@@ -443,3 +535,27 @@ def queue_wait_estimate(queued_cols: float, width: float,
     waves = math.ceil((queued_cols + width) / max(k, 1.0)) \
         + inflight_waves
     return waves * (steady_s + dispatch_s)
+
+
+# --------------------- Sec. IX comparison table ---------------------
+
+def paper_table_row(n: float, k: float, p: float) -> dict:
+    """The conclusion table: S/W/F for 'standard' (Rec-TRSM) vs
+    'new method' (It-Inv-TRSM) in the applicable regime."""
+    if n < 4 * k / p:
+        regime = "1D"
+        std = dict(S=lg(p), W=n * n, F=n * n * k / p)
+        new = dict(S=lg(p) ** 2, W=n * n, F=n * n * k / p)
+    elif n > 4 * k * math.sqrt(p):
+        regime = "2D"
+        std = dict(S=math.sqrt(p), W=lg(p) * n * k / math.sqrt(p),
+                   F=n * n * k / p)
+        new = dict(S=lg(p) ** 2 + (n / k) ** 0.75 * p ** (-1 / 8) * lg(p),
+                   W=n * k / math.sqrt(p), F=n * n * k / p)
+    else:
+        regime = "3D"
+        std = dict(S=(n * p / k) ** (2 / 3) * lg(p),
+                   W=(n * n * k / p) ** (2 / 3), F=n * n * k / p)
+        new = dict(S=lg(p) ** 2 + max(math.sqrt(n / k), 1.0) * lg(p),
+                   W=(n * n * k / p) ** (2 / 3), F=2 * n * n * k / p)
+    return dict(regime=regime, standard=std, new=new)

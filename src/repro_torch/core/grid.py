@@ -87,6 +87,16 @@ def make_trsm_mesh(p1: int, p2: int, device=None,
     return TrsmGrid(device, p1, p2, mesh)
 
 
+def abstract_grid(p1: int, p2: int, rank: int = 0) -> TrsmGrid:
+    """A grid on the meta device over an abstract mesh, seen from
+    ``rank``: its programs take meta tensors, compute nothing and
+    exchange nothing, and record the costs rank ``rank`` would
+    (``comm.traced_cost``)."""
+    mesh = comm.abstract_mesh((p1, p1, p2), comm.MESH_AXES, rank) \
+        if p1 * p1 * p2 > 1 else None
+    return TrsmGrid(torch.device("meta"), p1, p2, mesh)
+
+
 # ------------------------- cyclic storage helpers -------------------------
 
 def cyclic_perm(n: int, p: int) -> np.ndarray:

@@ -9,10 +9,11 @@ model ("This cost analysis makes it possible to determine optimal block
 sizes and processor grids a priori", Sec. I).
 
 Every planner prices with :func:`default_machine` -- the NVIDIA H100
-preset (``cost_model.h100``, nominal data-sheet constants) -- unless
-the caller passes ``machine=``.  The reference's calibration of its TPU
-constants is never read.  A non-dense ``structure=`` prices the blocks
-the structured sweep executes (DESIGN.md Sec. 14).
+preset (``cost_model.h100``, nominal data-sheet constants), rescaled
+by the port's calibration when its file exists -- unless the caller
+passes ``machine=``.  The reference's calibration of its TPU constants
+is never read.  A non-dense ``structure=`` prices the blocks the
+structured sweep executes (DESIGN.md Sec. 14).
 """
 
 from __future__ import annotations
@@ -27,20 +28,33 @@ from repro_torch.core import cost_model as cm
 # ------------------------- default machine -------------------------
 
 @functools.lru_cache(maxsize=1)
+def calibration() -> cm.Calibration | None:
+    """The port's calibration (``cost_model.CALIBRATION_PATH``), or None
+    when absent.  Cached for the process lifetime: planners consult it
+    on every decision."""
+    return cm.load_calibration()
+
+
+@functools.lru_cache(maxsize=1)
 def default_machine() -> cm.Machine:
     """The machine every planner prices with when the caller passes
-    none: the H100 preset (``cost_model.h100``).  Nothing is loaded from
-    disk.  An explicit ``machine=`` argument anywhere in this module
+    none: the H100 preset (``cost_model.h100``), rescaled by
+    :func:`calibration` when the port's file exists (its launch term
+    kept).  An explicit ``machine=`` argument anywhere in this module
     takes its place."""
-    return cm.h100()
+    m = cm.h100()
+    cal = calibration()
+    return cal.apply(m) if cal is not None else m
 
 
 def default_dispatch_s(fallback: float) -> float:
     """Per-program dispatch overhead in the units of the planners'
-    steady costs.  The port loads no calibration, so this is always
-    ``fallback`` (the fleet planner's nominal constant): the same
-    budget the reference prices with when it has no calibration, not a
-    time measured on the card."""
+    steady costs: the calibration's measured ``dispatch_s`` when one is
+    loaded, else ``fallback`` (the fleet planner's nominal constant, not
+    a time measured on the card)."""
+    cal = calibration()
+    if cal is not None and cal.dispatch_s is not None:
+        return cal.dispatch_s
     return fallback
 
 

@@ -5,7 +5,9 @@
 ``trsm_substitution`` (with ``valid=``, the validity-gated kernel B6)
 and ``gemm`` (the tri-GEMM's tiles as a product summed in one order
 whatever the shape) run the CUDA kernel on a CUDA tensor and the
-kernel's plain PyTorch version on a CPU tensor.
+kernel's plain PyTorch version on a CPU tensor; a meta tensor gets an
+empty meta result of the kernel's shape and dtype, and no launch
+(``comm.traced_cost`` runs programs so).
 ``block_inv_kernel`` is the drop-in hook for the solvers' ``block_inv=``
 parameter, and the port's default diagonal-block inverter.
 """

@@ -194,12 +194,15 @@ def tri_inv_blocks(Ls: torch.Tensor, valid=None) -> torch.Tensor:
             raise ValueError(f"valid on {valid.device}, Ls on {Ls.device}")
     if Ls.device.type == "cpu":
         return tri_inv_blocks_plain(Ls, valid)
-    if Ls.device.type != "cuda":
-        raise ValueError(f"tri_inv_blocks runs on CUDA or CPU tensors, "
-                         f"got {Ls.device}")
+    if Ls.device.type not in ("cuda", "meta"):
+        raise ValueError(f"tri_inv_blocks runs on CUDA or CPU tensors "
+                         f"(meta for shapes), got {Ls.device}")
     if Ls.dtype not in _SUFFIX:
         raise TypeError(f"tri_inv_blocks takes float32/bfloat16/float64, "
                         f"got {Ls.dtype}")
+    if Ls.device.type == "meta":
+        # a meta stack computes nothing: the result's shape, no launch
+        return torch.empty_like(Ls)
     if not Ls.is_contiguous():
         raise ValueError("tri_inv_blocks takes a contiguous stack")
     # a launch's 1-D grid: the leaf's m * n0 / S CTAs, a level's at most

@@ -107,9 +107,9 @@ def gemm(A: torch.Tensor, X: torch.Tensor, *,
     _check_gemm_layout(A, X)
     if A.device.type == "cpu" and X.device.type == "cpu":
         return gemm_plain(A, X, lower)
-    if A.device != X.device or A.device.type != "cuda":
-        raise ValueError(f"gemm runs on CUDA or CPU tensors, got "
-                         f"{A.device} and {X.device}")
+    if A.device != X.device or A.device.type not in ("cuda", "meta"):
+        raise ValueError(f"gemm runs on CUDA or CPU tensors (meta for "
+                         f"shapes), got {A.device} and {X.device}")
     if A.dtype != X.dtype or A.dtype not in _SUFFIX:
         raise TypeError(f"gemm takes matching float32/bfloat16/float64 "
                         f"operands, got {A.dtype} and {X.dtype}")
@@ -121,6 +121,8 @@ def gemm(A: torch.Tensor, X: torch.Tensor, *,
     b, M, K = A.shape
     N = X.shape[2]
     C = torch.empty((b, M, N), dtype=X.dtype, device=X.device)
+    if C.device.type == "meta":
+        return C                 # meta operands compute nothing: no launch
     with torch.cuda.device(A.device):
         status = _gemm_entry(A.dtype)(
             A.data_ptr(), A.stride(0), A.stride(1), X.data_ptr(),
@@ -186,6 +188,11 @@ def _check(L: torch.Tensor, X: torch.Tensor) -> None:
                              f"strides {t.stride()}")
 
 
+def _meta_result(X: torch.Tensor) -> torch.Tensor:
+    """C's shape for meta operands, which compute nothing: no launch."""
+    return torch.empty(X.shape, dtype=X.dtype, device=X.device)
+
+
 def _launch(L: torch.Tensor, X: torch.Tensor, *mask_args) -> torch.Tensor:
     """Launch B2, or B4 when ``mask_args`` is (mask pointer, bt), on
     checked CUDA operands; returns C."""
@@ -216,9 +223,11 @@ def trmm(L: torch.Tensor, X: torch.Tensor, block_mask=None,
     if L.device.type == "cpu" and X.device.type == "cpu":
         return trmm_plain(L, X)
     _check(L, X)
+    if L.device.type == "meta":
+        return _meta_result(X)
     if L.device.type != "cuda":
-        raise ValueError(f"trmm runs on CUDA or CPU tensors, got "
-                         f"{L.device}")
+        raise ValueError(f"trmm runs on CUDA or CPU tensors (meta for "
+                         f"shapes), got {L.device}")
     C = _launch(L, X)
     trmm.launches += 1
     return C
@@ -237,9 +246,9 @@ def trmm_masked(L: torch.Tensor, X: torch.Tensor, block_mask: torch.Tensor,
     if L.device.type == "cpu" and X.device.type == "cpu":
         return trmm_masked_plain(L, X, block_mask, bt)
     _check(L, X)
-    if L.device.type != "cuda":
-        raise ValueError(f"trmm_masked runs on CUDA or CPU tensors, got "
-                         f"{L.device}")
+    if L.device.type not in ("cuda", "meta"):
+        raise ValueError(f"trmm_masked runs on CUDA or CPU tensors (meta "
+                         f"for shapes), got {L.device}")
     n = X.shape[-2]
     if not isinstance(bt, int) or bt < 1 or n % bt:
         raise ValueError(f"block size bt={bt!r} must divide n={n}")
@@ -254,6 +263,8 @@ def trmm_masked(L: torch.Tensor, X: torch.Tensor, block_mask: torch.Tensor,
             f"{getattr(block_mask, 'dtype', type(block_mask))} "
             f"{tuple(getattr(block_mask, 'shape', ()))} on "
             f"{getattr(block_mask, 'device', None)}")
+    if L.device.type == "meta":
+        return _meta_result(X)
     C = _launch(L, X, block_mask.data_ptr(), bt)
     trmm_masked.launches += 1
     return C

@@ -150,12 +150,13 @@ def trsm_substitution(L: torch.Tensor, B: torch.Tensor, *,
         X = trsm_substitution_plain(L, B, acc, valid)
         return X[0] if squeeze else X
     suffix = _check(L, B, acc)
-    if L.device.type != "cuda":
-        raise ValueError(f"trsm_substitution runs on CUDA or CPU tensors, "
-                         f"got {L.device}")
+    if L.device.type not in ("cuda", "meta"):
+        raise ValueError(f"trsm_substitution runs on CUDA or CPU tensors "
+                         f"(meta for shapes), got {L.device}")
     m, n0, k = B.shape
     X = torch.empty((m, n0, k), dtype=B.dtype, device=B.device)
-    if m * n0 * k:
+    # meta operands compute nothing: the result's shape, no launch
+    if m * n0 * k and X.device.type != "meta":
         R = ROWS[B.dtype]
         blocks = m * -(-k // KT) * -(-n0 // R)   # CTAs
         # the ticket counter, then one flag per sub-block of each CTA

@@ -15,7 +15,9 @@ all on the same seeded inputs: the selfchecks' cases
   It-Inv and rec case at p > 1: It-Inv's as phase 1
   (``it_inv_phase1_sharded``, with ``block_inv`` the Pallas kernel
   hook) plus the unrolled sweep (``it_inv_sweep_sharded(unroll=True)``)
-  in the reference, the one-shot program in the port;
+  in the reference, the one-shot program in the port; and so does the
+  port's ``comm.traced_cost`` of the same program as each rank of an
+  abstract grid, on meta tensors (nothing computed, nothing exchanged);
 * the port's own checks pass on every grid and rank: the pipelined
   programs give the sequential ones' bits (``overlap``, the banded
   structure's level schedule included), phase 1's transposed faces are
@@ -454,6 +456,53 @@ def test_cost_trace_matches_reference(runs, name, i):
     assert (got["s"], got["w"], got["f"]) == (want["s"], want["w"],
                                               want["f"])
     assert got["by_op"] == want["by_op"]
+
+
+def _abstract_trace(name, case, rank):
+    """The port's ``comm.traced_cost`` of the case's program as ``rank``
+    of an abstract grid, on meta tensors: one rank's run, no exchange,
+    nothing computed."""
+    import torch
+    from repro_torch.core import comm, grid as gridlib, inv_trsm, mm3d
+    from repro_torch.core import rec_trsm, tri_inv
+
+    def meta(*shape):
+        return torch.empty(shape, dtype=torch.float64, device="meta")
+    grid = gridlib.abstract_grid(case[0], case[1], rank)
+    if name == "mm3d":
+        m, n, k = case[2:]
+        run = lambda: mm3d.matmul(meta(m, n), meta(n, k), grid)  # noqa: E731
+    elif name == "tri_inv":
+        n, s0, mode = case[2:]
+        run = lambda: tri_inv.invert(meta(n, n), grid, s0=s0,  # noqa: E731
+                                     mode=mode)
+    elif name == "rec_trsm":
+        n, k, n0 = case[2:]
+        run = lambda: rec_trsm.solve(meta(n, n), meta(n, k), grid,  # noqa
+                                     n0)
+    else:
+        n, k, n0 = case[2:5]
+        mode = case[5] if name == "it_inv_trsm" else "doubling"
+        run = lambda: inv_trsm.solve(meta(n, n), meta(n, k), grid,  # noqa
+                                     n0, mode=mode)
+    t = comm.traced_cost(run)
+    return dict(s=t.s, w=t.w, f=t.f, by_op=t.by_op())
+
+
+@pytest.mark.parametrize("name,i", _cases(("mm3d", "tri_inv", "doubling",
+                                           "it_inv_trsm", "rec_trsm")))
+def test_abstract_traced_cost_matches_reference(runs, name, i):
+    """``comm.traced_cost`` on an abstract grid (meta tensors, one rank,
+    no exchange) equals the reference's ``traced_cost`` exactly, for
+    every rank of the grid: no body's trace depends on the rank that
+    traces it."""
+    case = selfcheck.CASES[name][i]
+    want = json.loads(str(_reference(runs, name, i)["cost"]))
+    for rank in range(case[0] * case[0] * case[1]):
+        got = _abstract_trace(name, case, rank)
+        assert (got["s"], got["w"], got["f"]) == (want["s"], want["w"],
+                                                  want["f"]), rank
+        assert got["by_op"] == want["by_op"], rank
 
 
 @pytest.mark.parametrize("name,i", _cases(PORT_ONLY))

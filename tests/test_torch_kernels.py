@@ -22,7 +22,7 @@ from repro.kernels import ops as jops
 from repro.kernels.tri_inv_block import tri_inv_blocks as jax_tri_inv
 from repro.kernels.trmm import trmm as jax_trmm
 from repro_torch.convert import to_tensor
-from repro_torch.kernels import ops, tri_inv_block, trmm
+from repro_torch.kernels import ops, tri_inv_block, trmm, trsm_block
 from torch_parity import assert_inverse_close
 
 TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
@@ -183,14 +183,26 @@ def test_block_inv_kernel_rejects_degenerate_blocks():
     np.testing.assert_allclose(out.numpy(), np.ones((3, 1, 1)))
 
 
-def test_block_inv_kernel_takes_powers_of_two_off_the_cpu():
+def test_block_inv_kernel_takes_powers_of_two_off_the_cpu(monkeypatch):
     """Off the CPU every block size goes to tri_inv_blocks, a power of
     two (1 included) as it is and another padded to one with an identity
-    tail (tri_inv_blocks raises on a meta tensor because it runs on CUDA
-    or CPU only: no plain fallback)."""
+    tail; on a meta stack tri_inv_blocks returns the stack's shape
+    without a launch and never runs the plain version."""
+    def plain(*a, **k):
+        raise AssertionError("a meta stack reached the plain version")
+    monkeypatch.setattr(tri_inv_block, "tri_inv_blocks_plain", plain)
+    seen = []
+
+    def record(Ls, valid=None):
+        seen.append(tuple(Ls.shape))
+        return tri_inv_block.tri_inv_blocks(Ls, valid)
+    monkeypatch.setattr(ops, "tri_inv_blocks", record)
+    before = tri_inv_block.tri_inv_blocks.launches
     for n0 in (1, 3, 4):
-        with pytest.raises(ValueError, match="CUDA or CPU"):
-            ops.block_inv_kernel(torch.zeros((2, n0, n0), device="meta"))
+        out = ops.block_inv_kernel(torch.zeros((2, n0, n0), device="meta"))
+        assert out.device.type == "meta" and out.shape == (2, n0, n0)
+    assert seen == [(2, 1, 1), (2, 4, 4), (2, 4, 4)]
+    assert tri_inv_block.tri_inv_blocks.launches == before
 
 
 @pytest.mark.parametrize("n0", [3, 6, 16])
@@ -225,3 +237,53 @@ def test_gemm_holds_the_kernel_layout_on_the_cpu(strided):
     bad_X = X.transpose(-1, -2).contiguous().transpose(-1, -2)
     with pytest.raises(ValueError, match="unit column stride"):
         ops.gemm(bad_A, X) if strided == "A" else ops.gemm(A, bad_X)
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+META_CALLS = {
+    "tri_inv_blocks": (tri_inv_block, "tri_inv_blocks_plain",
+                       lambda: ops.tri_inv_blocks(_meta(3, 16, 16)),
+                       (3, 16, 16)),
+    "tri_inv_blocks_valid": (tri_inv_block, "tri_inv_blocks_plain",
+                             lambda: ops.tri_inv_blocks(
+                                 _meta(3, 16, 16),
+                                 _meta(3, dtype=torch.int32)), (3, 16, 16)),
+    "trmm": (trmm, "trmm_plain",
+             lambda: ops.trmm(_meta(2, 32, 32), _meta(2, 32, 8)), (2, 32, 8)),
+    "trmm_masked": (trmm, "trmm_masked_plain",
+                    lambda: ops.trmm(_meta(32, 32), _meta(32, 8),
+                                     block_mask=_meta(4, 4,
+                                                      dtype=torch.int32),
+                                     bt=8), (32, 8)),
+    "gemm": (trmm, "gemm_plain",
+             lambda: ops.gemm(_meta(2, 16, 32), _meta(2, 32, 8)), (2, 16, 8)),
+    "trsm_substitution": (trsm_block, "trsm_substitution_plain",
+                          lambda: ops.trsm_substitution(
+                              _meta(2, 16, 16), _meta(2, 16, 4)), (2, 16, 4)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(META_CALLS))
+def test_meta_call_launches_nothing_and_skips_the_plain_version(
+        monkeypatch, name):
+    """``comm.traced_cost`` runs programs on meta tensors: each wrapper
+    returns an empty meta result of the kernel's shape and dtype,
+    counts no launch and never runs its plain version (B3's plain loop
+    alone would run n rows of meta ops)."""
+    module, plain, call, shape = META_CALLS[name]
+
+    def refuse(*a, **k):
+        raise AssertionError(f"{name}: a meta call reached {plain}")
+    monkeypatch.setattr(module, plain, refuse)
+    wrappers = (tri_inv_block.tri_inv_blocks, trmm.trmm, trmm.trmm_masked,
+                trmm.gemm, trsm_block.trsm_substitution)
+    before = [(w.launches, getattr(w, "valid_launches", 0))
+              for w in wrappers]
+    out = call()
+    assert out.device.type == "meta" and tuple(out.shape) == shape
+    assert out.dtype == torch.float32
+    assert [(w.launches, getattr(w, "valid_launches", 0))
+            for w in wrappers] == before

@@ -120,14 +120,24 @@ def test_trsm_substitution_scope_and_no_fallback():
     assert torch.equal(X, torch.ones(8, 2))
     with pytest.raises(ValueError, match="one flag per system"):
         ops.trsm_substitution(L, torch.ones(8, 2), valid=torch.ones(2))
-    # neither CPU nor CUDA: the wrapper raises, it does not run the
-    # plain version, gated or not
-    with pytest.raises(ValueError, match="CUDA or CPU"):
-        ops.trsm_substitution(L.to("meta"), torch.ones(8, 2,
-                                                       device="meta"))
-    with pytest.raises(ValueError, match="CUDA or CPU"):
-        ops.trsm_substitution(L.to("meta"), torch.ones(8, 2, device="meta"),
-                              valid=torch.ones(1, device="meta"))
+    # meta operands: the result's shape, no launch and never the plain
+    # version, gated or not; operands on two devices raise
+    launches = (trsm_block.trsm_substitution.launches,
+                trsm_block.trsm_substitution.valid_launches)
+    plain = trsm_block.trsm_substitution_plain
+    trsm_block.trsm_substitution_plain = None     # would raise if called
+    try:
+        for valid in (None, torch.ones(1, device="meta")):
+            X = ops.trsm_substitution(L.to("meta"),
+                                      torch.ones(8, 2, device="meta"),
+                                      valid=valid)
+            assert X.device.type == "meta" and X.shape == (8, 2)
+    finally:
+        trsm_block.trsm_substitution_plain = plain
+    assert (trsm_block.trsm_substitution.launches,
+            trsm_block.trsm_substitution.valid_launches) == launches
+    with pytest.raises(ValueError, match="L on meta, B on cpu"):
+        ops.trsm_substitution(L.to("meta"), torch.ones(8, 2))
     with pytest.raises(TypeError):
         trsm_block._check(L.to("meta", torch.float64),
                           torch.ones(8, 2, device="meta"), torch.float32)

@@ -9,6 +9,7 @@ the reference in tests/test_torch_structure.py.
 
 import dataclasses
 import itertools
+import json
 
 import pytest
 
@@ -27,14 +28,9 @@ def _c(c):
     return (c.s, c.w, c.f)
 
 
-# the reference's cross-pod preset (tpu_v5e_dcn): a high-alpha machine,
-# spelt out on both sides since the port carries only the presets it plans
-# with
-_DCN = ("dcn", 5e-5, 2 / 25e9, 1 / 197e12)
-
-
 def _dcn():
-    return cm.Machine(*_DCN), jcm.Machine(*_DCN)
+    """The cross-pod preset: a high-alpha machine."""
+    return cm.tpu_v5e_dcn(), jcm.tpu_v5e_dcn()
 
 
 def _machines():
@@ -193,14 +189,16 @@ def test_auto_on_a_mesh_resolves_and_runs_like_the_reference():
         jgrid, n, n, method="auto", machine=jcm.tpu_v5e(), hoisted=True)
 
 
-def test_default_machine_is_the_h100_and_reads_no_calibration():
+def test_default_machine_is_the_h100_until_a_port_calibration_exists(
+        tmp_path, monkeypatch):
     m = tuning.default_machine()
     assert m == cm.h100() and m.name == "h100"
     assert (m.gamma, m.beta) == (1 / 67e12, 4 / 450e9)
-    # nothing of the reference's calibration path is ported
-    for name in ("load_calibration", "_default_calibration_path"):
-        assert not hasattr(cm, name)
-    assert not hasattr(tuning, "calibration")
+    # no port calibration in this tree, and the reference's
+    # BENCH_overlap.json (which has a calibration block) is never read
+    assert tuning.calibration() is None and cm.load_calibration() is None
+    assert jcm.load_calibration() is not None
+    assert tuning.default_dispatch_s(123.0) == 123.0
     assert tuning.choose_method(8192, 16, 1) \
         == tuning.choose_method(8192, 16, 1, cm.h100())
     assert tuning.tuning_table(4096, 16, 8)["plan"] \
@@ -208,6 +206,24 @@ def test_default_machine_is_the_h100_and_reads_no_calibration():
     g = api.plan_grid(1, 1)
     assert api.resolve_plan(g, 8192, 16, method="auto", hoisted=True) \
         == ("inv", 4096)
+    # a calibration at the port's path rescales the default machine and
+    # keeps its launch term
+    path = tmp_path / "h100_calibration.json"
+    path.write_text(json.dumps(dict(calibration=dict(
+        a=2.0, b=0.5, g=3.0, dispatch_s=7e-4))))
+    monkeypatch.setattr(cm, "CALIBRATION_PATH", path)
+    tuning.calibration.cache_clear()
+    tuning.default_machine.cache_clear()
+    try:
+        cal = tuning.default_machine()
+        assert cal == cm.Machine("h100+cal", m.alpha * 2.0, m.beta * 0.5,
+                                 m.gamma * 3.0, launch=m.launch)
+        assert tuning.default_dispatch_s(123.0) == 7e-4
+    finally:
+        monkeypatch.undo()
+        tuning.calibration.cache_clear()
+        tuning.default_machine.cache_clear()
+    assert tuning.default_machine() == cm.h100()
 
 
 @pytest.mark.parametrize("n", [256, 1024, 8192])
