@@ -14,7 +14,7 @@ Every ``*.cu`` found in both directories is compiled twice.  A kernel
 is matched with the old kernel of the same mangled name; where there is
 none and its last template argument is a bool followed by a trailing
 ``const int*`` parameter (a validity gate added since, as B5's was to
-``tri_inv_leaf_kernel`` and ``tri_gemm_kernel``), the instantiation
+``tri_inv_leaf_kernel``), the instantiation
 with the flag 0 is matched with the old kernel without that argument
 and parameter, and the one with the flag 1 is listed as gated.  Every
 kernel of a source the old directory lacks (B1 and B5's
@@ -23,9 +23,10 @@ no counterpart in the old build; an old kernel of a source both
 directories hold that no new kernel matches is listed as gone, unless
 its name matches one of the ``--replaced`` patterns (Python regexes,
 searched in the mangled name: kernels a redesign replaced on purpose,
-such as ``trmm.cu``'s MASK instantiations of ``tri_gemm_kernel`` when B4
-moved to ``trmm_tri.cu``), when it is listed as replaced; a pattern that
-names no such kernel fails.  Prints one line per kernel and
+such as ``tri_gemm_kernel``, the tiles of an earlier ``trmm.cu`` that
+its chunked ``ordered_gemm_kernel`` and ``ordered_gemm_fold`` replaced:
+``--replaced tri_gemm_kernel``), when it is listed as replaced; a
+pattern that names no such kernel fails.  Prints one line per kernel and
 ``SASS_UNGATED_IDENTICAL True`` when every matched kernel is,
 instruction for instruction, the old one and none is gone.  The path
 hash in the mangled name of a kernel in an anonymous namespace is left

@@ -36,9 +36,13 @@ Phases, in order; any failed check raises, so the exit code is not 0:
    skipped blocks, launched twice, and under a mask keeping every lower
    block held bit for bit against B2; its records carry the kernel's
    registers and CTAs per SM (``trmm.kernel_info``).  The ordered
-   product (``gemm_phase``; ``trmm.gemm``, no TPU kernel) is timed
-   beside torch.matmul at a width-1 capacity bank's residual and
-   trailing update.  The validity-gated substitution (B6, ``valid_phase``)
+   product (``gemm_phase``; ``trmm.gemm``, no TPU kernel) runs in fp32,
+   fp64 and bf16: its order held bit for bit
+   (``trmm.gemm_order_checks``), and at a width-1 capacity bank's
+   residual and trailing update and at phase 13's two local products
+   on (2, 2), held against an fp64 torch.matmul and ``gemm_plain`` and
+   timed beside torch.matmul, with KC, the tile, registers, CTAs per SM
+   and the workspace's bytes.  The validity-gated substitution (B6, ``valid_phase``)
    runs at a capacity bank's rec base case (16, 8192, 8192) x 16 with
    half its mask zero, on strided quadrant views and in fp64, each also
    with NaN planted in its invalid systems and with an all-ones mask
@@ -1094,41 +1098,99 @@ def masked_phase(device, timer, g):
     return main
 
 
-def gemm_phase(device, timer, g):
-    """The ordered product ``trmm.gemm`` (``SolveSpec.fixed_order``: a
-    width-1 capacity bank's updates and residuals; no TPU kernel) at a
-    width-1 bank's shapes: the residual tril(L) @ X at (1, 8192, 8192) x
-    16 fp32 (``lower=True``) and one trailing update, the (4096, 4096)
-    block column L[4096:, :4096] of an order-8192 factor (row stride
-    8192) @ (4096, 16).  Held against torch.matmul in fp64; timed beside
-    one torch.matmul (cuBLAS) on the same operands; the bound counts A
-    (its triangle for the residual), X and C once and the flops."""
-    from repro_torch.kernels import trmm
-    F = torch.randn((N, N), generator=g, device=device).tril_()
+GEMM_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
+# the ordered product against an fp64 torch.matmul: fp32 and bf16 sum in
+# fp32 in another order over up to 8192 terms, and bf16 rounds once
+GEMM_TOL = {torch.float32: 2e-5, torch.float64: 1e-10,
+            torch.bfloat16: 2e-2}
+
+
+def gemm_operands(device, dtype, g):
+    """(what, A, X, lower) of the ordered product's cases in ``dtype``:
+    a width-1 bank's residual tril(L) @ X at (1, 8192, 8192) x 16 and
+    one trailing update, the (4096, 4096) block column L[4096:, :4096]
+    of an order-8192 factor (row stride 8192) @ (4096, 16); and the two
+    local products of phase 13's C = 4 "inv" bank on (2, 2) (n = 8192,
+    n0 = 1024, k = 16; each rank's pieces: n / p1 rows, n0 / p1 or n /
+    p1 deep, k / p2 columns): a sweep update (4, 4096, 512) @ (4, 512,
+    8) and the residual (4, 4096, 4096) @ (4, 4096, 8)."""
+    F = torch.randn((N, N), generator=g, device=device).tril_().to(dtype)
     for what, A, lower in (("residual", F[None], True),
                            ("trailing update", F[None, N // 2:, :N // 2],
                             False)):
-        m, kk = A.shape[1:]
-        X = torch.randn((1, kk, PANEL_K), generator=g, device=device)
-        got = trmm.gemm(A, X, lower=lower)
-        want = torch.matmul(A.double(), X.double())
-        abs_err, rel_err = errors(got, want)
-        tol = 2e-5
-        check(rel_err <= tol, f"gemm {what}: max_rel_err {rel_err} > {tol}")
-        k_ms = timer.ms(lambda: trmm.gemm(A, X, lower=lower), 50)
-        lib_ms = timer.ms(lambda: torch.matmul(A, X), 50)
-        elems = m * (m + 1) // 2 if lower else m * kk
-        b_ms, b_by = bound(4 * (elems + (kk + m) * PANEL_K),
-                           2 * elems * PANEL_K, torch.float32)
-        print(json.dumps(dict(
-            kernel="gemm", what=what, tpu_kernel=None,
-            shape=[list(A.shape), list(X.shape)], a_strides=list(A.stride()),
-            lower=lower, dtype="float32", max_abs_err=abs_err,
-            max_rel_err=rel_err, tol=tol, kernel_ms=k_ms,
-            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)), flush=True)
-        del X, got, want
-    del F
-    torch.cuda.empty_cache()
+        yield what, A, torch.randn((1, A.shape[2], PANEL_K), generator=g,
+                                   device=device).to(dtype), lower
+    del F, A
+    for what, b, m, kk in (("phase 13 update (2, 2)", 4, N // 2, 512),
+                           ("phase 13 residual (2, 2)", 4, N // 2, N // 2)):
+        A = torch.randn((b, m, kk), generator=g, device=device).to(dtype)
+        yield what, A, torch.randn((b, kk, PANEL_K // 2), generator=g,
+                                   device=device).to(dtype), False
+        del A
+
+
+def gemm_bound(A, X, lower: bool) -> tuple:
+    """The ordered product's bound: A (its triangle where ``lower``), X
+    and C once, 2 flops a product."""
+    b, m, kk = A.shape
+    elems = b * (m * (m + 1) // 2 if lower else m * kk)
+    n = X.shape[2]
+    return bound(A.element_size() * (elems + b * (kk + m) * n),
+                 2 * elems * n, A.dtype)
+
+
+def gemm_phase(device, timer, g):
+    """The ordered product ``trmm.gemm`` (``SolveSpec.fixed_order``: a
+    width-1 capacity bank's updates and residuals, every product of a
+    bank over p > 1 ranks; no TPU kernel) in fp32, fp64 and bf16 at
+    ``gemm_operands``' four cases.  Per dtype, ``trmm.gemm_order_checks``
+    (the order's contract, bit for bit) and the compiled KC against
+    ``trmm.GEMM_KC``; per case, the kernel against an fp64 torch.matmul
+    and against ``gemm_plain``, timed beside one torch.matmul (cuBLAS;
+    bf16 on its tensor cores) on the same operands and the plain version
+    (one run), with the bound (``gemm_bound``), KC, the tile, registers,
+    CTAs per SM, the workspace's bytes and the card."""
+    from repro_torch.kernels import trmm
+    card = card_line()
+    for dtype in GEMM_DTYPES:
+        name = str(dtype).removeprefix("torch.")
+        check(trmm.gemm_info(dtype)["kc"] == trmm.GEMM_KC[dtype],
+              f"gemm {name}: compiled KC is not trmm.GEMM_KC")
+        bits = trmm.gemm_order_checks(dtype, device)
+        check(all(bits.values()), f"gemm {name}: order checks {bits}")
+        tol = GEMM_TOL[dtype]
+        for what, A, X, lower in gemm_operands(device, dtype, g):
+            got = trmm.gemm(A, X, lower=lower)
+            want = torch.matmul((A.tril() if lower else A).double(),
+                                X.double())
+            plain = trmm.gemm_plain(A, X, lower)
+            abs_err, rel_err = errors(got, want)
+            _, plain_rel_err = errors(got, plain)
+            check(rel_err <= tol and plain_rel_err <= tol,
+                  f"gemm {what} {name}: max_rel_err {rel_err} (fp64 "
+                  f"matmul), {plain_rel_err} (gemm_plain) > {tol}")
+            del want, plain
+            k_ms = timer.ms(lambda: trmm.gemm(A, X, lower=lower), 30)
+            lib_ms = timer.ms(lambda: torch.matmul(A, X), 30)
+            p_ms = timer.ms(lambda: trmm.gemm_plain(A, X, lower), 1, warm=0)
+            b_ms, b_by = gemm_bound(A, X, lower)
+            info = trmm.gemm_info(dtype, X.shape[2] > 16, lower)
+            print(json.dumps(dict(
+                kernel="gemm", what=what, tpu_kernel=None,
+                shape=[list(A.shape), list(X.shape)],
+                a_strides=list(A.stride()), lower=lower, dtype=name,
+                max_abs_err=abs_err, max_rel_err=rel_err,
+                plain_max_rel_err=plain_rel_err, tol=tol,
+                order_checks=bits, kernel_ms=k_ms, library_ms=lib_ms,
+                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                kc=info["kc"], tile=[info["tile_rows"], info["tile_cols"]],
+                stages=info["stages"], registers=info["registers"],
+                ctas_per_sm=info["ctas_per_sm"],
+                workspace_bytes=trmm.gemm_workspace_bytes(
+                    dtype, A.shape[0], *A.shape[1:], X.shape[2]),
+                card=card)), flush=True)
+            del got
+        torch.cuda.empty_cache()
 
 
 def valid_phase(device, timer, g):

@@ -83,8 +83,28 @@ class FactorBank:
     slots solve to zeros — they never contaminate live lanes); without
     it the bank is append-only (width == size grows per admission)."""
 
-    # the p > 1 AsyncSolveServer leading this bank (core.stream)
-    _relay = None
+    # the p > 1 AsyncSolveServer that leads this bank itself (plain mode)
+    _own_relay = None
+    # (weak reference to the SolverFleet, bucket key) while a fleet
+    # holds this bank as one of its buckets
+    _fleet = None
+
+    @property
+    def _relay(self):
+        """The p > 1 AsyncSolveServer leading this bank (core.stream):
+        the one that leads it itself, else, while the bank is still a
+        bucket of a fleet (not closed or rebuilt by ``apply_plan``), the
+        server leading that fleet, read at call time."""
+        if self._own_relay is not None or self._fleet is None:
+            return self._own_relay
+        ref, key = self._fleet
+        fleet = ref()
+        b = fleet._buckets.get(key) if fleet is not None else None
+        return fleet._relay if b is not None and b.bank is self else None
+
+    @_relay.setter
+    def _relay(self, server) -> None:
+        self._own_relay = server
 
     def __init__(self, grid: TrsmGrid, n: int, *, method: str = "inv",
                  n0: int | None = None, mode: str | None = None,

@@ -41,14 +41,17 @@ arguments, and every decision (routing, the integer LRU clock,
 reclaims, migrations) is a function of those calls, so each rank's
 banks hold the same factors in the same slots.  A p > 1
 ``AsyncSolveServer`` over the fleet leads it from rank 0: its
-mutations are streamed to the other ranks, and its lookups' LRU
-touches go with each message (``core.stream``).
+mutations, and those of each bucket's own bank (``fleet.bucket(key)
+.bank.admit``, ``fleet.solver(key).replace_factor``, ...), are streamed
+to the other ranks, and its lookups' LRU touches go with each message
+(``core.stream``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+import weakref
 
 from repro_torch.core import cost_model as cm
 from repro_torch.core import precision as preclib
@@ -322,6 +325,8 @@ class SolverFleet:
             transpose=transpose, precision=bp.policy, map_mode=map_mode,
             capacity=bp.capacity, structure=bp.structure,
             overlap=bp.overlap, cache=self.cache)
+        # the bank finds the server leading this fleet through it
+        bank._fleet = (weakref.ref(self), bp.key)
         return _Bucket(bp, bank, Solver.from_bank(bank))
 
     # ------------------------------ routing ------------------------------

@@ -46,10 +46,17 @@ def _local_product(A, B, acc, fixed_order: bool) -> torch.Tensor:
         return matmul_as(A, B, acc, acc)
     from repro_torch.kernels import ops
     lead = A.shape[:-2]
-    # the tri-GEMM reads A's columns at unit stride: a gathered panel
-    # one column wide can reshape to a view whose columns lie apart
-    out = ops.gemm(A.to(acc).reshape(-1, *A.shape[-2:]).contiguous(),
-                   B.to(acc).reshape(-1, *B.shape[-2:]).contiguous())
+    A = A.to(acc).reshape(-1, *A.shape[-2:])
+    B = B.to(acc).reshape(-1, *B.shape[-2:])
+    # ops.gemm takes A's rows and batch at any stride but its columns at
+    # unit stride (a gathered panel one column wide can reshape to a
+    # view whose columns lie apart), and X contiguous: copy only what it
+    # would refuse
+    if A.stride(-1) != 1:
+        A = A.clone(memory_format=torch.contiguous_format)
+    if not B.is_contiguous():
+        B = B.contiguous()
+    out = ops.gemm(A, B)
     return out.reshape(lead + out.shape[-2:])
 
 

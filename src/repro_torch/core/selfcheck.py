@@ -363,7 +363,10 @@ def check_serving(grid, case):
     and re-admit, stranded requests) and fleet mode (the Autoscaler's
     split and merge, streamed): every future's outcome, X within 1e-10
     (fp64), the stats and the replans the p = 1 run's, every rank's
-    fleet state equal at stop, a follower's submit refused."""
+    fleet state equal at stop, a follower's submit refused; and a
+    bucket's own bank mutated on the leader (``serving_bucket``):
+    streamed, every rank's state and X the p = 1 run's, a follower's
+    call refused."""
     import torch.distributed as dist
     from repro_torch import api
     from repro_torch.core import cost_model, errors
@@ -408,6 +411,23 @@ def check_serving(grid, case):
             line += f" follower submit refused={got['refused'] is not None}"
         ok = ok and agree
         lines.append(line)
+    got = serving_bucket(api, grid, machine, np.float64, leads=leads)
+    states = [None] * grid.p
+    dist.all_gather_object(states, (got["state"], got["messages"]))
+    agree = all(st == states[0] for st in states)
+    want = serving_bucket(api, one, machine, np.float64)
+    gap = max(float(np.abs(g - w).max() / np.abs(w).max())
+              for g, w in zip(got["x"], want["x"]))
+    agree = agree and gap <= 1e-10 and got["state"] == want["state"]
+    if leads:
+        agree = (agree and got["messages"]["mutate"] == 2
+                 and got["bad"] == [ValueError, ValueError]
+                 and [f[0] for f in got["futures"]]
+                 == [f[0] for f in want["futures"]])
+    else:
+        agree = agree and got["refused"] == [errors.ServingError] * 2
+    ok = ok and agree
+    lines.append(f"bucket bank streamed: states equal={agree} gap {gap:.1e}")
     return _result(f"serving p1={p1} p2={p2} n={n}: {'; '.join(lines)} "
                    f"{'OK' if ok else 'FAIL'}", ok)
 
@@ -514,8 +534,9 @@ def serving_sync(api, grid, machine, which: str, dtype) -> dict:
 def serving_rank(grid) -> dict:
     """One rank's run of every serving scenario on a p > 1 grid, fp64
     on the tpu_v5e cost model (the planner's parity machine): the two
-    synchronous ones in every rank alike, the two async ones led by
-    rank 0 and followed by the others."""
+    synchronous ones in every rank alike, the async ones (plain, fleet,
+    a bucket's own bank mutated) led by rank 0 and followed by the
+    others."""
     from repro_torch import api
     from repro_torch.core import cost_model
     machine = cost_model.tpu_v5e()
@@ -526,6 +547,8 @@ def serving_rank(grid) -> dict:
         out[("async", mode)] = serving_async(
             api, grid, machine, mode, np.float64,
             leads=grid.mesh.rank == 0)
+    out[("bucket",)] = serving_bucket(api, grid, machine, np.float64,
+                                      leads=grid.mesh.rank == 0)
     out[("stress",)] = serving_stress(api, grid, machine)
     return out
 
@@ -767,6 +790,96 @@ def serving_async(api, grid, machine, mode: str, dtype, *,
                          else _outcome(f) for f in futs],
                 stats=stats, replans=_replans(scaler), state=state(),
                 bad=bad, messages=messages())
+
+
+def serving_bucket(api, grid, machine, dtype, *, leads: bool = True) -> dict:
+    """A fleet bucket's own bank mutated while an ``AsyncSolveServer``
+    leads the fleet: ``plan_fleet({32: 2, 16: 2}, headroom=1)`` (one
+    spare slot in the order-32 bucket), two tenants admitted, a request
+    served; then, on the started leader, two mutations with a bad
+    argument (through the port's api: a non-square admit into the
+    bucket's bank, a replace of a slot that is not live through
+    ``fleet.solver(key)``), each of which must raise before it is
+    streamed; an admit straight into the bucket's bank
+    (``fleet.bucket(key).bank.admit``) and a replace through
+    ``fleet.solver(key).replace_factor`` of tenant "a"'s first slot;
+    three requests, one on the replaced slot; stop.  Then every rank
+    solves one RHS stack through ``fleet.solver(key)`` (collective at
+    p > 1), which reads every slot of the bucket, the admitted one too.
+    The leader returns every future's outcome, the stats, the fleet's
+    state, what the bad mutations raised, the stream's message counts,
+    the admitted slot and the stack's X on the live slots; a follower
+    (``leads`` False) first tries a bucket bank's admit and a
+    ``fleet.solver(key).evict_factor``, then follows, and returns the
+    state, what its two calls raised, the message counts and X."""
+    rng = np.random.default_rng(SERVE_SEED + 4)
+    clock = ManualClock()
+    man = {32: 2, 16: 2}
+    plan = api.plan_fleet(man, grid, k=ASYNC_K, machine=machine,
+                          dispatch_s=SERVE_DISPATCH_S, dtype=dtype,
+                          headroom=1)
+    fleet = api.SolverFleet(grid, plan)
+    for tenant, d in (("a", 32), ("b", 16)):
+        for i in range(man[d]):
+            fleet.admit(serving_factor(d, rng, dtype), tenant=tenant,
+                        tag=f"f{i}")
+    key = plan.bucket_for(32).key
+    bank = fleet.bucket(key).bank
+    srv = api.AsyncSolveServer(fleet, ASYNC_K, queue_depth=64,
+                               clock=clock).warmup()
+    new_factor = serving_factor(32, rng, dtype)
+    replacement = serving_factor(32, rng, dtype)
+    stack = rng.standard_normal((bank.width, 32, ASYNC_K)).astype(dtype)
+
+    def messages():
+        return dict(srv.stream.messages) if getattr(
+            srv, "stream", None) is not None else None
+
+    def solve_stack():
+        X = fleet.solver(key).solve(stack)
+        return [_np64(X[s]) for s in bank.live_slots()]
+
+    if not leads:
+        refused = []
+        for call in (lambda: bank.admit(new_factor),
+                     lambda: fleet.solver(key).evict_factor(0)):
+            try:
+                call()
+                refused.append(None)
+            except Exception as e:
+                refused.append(type(e))
+        srv.follow()
+        return dict(state=fleet.state(), refused=refused,
+                    messages=messages(), x=solve_stack())
+    futs, bad = [], []
+
+    def sub(b, **kw):
+        futs.append(srv.submit(b.astype(dtype), **kw))
+
+    sub(rng.standard_normal((32, 2)), tenant="a", tag="f0")
+    _drain(srv, clock, 0.001)
+    if api.__name__.startswith("repro_torch"):
+        dead = min(set(range(bank.width)) - set(bank.live_slots()))
+        for call in (lambda: bank.admit(np.eye(32, dtype=dtype)[1:]),
+                     lambda: fleet.solver(key).replace_factor(
+                         dead, replacement)):
+            try:
+                call()
+                bad.append(None)
+            except Exception as e:
+                bad.append(type(e))
+    slot = bank.admit(new_factor)
+    h = fleet.handles("a")[0]
+    fleet.solver(key).replace_factor(h.slot, replacement)
+    sub(rng.standard_normal((32, 3)), tenant="a", tag="f0")
+    sub(rng.standard_normal((32, 1)), tenant="a", tag="f1")
+    sub(rng.standard_normal((16, 2)), tenant="b", tag="f0")
+    _drain(srv, clock, 0.001)
+    stats = srv.stats()
+    srv.stop()
+    return dict(futures=[_outcome(f) for f in futs], stats=stats,
+                state=fleet.state() if hasattr(fleet, "state") else None,
+                bad=bad, messages=messages(), slot=slot, x=solve_stack())
 
 
 def check_transpose(grid, case):

@@ -383,8 +383,9 @@ class AsyncSolveServer:
             grid = solver.grid
         self._device = grid.device
         # p > 1: the descriptor stream (core.stream) and the fleet or
-        # bank whose mutations it carries (its _relay: self.guard); a
-        # streamed mutation's body runs with _applying set to its thread
+        # bank whose mutations it carries (its _relay: self.guard; a
+        # fleet's bucket banks read the fleet's); a streamed mutation's
+        # body runs with _applying set to its thread
         self._stream = None
         self._owner = self.fleet if self.fleet is not None \
             else solver.bank
@@ -593,6 +594,8 @@ class AsyncSolveServer:
         return self
 
     def _detach(self) -> None:
+        """Stop leading: the fleet's buckets' banks read the fleet's
+        relay, so clearing it releases them too."""
         if self._owner._relay is self:
             self._owner._relay = None
         if self.fleet is not None:
@@ -999,7 +1002,8 @@ class AsyncSolveServer:
     def guard(self, owner, kind: str, args: tuple, kwargs: dict, *,
               check, lock):
         """Run one mutation of the fleet or bank this server leads over
-        p > 1 ranks (the hook of ``core.stream.mutation``).  The leader
+        p > 1 ranks, or of a bucket's bank of that fleet (the hook of
+        ``core.stream.mutation``).  The leader
         holds the step lock, so no wave interleaves, and the owner's
         ``lock``; runs ``check`` (which raises before anything is
         streamed); streams the call; and runs it.  A follower refuses
@@ -1016,7 +1020,7 @@ class AsyncSolveServer:
                 f"go through the leader (rank 0), which streams them")
         with self._step_lock, lock:
             check()
-            self._forward(kind, args, kwargs)
+            self._forward(self._target(owner), kind, args, kwargs)
             with self._applying_here():
                 yield
 
@@ -1029,10 +1033,17 @@ class AsyncSolveServer:
         finally:
             self._applying = prev
 
-    def _forward(self, kind: str, args: tuple, kwargs: dict) -> None:
-        """The leader streams one mutation: a tensor or array argument
-        goes as a tensor, a fleet handle as its (bucket, slot), anything
-        else pickled."""
+    def _target(self, owner):
+        """Which object a mutation is streamed for: None for the fleet
+        or bank this server leads, ``("bucket", key)`` for the bank of
+        one of the led fleet's buckets."""
+        return None if owner is self._owner else ("bucket", owner._fleet[1])
+
+    def _forward(self, target, kind: str, args: tuple,
+                 kwargs: dict) -> None:
+        """The leader streams one mutation of ``target``
+        (:meth:`_target`): a tensor or array argument goes as a tensor,
+        a fleet handle as its (bucket, slot), anything else pickled."""
         from repro_torch.core.fleet import FleetHandle
         tensors = []
 
@@ -1044,7 +1055,7 @@ class AsyncSolveServer:
                 return ("tensor", len(tensors) - 1)
             return ("value", a)
 
-        head = dict(kind=kind, args=[enc(a) for a in args],
+        head = dict(target=target, kind=kind, args=[enc(a) for a in args],
                     kwargs={k: enc(v) for k, v in kwargs.items()},
                     sync=self._sync())
         self._stream.send(stream.MUTATE, head, tensors)
@@ -1098,10 +1109,16 @@ class AsyncSolveServer:
             self.waves += 1
 
     def _apply_mutation(self, head, tensors) -> None:
-        """Apply one streamed mutation to this rank's fleet or bank; a
-        fleet's ``apply_plan`` also drops the dispatchers of the buckets
-        it closed or rebuilt, as ``Autoscaler.apply`` does."""
-        target = self.fleet if self.fleet is not None else self.solver.bank
+        """Apply one streamed mutation to this rank's fleet or bank, or
+        to the bank of one of its fleet's buckets; a fleet's
+        ``apply_plan`` also drops the dispatchers of the buckets it
+        closed or rebuilt, as ``Autoscaler.apply`` does."""
+        if head["target"] is not None:
+            target = self.fleet.bucket(head["target"][1]).bank
+        elif self.fleet is not None:
+            target = self.fleet
+        else:
+            target = self.solver.bank
 
         def dec(enc):
             if enc[0] == "handle":

@@ -15,9 +15,11 @@ solve's collectives on the mesh's groups.  A message is one of:
 * ``WAVE`` — per dispatch unit its key and, per slot, the (seq, width)
   of each request, then the RHS blocks as one packed tensor per unit;
 * ``MUTATE`` — an admit, replace or evict of the fleet or bank the
-  server leads, or a fleet's ``apply_plan`` (an Autoscaler's replan),
-  made on the leader while it leads, with the factor (:func:`mutation`
-  marks the methods; the server's ``guard`` streams them);
+  server leads, or of the bank of one of that fleet's buckets (the
+  message names it by its bucket key), or a fleet's ``apply_plan`` (an
+  Autoscaler's replan), made on the leader while it leads, with the
+  factor (:func:`mutation` marks the methods; the server's ``guard``
+  streams them);
 * ``IDLE`` — a heartbeat when nothing went out for half the group's
   timeout, so an idle follower's receive does not time out;
 * ``STOP`` — the leader's ``stop()``: the followers return.
@@ -121,7 +123,8 @@ def mutation(*, check: str | None = None, lock: str | None = None,
 
     Without a server (``owner._relay`` None) the method runs as it is,
     under the owner's lock named ``lock``.  While a p > 1
-    ``AsyncSolveServer`` leads the owner, the call goes through the
+    ``AsyncSolveServer`` leads the owner (or the fleet whose bucket
+    holds the owner, a bank), the call goes through the
     server's ``guard(owner, kind, args, kwargs, check=, lock=)``: on the
     leader it runs the owner's ``check`` method (every argument check
     the body makes, so a bad argument raises before anything is

@@ -3,7 +3,7 @@
 ``trmm`` (with ``block_mask=``, the masked kernel ``trmm_masked``),
 ``tri_inv_blocks`` (with ``valid=``, the validity-gated kernel B5),
 ``trsm_substitution`` (with ``valid=``, the validity-gated kernel B6)
-and ``gemm`` (the tri-GEMM's tiles as a product summed in one order
+and ``gemm`` (the ordered product: each element summed in one order
 whatever the shape) run the CUDA kernel on a CUDA tensor and the
 kernel's plain PyTorch version on a CPU tensor; a meta tensor gets an
 empty meta result of the kernel's shape and dtype, and no launch

@@ -17,11 +17,15 @@ row and its (kept) k-steps, never on n, the batch or the operands'
 alignment, so B4 under a mask that keeps every lower block gives B2's
 bits.
 
-:func:`gemm` (``csrc/trmm.cu``) is a tiled product for a row-strided A,
-dense or lower triangular: no TPU kernel's port, but a product whose
-sums run in one order whatever the shape, which the trailing updates
-and residuals of a capacity bank need (``SolveSpec.fixed_order``) so
-that a padded slot solves as the unpadded factor does, bit for bit.
+:func:`gemm` (``csrc/trmm.cu``) is the ordered product for a
+row-strided A, dense or lower triangular: no TPU kernel's port, but a
+product whose sums run in one order whatever the shape, which the
+trailing updates and residuals of a capacity bank need
+(``SolveSpec.fixed_order``) so that a padded slot solves as the
+unpadded factor does, bit for bit.  Its kernel cuts k into chunks of a
+fixed depth (:data:`GEMM_KC`), sums each chunk as one FMA chain and
+adds the chunk sums in order, from a workspace it takes from torch's
+allocator; :func:`gemm_order_checks` holds that order.
 """
 
 from __future__ import annotations
@@ -61,6 +65,11 @@ def trmm_masked_plain(L: torch.Tensor, X: torch.Tensor, block_mask,
     return torch.matmul(Lm.to(acc), X.to(acc)).to(X.dtype)
 
 
+# KC, the ordered product's chunk depth by dtype: csrc/trmm.cu's Chunk
+# (gemm_info reports the compiled one)
+GEMM_KC = {torch.float32: 512, torch.bfloat16: 512, torch.float64: 256}
+
+
 def gemm_plain(A: torch.Tensor, X: torch.Tensor,
                lower: bool = False) -> torch.Tensor:
     """C = A @ X (tril(A) @ X when ``lower``) with fp32 (fp64) partial
@@ -81,9 +90,38 @@ def gemm_plain(A: torch.Tensor, X: torch.Tensor,
 def _gemm_entry(dtype: torch.dtype):
     fn = getattr(build.library("trmm"), "repro_gemm_" + _SUFFIX[dtype])
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [P, LL, LL, P, LL, P, LL, I, I, I, I, P]
+    fn.argtypes = [P, LL, LL, P, LL, P, P, LL, I, I, I, I, I, P]
     fn.restype = I
     return fn
+
+
+def gemm_workspace_bytes(dtype: torch.dtype, b: int, M: int, K: int,
+                         N: int) -> int:
+    """The bytes of the kernel's chunk partials: ceil(K / KC) * b * M *
+    N accumulators, or 0 where K fits in one chunk and the kernel writes
+    C itself."""
+    chunks = -(-K // GEMM_KC[dtype])
+    return chunks * b * M * N * _acc(dtype).itemsize if chunks > 1 else 0
+
+
+def gemm_info(dtype: torch.dtype, wide: bool = False,
+              lower: bool = False) -> dict:
+    """The ordered product's kernel for N <= 16 (``wide``: N > 16) and a
+    dense A (``lower``: a lower one, a shallower ring): registers per
+    thread, resident CTAs per SM (CUDA's occupancy calculator), threads
+    per CTA, shared bytes per CTA, spilled (local) bytes per thread, and
+    its constants: KC (the chunk depth), the tile's rows and columns, BK
+    and the ring's stages.  Builds the library and needs a CUDA
+    device."""
+    fn = getattr(build.library("trmm"), "repro_gemm_info_" + _SUFFIX[dtype])
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    vals = (ctypes.c_int * 10)()
+    build.check(fn(int(wide), int(lower), ctypes.addressof(vals)),
+                "gemm_info")
+    return dict(zip(("registers", "ctas_per_sm", "threads", "shared_bytes",
+                     "local_bytes", "kc", "tile_rows", "tile_cols", "bk",
+                     "stages"), vals))
 
 
 def _check_gemm_layout(A: torch.Tensor, X: torch.Tensor) -> None:
@@ -99,11 +137,12 @@ def gemm(A: torch.Tensor, X: torch.Tensor, *,
     contiguous columns (its row and batch strides are free: a block
     column of a resident stack passes without a copy) and X (b, K, N)
     contiguous: fp32 (fp64) partial sums in a fixed k order that does
-    not depend on M or K, the result in X's dtype.  On the card the
-    tri-GEMM's tiles (tri_a = ``lower``, so a lower A skips the tiles
-    above its diagonal as B2 does), on the CPU :func:`gemm_plain`.  The
+    not depend on M, N, b or the strides, the result in X's dtype.  On
+    the card ``csrc/trmm.cu``'s chunked order (a lower A's units above
+    its diagonal never exist), on the CPU :func:`gemm_plain`.  The
     layout is held on every device, so a CPU run refuses what the
-    kernel would."""
+    kernel would; meta operands give C's shape with no launch and no
+    workspace."""
     _check_gemm_layout(A, X)
     if A.device.type == "cpu" and X.device.type == "cpu":
         return gemm_plain(A, X, lower)
@@ -123,17 +162,100 @@ def gemm(A: torch.Tensor, X: torch.Tensor, *,
     C = torch.empty((b, M, N), dtype=X.dtype, device=X.device)
     if C.device.type == "meta":
         return C                 # meta operands compute nothing: no launch
-    with torch.cuda.device(A.device):
-        status = _gemm_entry(A.dtype)(
-            A.data_ptr(), A.stride(0), A.stride(1), X.data_ptr(),
-            X.stride(0), C.data_ptr(), b, M, K, N, int(lower),
-            torch.cuda.current_stream(A.device).cuda_stream)
+    # the chunk partials, from torch's caching allocator: no cudaMalloc a
+    # call, and freed in stream order after the launch
+    nbytes = gemm_workspace_bytes(A.dtype, b, M, K, N)
+    W = torch.empty((nbytes,), dtype=torch.uint8, device=A.device) \
+        if nbytes else None
+    # the C entry makes A's device current for its launches itself, and
+    # takes the device's current stream as a raw pointer: the host's
+    # share of a call is what bounds the small products of a p > 1 sweep
+    dev = A.device.index
+    status = _gemm_entry(A.dtype)(
+        A.data_ptr(), A.stride(0), A.stride(1), X.data_ptr(), X.stride(0),
+        C.data_ptr(), 0 if W is None else W.data_ptr(), b, M, K, N,
+        int(lower), dev, torch._C._cuda_getCurrentRawStream(dev))
     build.check(status, "gemm")
     gemm.launches += 1
     return C
 
 
 gemm.launches = 0
+
+
+def _offset_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied into a storage one element past its base: a view
+    whose base breaks 16-byte alignment (the element-load path)."""
+    flat = torch.empty((t.numel() + 1,), dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def gemm_order_checks(dtype: torch.dtype, device, seed: int = 0) -> dict:
+    """The ordered product's contract, bit for bit, on ``device`` (the
+    kernel on the card, :func:`gemm_plain` on the CPU): an element
+    depends on its row of A, its column of X and K only.  Each entry
+    says whether two products that must agree do: two launches; rows
+    shared with a shorter operand; a batch entry against its matrix
+    alone; N = 8 against 16 and 16 against 48 columns; K not a multiple
+    of KC (two chunk edges crossed) against A and X padded with zeros to
+    whole chunks, and K inside one chunk against the same padded past
+    three; an order-d operand padded with the identity into order n
+    (``lower`` and dense); ``lower`` with NaN above the diagonal against
+    explicit zeros; a strided view and a view whose base is not 16-byte
+    aligned against a contiguous copy."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    kc = GEMM_KC[dtype]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=device).to(dtype)
+
+    def padded(T, rows, cols):
+        out = torch.zeros(T.shape[:-2] + (rows, cols), dtype=dtype,
+                          device=device)
+        out[..., :T.shape[-2], :T.shape[-1]] = T
+        return out
+
+    M, K = 640, 5 * kc // 2 + 37
+    A, X = rnd(2, M, K), rnd(2, K, 16)
+    C = gemm(A, X)
+    out = dict(two_launches=torch.equal(C, gemm(A, X)),
+               shorter_operand=torch.equal(C[:, :300], gemm(A[:, :300], X)),
+               batch_entry=torch.equal(C[1:], gemm(A[1:], X[1:])),
+               n8_vs_n16=torch.equal(C[..., :8],
+                                     gemm(A, X[..., :8].contiguous())),
+               n16_vs_n48=torch.equal(
+                   C, gemm(A, torch.cat([X, rnd(2, K, 32)], -1))[..., :16]),
+               k_ragged_vs_padded=torch.equal(
+                   C, gemm(padded(A, M, 4 * kc), padded(X, 4 * kc, 16))))
+    k1 = kc // 2 + 3
+    A1, X1 = A[..., :k1].contiguous(), X[:, :k1].contiguous()
+    out["one_chunk_vs_several"] = torch.equal(
+        gemm(A1, X1), gemm(padded(A1, M, 3 * kc + 5),
+                           padded(X1, 3 * kc + 5, 16)))
+    d, n = kc + 188, 2 * kc + 76
+    T = rnd(1, d, d).tril_()
+    big = padded(T, n, n)
+    big[0, d:, d:] = torch.eye(n - d, dtype=dtype, device=device)
+    Xd = rnd(1, d, 16)
+    Xn = torch.cat([Xd, rnd(1, n - d, 16)], 1)
+    out["padded_identity_lower"] = torch.equal(
+        gemm(big, Xn, lower=True)[:, :d], gemm(T, Xd, lower=True))
+    out["padded_identity_dense"] = torch.equal(gemm(big, Xn)[:, :d],
+                                               gemm(T, Xd))
+    S = rnd(1, n, n)
+    upper = torch.ones((n, n), dtype=torch.bool, device=device).triu_(1)
+    out["lower_vs_explicit_zeros"] = torch.equal(
+        gemm(S.masked_fill(upper, float("nan")), Xn, lower=True),
+        gemm(S.tril(), Xn))
+    V = rnd(2, 900, 1300)[:, 100:, 200:1200]
+    Xv = rnd(2, 1000, 16)
+    Cv = gemm(V.contiguous(), Xv)
+    out["strided_view"] = torch.equal(gemm(V, Xv), Cv)
+    out["misaligned_view"] = torch.equal(
+        gemm(_offset_copy(V.contiguous()), _offset_copy(Xv)), Cv)
+    return out
 
 
 @functools.cache

@@ -29,7 +29,11 @@ split and merge, a cross-tenant reclaim after the submits' lookups):
 every future's outcome, X, ``stats()`` and the replans equal to the
 reference's and the p = 1 run's, every rank's fleet state equal at
 stop, a follower's submit refused, a leader's mutation with a bad
-argument refused before it is streamed.  The leader's drain thread against
+argument refused before it is streamed.  A bucket's own bank mutated
+on the started leader (``serving_bucket``: an admit straight into the
+bank, a replace through ``fleet.solver(key)``) is streamed: every
+rank's fleet state and X are the leader's, X the reference's and the
+p = 1 run's, and the same call on a follower raises ``ServingError``.  The leader's drain thread against
 concurrent submit and admitting threads keeps every rank's fleet state
 the leader's (``serving_stress``).  The CLI serves its five trsm
 workloads at ``--p1 2 --p2 1`` on the CPU, and under a launcher without
@@ -82,6 +86,8 @@ for p1, p2 in ((2, 1), (1, 2)):
     for mode in ("plain", "fleet"):
         out[(p1, p2, "async", mode)] = selfcheck.serving_async(
             api, grid, machine, mode, np.float64)
+    out[(p1, p2, "bucket", None)] = selfcheck.serving_bucket(
+        api, grid, machine, np.float64)
 with open(sys.argv[1], "wb") as f:
     pickle.dump(out, f)
 '''
@@ -154,6 +160,8 @@ def runs(tmp_path_factory):
         for mode in MODES:
             p1_runs[("async", mode)] = selfcheck.serving_async(
                 api, one, machine, mode, np.float64)
+        p1_runs[("bucket",)] = selfcheck.serving_bucket(
+            api, one, machine, np.float64)
         reference = _finish(ref, tmp / "ref.log", tmp / "ref.pkl", left())
     finally:
         if ref.poll() is None:
@@ -371,3 +379,82 @@ def test_cli_serves_every_trsm_workload_at_p_gt_1(capsys, workload):
                           text)
             return m.groups()
         assert counts(out) == counts(one)
+
+
+GRID_IDS = [pytest.param(g, id=f"{g[0]}x{g[0]}x{g[1]}") for g in GRIDS]
+
+
+@pytest.mark.parametrize("grid", GRID_IDS)
+def test_bucket_bank_mutations_match_reference(runs, grid):
+    """An admit straight into a fleet bucket's bank and a replace through
+    ``fleet.solver(key)`` on the started leader, then requests on the
+    replaced slot and a solve of every slot after stop: the outcomes,
+    ``stats()`` and every X against the reference's single-controller
+    calls, which change the one bucket bank all its devices share
+    (2e-5: the reference's fp64 "inv" bucket through the hook is
+    fp32-grade at p > 1)."""
+    got = _ranks(runs, grid)[0][("bucket",)]
+    want = _reference(runs, grid, "bucket", None)
+    assert [f[0] for f in got["futures"]] == [f[0] for f in want["futures"]]
+    for f, w in zip(got["futures"], want["futures"]):
+        assert_close(f[1], w[1], 2e-5)
+    assert got["stats"] == want["stats"]
+    assert got["slot"] == want["slot"]
+    assert len(got["x"]) == len(want["x"])
+    for x, w in zip(got["x"], want["x"]):
+        assert_close(x, w, 2e-5)
+
+
+@pytest.mark.parametrize("grid", GRID_IDS)
+def test_bucket_bank_mutations_match_p1(runs, grid):
+    """The same calls at p = 1: the same outcomes, stats and fleet state
+    (the admitted slot live, the replaced slot's generation), X within
+    1e-10."""
+    got = _ranks(runs, grid)[0][("bucket",)]
+    want = runs[2][("bucket",)]
+    assert [f[0] for f in got["futures"]] == [f[0] for f in want["futures"]]
+    assert got["stats"] == want["stats"]
+    assert got["state"] == want["state"]
+    assert got["slot"] == want["slot"]
+    key = next(iter(got["state"]["buckets"]))
+    assert got["slot"] in got["state"]["buckets"][key]["live"]
+    for f, w in zip(got["futures"], want["futures"]):
+        assert _gap(f[1], w[1]) <= 1e-10
+    for x, w in zip(got["x"], want["x"]):
+        assert _gap(x, w) <= 1e-10
+
+
+@pytest.mark.parametrize("grid", GRID_IDS)
+def test_bucket_bank_mutations_reach_every_rank(runs, grid):
+    """The two bucket-bank calls went out as MUTATE messages (two, the
+    bad ones none), every follower received what the leader sent, and
+    every rank's fleet state and its solve of the bucket's slots after
+    stop are the leader's, bit for bit: without the stream a follower's
+    bank would still hold the old factors and the collective solve
+    would mix pieces of different factors."""
+    ranks = _ranks(runs, grid)
+    lead = ranks[0][("bucket",)]
+    assert lead["messages"]["mutate"] == 2
+    for r in ranks[1:]:
+        got = r[("bucket",)]
+        assert got["messages"] == lead["messages"]
+        assert got["state"] == lead["state"]
+        assert len(got["x"]) == len(lead["x"])
+        for x, x0 in zip(got["x"], lead["x"]):
+            assert np.array_equal(x, x0)
+
+
+@pytest.mark.parametrize("grid", GRID_IDS)
+def test_bucket_bank_mutation_refused_on_a_follower_or_bad(runs, grid):
+    """On a follower, a bucket bank's admit and a ``fleet.solver(key)
+    .evict_factor`` raise ``ServingError`` and change nothing; on the
+    leader a non-square admit into the bucket's bank and a replace of a
+    slot that is not live raise ``ValueError`` before anything is
+    streamed, as they do at p = 1."""
+    from repro_torch.core import errors
+    ranks = _ranks(runs, grid)
+    lead = ranks[0][("bucket",)]
+    assert lead["bad"] == runs[2][("bucket",)]["bad"] \
+        == [ValueError, ValueError]
+    for r in ranks[1:]:
+        assert r[("bucket",)]["refused"] == [errors.ServingError] * 2

@@ -577,6 +577,45 @@ def test_apply_plan_migrates_as_the_reference_does(jref):
         server.submit(reqs[0][0], tenant="a", tag=0)
 
 
+def test_bucket_banks_read_the_relay_of_the_fleet_that_holds_them():
+    """A bank that a fleet holds as a bucket finds the p > 1 server
+    leading the fleet (``_relay``) through the fleet, at call time, so
+    its own mutations are streamed too: set on the fleet, every bucket's
+    bank reads it; the banks of buckets that ``apply_plan`` rebuilt or
+    closed are no longer the fleet's and read none; cleared, no bank
+    reads it; a bank of no fleet keeps its own, and a bank whose fleet
+    is gone reads none."""
+    import gc
+
+    def plan(dispatch_s):
+        return api.plan_fleet({32: 2, 16: 2}, CPU, k=4, precision="fp32",
+                              dispatch_s=dispatch_s, machine=cm.tpu_v5e())
+    relay = object()
+    fleet = api.SolverFleet(CPU, plan(0.0))        # split: two buckets
+    old = [fleet.bucket(k).bank for k in fleet.buckets]
+    assert len(old) == 2 and all(b._relay is None for b in old)
+    fleet._relay = relay
+    assert all(b._relay is relay for b in old)
+    fleet._relay = None
+    res = fleet.apply_plan(plan(1e9))              # merged: 32 rebuilt
+    assert [k[0] for k in res["rebuilt"]] == [32]
+    assert [k[0] for k in res["closed"]] == [16]
+    fleet._relay = relay
+    assert all(b._relay is None for b in old)
+    new = fleet.bucket(fleet.buckets[0]).bank
+    assert new._relay is relay
+    fleet._relay = None
+    assert new._relay is None
+    alone = api.FactorBank(CPU, 16, capacity=2)
+    assert alone._relay is None
+    alone._relay = relay
+    assert alone._relay is relay
+    fleet._relay = relay
+    del fleet, res
+    gc.collect()
+    assert new._relay is None
+
+
 @pytest.mark.parametrize("precision", ["fp32", "bf16_refine"])
 def test_fleet_steady_state_builds_nothing(precision):
     """Routing, an in-place refresh with a placed factor and a

@@ -16,7 +16,7 @@ sequential FMA chains, the plain version's cuBLAS sums in another
 order, and the recurrence carries each difference into later rows.
 The validity-gated inversion (B5) is held as the inverse, and bit for
 bit, in its one valid block, against B1 on that block alone; the
-ordered product (``ops.gemm``) as trmm.
+ordered product (``ops.gemm``) as trmm, and its order bit for bit.
 """
 
 import pytest
@@ -1024,7 +1024,14 @@ def test_gemm_kernel_matches_plain_and_sums_in_one_order(cuda, dtype,
                                                          lower):
     """ops.gemm on a row-strided block column against its plain version
     within trmm's tolerance, and the rows it shares with a shorter (or,
-    lower triangular, a smaller) operand bit for bit."""
+    lower triangular, a smaller) operand bit for bit; and the whole
+    order contract bit for bit (``trmm.gemm_order_checks``): two
+    launches, rows shared with a shorter operand, a batch entry against
+    its matrix alone, N = 8 against 16 and 16 against 48, K not a
+    multiple of KC and K across several chunks against zero padding,
+    an order-d operand padded with the identity into order n, ``lower``
+    (NaN above the diagonal) against explicit zeros, a strided and a
+    misaligned view against a contiguous copy."""
     g = torch.Generator(device=cuda).manual_seed(18)
     n, r, k = 512, 128, 16
     L = torch.randn((2, n, n), generator=g, device=cuda).to(dtype)
@@ -1046,6 +1053,9 @@ def test_gemm_kernel_matches_plain_and_sums_in_one_order(cuda, dtype,
     else:
         part = trmm.gemm(A[:, :r], X)
     assert torch.equal(got[:, :r], part)
+    checks = trmm.gemm_order_checks(dtype, cuda, seed=int(lower))
+    torch.cuda.synchronize()
+    assert all(checks.values()), checks
 
 
 # ------------------------- the async tier -------------------------

@@ -287,3 +287,135 @@ def test_meta_call_launches_nothing_and_skips_the_plain_version(
     assert out.dtype == torch.float32
     assert [(w.launches, getattr(w, "valid_launches", 0))
             for w in wrappers] == before
+
+
+# ------------------------- the ordered product -------------------------
+
+GEMM_DTYPES = [torch.float32, torch.bfloat16, torch.float64]
+
+
+@pytest.mark.parametrize("lower", [False, True])
+@pytest.mark.parametrize("dtype", GEMM_DTYPES)
+def test_gemm_meta_path_launches_nothing_and_takes_no_workspace(
+        monkeypatch, dtype, lower):
+    """Meta operands deep enough for several chunks (K > KC) give C's
+    shape and dtype with no launch: the kernels' library is never
+    loaded and no workspace is sized or taken."""
+    from repro_torch.kernels import build
+
+    def refuse(*a, **k):
+        raise AssertionError("a meta gemm reached the kernel's path")
+    monkeypatch.setattr(build, "library", refuse)
+    monkeypatch.setattr(trmm, "gemm_workspace_bytes", refuse)
+    monkeypatch.setattr(trmm, "gemm_plain", refuse)
+    before = trmm.gemm.launches
+    k = 3 * trmm.GEMM_KC[dtype] + 1
+    out = ops.gemm(_meta(2, k, k, dtype=dtype), _meta(2, k, 16, dtype=dtype),
+                   lower=lower)
+    assert out.device.type == "meta" and out.dtype == dtype
+    assert tuple(out.shape) == (2, k, 16)
+    assert trmm.gemm.launches == before
+
+
+@pytest.mark.parametrize("case", ["float16", "mixed", "int32", "rank2",
+                                  "inner", "batch", "empty"])
+def test_gemm_refuses_dtypes_and_shapes(case):
+    """What the kernel does not take is refused before any launch (on
+    meta operands, the shapes a card would get): float16, mixed or
+    integer operands (TypeError); operands not (b, M, K) @ (b, K, N), or
+    empty (ValueError)."""
+    A, X = (2, 16, 32), (2, 32, 8)
+    dt = (torch.float32, torch.float32)
+    if case == "float16":
+        dt = (torch.float16, torch.float16)
+    elif case == "mixed":
+        dt = (torch.float32, torch.float64)
+    elif case == "int32":
+        dt = (torch.int32, torch.int32)
+    elif case == "rank2":
+        A, X = (16, 32), (32, 8)
+    elif case == "inner":
+        X = (2, 31, 8)
+    elif case == "batch":
+        X = (3, 32, 8)
+    else:
+        X = (2, 32, 0)
+    err = TypeError if case in ("float16", "mixed", "int32") else ValueError
+    with pytest.raises(err, match="gemm takes"):
+        ops.gemm(_meta(*A, dtype=dt[0]), _meta(*X, dtype=dt[1]))
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_gemm_layout_refusals_and_a_row_strided_view(device):
+    """A with a non-unit column stride and X not contiguous are refused
+    on the CPU and on meta operands alike, as the kernel refuses them;
+    a block column of a stack (free row and batch strides) passes as it
+    is and, on the CPU, gives tril(A) @ X."""
+    L = torch.randn(3, 12, 12, dtype=torch.float64, device=device)
+    A = L[:, 4:, :6]                              # row stride 12
+    X = torch.randn(3, 6, 5, dtype=torch.float64, device=device)
+    out = ops.gemm(A, X, lower=True)
+    assert tuple(out.shape) == (3, 8, 5)
+    if device == "cpu":
+        torch.testing.assert_close(out, torch.tril(A) @ X)
+    with pytest.raises(ValueError, match="unit column stride"):
+        ops.gemm(A.transpose(-1, -2)[:, :6, :6], X[:, :, :])
+    with pytest.raises(ValueError, match="unit column stride"):
+        ops.gemm(A, X.transpose(-1, -2).contiguous().transpose(-1, -2))
+
+
+@pytest.mark.parametrize("dtype", GEMM_DTYPES)
+def test_gemm_workspace_is_the_chunk_partials(dtype):
+    """The kernel writes C itself where K fits in one chunk (no
+    workspace), else ceil(K / KC) * b * M * N partials in the
+    accumulator type: 8 MiB at the fp32 residual (1, 8192^2) x 16."""
+    kc = trmm.GEMM_KC[dtype]
+    acc = 8 if dtype == torch.float64 else 4
+    assert trmm.gemm_workspace_bytes(dtype, 4, 100, kc, 16) == 0
+    assert trmm.gemm_workspace_bytes(dtype, 4, 100, kc + 1, 16) \
+        == 2 * 4 * 100 * 16 * acc
+    assert trmm.gemm_workspace_bytes(dtype, 1, 8192, 8192, 16) \
+        == 8192 // kc * 8192 * 16 * acc
+    assert trmm.gemm_workspace_bytes(torch.float32, 1, 8192, 8192, 16) \
+        == 8 * 2**20
+
+
+@pytest.mark.parametrize("dtype", GEMM_DTYPES)
+def test_gemm_order_checks_hold_for_the_plain_version(dtype):
+    """``trmm.gemm_order_checks`` (the ordered product's contract, bit
+    for bit) on the CPU, where ``ops.gemm`` is ``gemm_plain``: one
+    rank-1 term at a time in ascending k, so every pair agrees there as
+    the kernel's must on the card."""
+    checks = trmm.gemm_order_checks(dtype, "cpu")
+    assert checks and all(checks.values()), checks
+
+
+def test_local_product_copies_only_what_gemm_refuses(monkeypatch):
+    """``mm3d._local_product`` with ``fixed_order`` hands ``ops.gemm`` a
+    row-strided A and a contiguous X as they are (no copy), copies an A
+    whose columns lie apart and a non-contiguous X, and gives a
+    one-column panel whose column stride is not 1 (a view torch calls
+    contiguous) unit stride, which ``ops.gemm`` needs."""
+    from repro_torch.core import mm3d
+    seen = []
+    real = ops.gemm
+
+    def spy(A, X, **kw):
+        seen.append((A.data_ptr(), X.data_ptr()))
+        return real(A, X, **kw)
+    monkeypatch.setattr(ops, "gemm", spy)
+    acc = torch.float64
+    L = torch.randn(2, 10, 10, dtype=acc)
+    A, X = L[:, 2:, :4], torch.randn(2, 4, 3, dtype=acc)
+    torch.testing.assert_close(mm3d._local_product(A, X, acc, True), A @ X)
+    assert seen[-1] == (A.data_ptr(), X.data_ptr())
+    At = A.transpose(-1, -2).contiguous().transpose(-1, -2)
+    Xt = X.transpose(-1, -2).contiguous().transpose(-1, -2)
+    torch.testing.assert_close(mm3d._local_product(At, Xt, acc, True),
+                               A @ X)
+    assert seen[-1][0] != At.data_ptr() and seen[-1][1] != Xt.data_ptr()
+    panel = torch.randn(3, 5, dtype=acc).t()[:, :1].unsqueeze(0)
+    assert panel.is_contiguous() and panel.stride(-1) != 1
+    Y = torch.randn(1, 1, 2, dtype=acc)
+    torch.testing.assert_close(mm3d._local_product(panel, Y, acc, True),
+                               panel @ Y)
