@@ -28,9 +28,11 @@ y::p1] at block size n0/p1.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from repro_torch.core import comm
+from repro_torch.core import comm, trace
 from repro_torch.core import grid as gridlib
 from repro_torch.core.precision import PrecisionPolicy, matmul_as
 
@@ -131,19 +133,29 @@ def refined_solve(base_solve, L_lo, L_hi, B, *, policy: PrecisionPolicy,
     ``policy.io_dtype``."""
     io = policy.io_dtype
     B = B.to(io)
-    X = base_solve(L_lo, B.to(policy.compute))
+    with trace.span("refine.sweep", _pass(0)):
+        X = base_solve(L_lo, B.to(policy.compute))
     if not policy.refines:
         return X.to(io)
     res = policy.residual
     X = X.to(res)
-    for _ in range(policy.refine_steps):
-        if operator is not None:
-            r = B - operator(L_hi, X)
-        else:
-            r = B - apply_cyclic_operator(L_hi, X, p1=p1, p2=p2,
-                                          reverse=reverse, accum_dtype=res,
-                                          block_mask=block_mask, bt=bt,
-                                          fixed_order=fixed_order)
-        d = base_solve(L_lo, r.to(policy.compute))
+    for i in range(1, policy.refine_steps + 1):
+        with trace.span("refine.residual"):
+            if operator is not None:
+                r = B - operator(L_hi, X)
+            else:
+                r = B - apply_cyclic_operator(
+                    L_hi, X, p1=p1, p2=p2, reverse=reverse,
+                    accum_dtype=res, block_mask=block_mask, bt=bt,
+                    fixed_order=fixed_order)
+        with trace.span("refine.sweep", _pass(i)):
+            d = base_solve(L_lo, r.to(policy.compute))
         X = X + d.to(res)
     return X
+
+
+@functools.lru_cache(maxsize=None)
+def _pass(i: int) -> dict:
+    """The attributes of sweep ``i`` (0: the first solve), one shared
+    dict each, so a disabled span allocates nothing."""
+    return {"pass": i}

@@ -90,6 +90,7 @@ from repro_torch.core import comm
 from repro_torch.core import grid as gridlib
 from repro_torch.core import inv_trsm
 from repro_torch.core import refine as refinelib
+from repro_torch.core import trace
 from repro_torch.core.grid import TrsmGrid
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.core.structure import analyze, apply_block_mask
@@ -177,7 +178,9 @@ class CompiledSolverCache:
             # (after a failed build a waiter builds it)
             event.wait()
         try:
-            value = build()
+            attrs = _build_attrs(key) if trace.enabled() else None
+            with trace.span("program.build", attrs):
+                value = build()
         except BaseException:
             with self._lock:
                 self._inflight.pop(key, None)
@@ -208,6 +211,15 @@ class CompiledSolverCache:
             return dict(size=len(self._entries), hits=self.hits,
                         misses=self.misses, evictions=self.evictions,
                         hit_rate=self.hits / total if total else 0.0)
+
+
+def _build_attrs(key) -> dict:
+    """A ``program.build`` span's attributes: the program's kind, order,
+    right-hand-side width (None for an updater) and bank width."""
+    from repro_torch.core.solver import SolveSpec
+    solve = isinstance(key, SolveSpec)
+    return {"kind": "solve" if solve else "update", "n": key.n,
+            "k": key.k if solve else None, "width": key.bank_width}
 
 
 _DEFAULT_CACHE = CompiledSolverCache()

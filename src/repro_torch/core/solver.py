@@ -50,6 +50,7 @@ import torch
 
 from repro_torch.core import errors as _errors
 from repro_torch.core import precision as preclib
+from repro_torch.core import trace
 from repro_torch.core.bank import FactorBank
 from repro_torch.core.grid import TrsmGrid
 from repro_torch.core.precision import PrecisionPolicy
@@ -662,11 +663,13 @@ class Solver:
         returned in the rank B was given.  ``donate`` is accepted for
         the reference's signature: the sweep never writes the caller's
         B, so it changes nothing."""
-        B, squeeze = self._lift(torch.as_tensor(B,
-                                                device=self.grid.device))
-        X = self.program_for(B.shape[-1]).solve(self.bank.stacks(), B,
-                                                valid=self.bank.valid)
-        return X[0] if squeeze else X
+        with trace.span("solver.solve"):
+            B, squeeze = self._lift(torch.as_tensor(
+                B, device=self.grid.device))
+            with trace.span("solver.plan"):
+                program = self.program_for(B.shape[-1])
+            X = program.solve(self.bank.stacks(), B, valid=self.bank.valid)
+            return X[0] if squeeze else X
 
     def warmup(self, k: int) -> "Solver":
         """Build (and run once on zeros) the program for RHS width k at

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import blocked, cholesky
+from repro_torch.core import blocked, cholesky, trace
 from repro_torch.core import precision as preclib
 from repro_torch.kernels.ops import block_inv_kernel
 from repro_torch.optim.adamw import Optimizer, adamw, \
@@ -202,7 +202,6 @@ def factor_banks_from_state(state, *, damping: float = 1e-3,
     for one built from :func:`fleet_plan_from_state`'s plan, admits
     every factor into its planned bucket under ``tenant`` with its tag;
     then the return is ``(fleet, {tag: FleetHandle})``."""
-    from repro_torch.core import bank as banklib
     from repro_torch.core.grid import make_trsm_mesh
 
     preclib.pin_matmul_numerics()
@@ -227,6 +226,17 @@ def factor_banks_from_state(state, *, damping: float = 1e-3,
                     tag=(name, side, u))
         return fleet, handles
 
+    with trace.span("kfac.bank", sync=grid.device):
+        return _bank_factors(state, grid, damping=damping,
+                             precision=precision, method=method, n0=n0,
+                             map_mode=map_mode, capacity=capacity)
+
+
+def _bank_factors(state, grid, *, damping, precision, method, n0,
+                  map_mode, capacity):
+    """:func:`factor_banks_from_state` into one bank per order."""
+    from repro_torch.core import bank as banklib
+
     counts = _kron_order_counts(state)
 
     def _cap(d):
@@ -242,7 +252,8 @@ def factor_banks_from_state(state, *, damping: float = 1e-3,
     manifest: dict[int, list] = {}
     for name, side, M in _iter_kron_factors(state):
         d = M.shape[-1]
-        L = _damped_chol(M, damping)
+        with trace.span("kfac.cholesky", sync=grid.device):
+            L = _damped_chol(M, damping)
         if d not in banks:
             banks[d] = banklib.FactorBank(
                 grid, d, method=method, n0=n0,

@@ -1723,3 +1723,59 @@ def test_sharded_kfac_train_step_on_two_ranks(cuda):
         assert launches > 0
         assert err <= 1e-5
         assert abs(loss - one) <= 1e-5 * abs(one)
+
+
+@pytest.mark.gpu
+def test_traced_solve_waits_on_nothing(cuda):
+    """With the program's spans on, K-FAC banks built on the card (their
+    ``sync=`` spans wait for the banking) and a warmed bf16_refine
+    ``Solver.solve`` on each under sync-debug "error": no span
+    synchronizes the solve, every span is recorded, and the answers are
+    bit for bit those of the untraced solve."""
+    import importlib
+
+    from repro_torch import api
+    from repro_torch.core import trace
+    from repro_torch.optim.tree import tree_map
+    kfac = importlib.import_module("repro_torch.optim.kfac_ca")
+    g = torch.Generator(device=cuda).manual_seed(17)
+    params = {"w": torch.randn((512, 256), generator=g, device=cuda),
+              "stack": torch.randn((3, 512, 256), generator=g,
+                                   device=cuda)}
+    opt = kfac.kfac_ca()
+    state = opt.init(params)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=g,
+                                           device=cuda), params)
+    _, state, _ = opt.update(grads, state, params)
+    trace.take()
+    trace.enable()
+    try:
+        banks, _ = kfac.factor_banks_from_state(
+            state, grid=api.make_trsm_mesh(1, 1), precision="bf16_refine")
+        solvers = {d: api.Solver.from_bank(b).warmup(64)
+                   for d, b in banks.items()}
+        B = {d: torch.randn((s.width, d, 64), generator=g, device=cuda)
+             for d, s in solvers.items()}
+        torch.cuda.synchronize()
+        set_up = trace.take()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            on = {d: s.solve(B[d]) for d, s in solvers.items()}
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    finally:
+        trace.disable()
+    spans = trace.take()
+    off = {d: s.solve(B[d]) for d, s in solvers.items()}
+    torch.cuda.synchronize()
+    assert all(torch.equal(on[d], off[d]) for d in solvers)
+    names = [s.name for s in set_up]
+    assert names.count("kfac.bank") == 1
+    assert names.count("kfac.cholesky") == 4
+    steps = solvers[512].policy.refine_steps
+    got = {n: sum(s.name == n for s in spans) for n in
+           ("solver.solve", "solver.plan", "refine.sweep",
+            "refine.residual", "program.build")}
+    assert got == {"solver.solve": 2, "solver.plan": 2,
+                   "refine.sweep": 2 * (1 + steps),
+                   "refine.residual": 2 * steps, "program.build": 0}
